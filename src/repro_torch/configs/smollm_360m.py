@@ -1,0 +1,14 @@
+"""SmolLM-360M — llama-arch small dense GQA [hf:HuggingFaceTB/SmolLM-360M]."""
+from repro_torch.configs.base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="smollm-360m",
+    family="dense",
+    n_layers=32,
+    d_model=960,
+    n_heads=15,
+    n_kv_heads=5,
+    d_ff=2560,
+    vocab_size=49152,
+    tie_embeddings=True,
+))

@@ -1,0 +1,27 @@
+"""Hand-written Hopper kernels of the port, one wrapper each.
+
+Each wrapper has a plain PyTorch version beside it (``ref.py``) that it runs
+for CPU tensors, and a launch count (``wrapper.launches``) that grows by one
+per kernel launch and nowhere else.  The model calls the wrappers through
+this module, so a test can substitute a spy for any of them.
+"""
+from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.fused import residual_rmsnorm, rmsnorm_matmul
+
+WRAPPERS = {
+    "decode_attention": decode_attention,
+    "flash_attention": flash_attention,
+    "residual_rmsnorm": residual_rmsnorm,
+    "rmsnorm_matmul": rmsnorm_matmul,
+}
+
+
+def launch_counts() -> dict:
+    """Kernel launches per wrapper since the last reset."""
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0

@@ -1,0 +1,49 @@
+"""Wrapper of the fused residual-add + RMSNorm CUDA kernel
+(``csrc/residual_rmsnorm.cu``).
+
+A CPU tensor runs the plain version (``ref.py``); a CUDA tensor launches
+the kernel or raises.  ``residual_rmsnorm.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.fused.residual_rmsnorm.ref import residual_rmsnorm_ref
+
+_ARGS = [build.P, build.P, build.P, build.P, build.P, build.I, build.I,
+         build.F, build.I, build.P]
+
+
+def residual_rmsnorm(x, weight, residual=None, *, eps: float = 1e-5):
+    """x: (..., D) -> (normed, pre-norm sum), both in x's dtype.
+
+    Without a residual the pre-norm sum is the input itself: ``x`` is
+    returned and the kernel writes only the normed rows.
+    """
+    if x.device.type == "cpu":
+        return residual_rmsnorm_ref(x, weight, residual, eps)
+    tensors = (x, weight) if residual is None else (x, weight, residual)
+    build.require_cuda("residual_rmsnorm", *tensors)
+    d = x.shape[-1]
+    if weight.shape != (d,) or any(t.dtype != x.dtype for t in tensors):
+        raise ValueError("residual_rmsnorm: weight must be (D,) and all "
+                         "tensors of one dtype")
+    if residual is not None and residual.shape != x.shape:
+        raise ValueError(f"residual_rmsnorm: residual {tuple(residual.shape)}"
+                         f" != x {tuple(x.shape)}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("residual_rmsnorm: tensors must be contiguous")
+    out = torch.empty_like(x)
+    total = None if residual is None else torch.empty_like(x)
+    fn = build.function("residual_rmsnorm_launch", _ARGS)
+    code = fn(x.data_ptr(), None if residual is None else residual.data_ptr(),
+              weight.data_ptr(), out.data_ptr(),
+              None if total is None else total.data_ptr(),
+              x.numel() // d, d, eps, build.dtype_code(x), build.stream_ptr(x))
+    build.check(code, "residual_rmsnorm")
+    residual_rmsnorm.launches += 1
+    return out, (x if residual is None else total)
+
+
+residual_rmsnorm.launches = 0

@@ -1,0 +1,3 @@
+from repro_torch.models.transformer import (  # noqa: F401
+    check_supported, forward, init_params, make_cache,
+)

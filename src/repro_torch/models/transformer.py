@@ -1,0 +1,122 @@
+"""Decoder-only transformer: parameters, KV cache and forward.
+
+Counterpart of ``repro/models/transformer.py`` for the block pattern
+``("attn",)`` (dense GQA decoders such as SmolLM-360M).  The layer stack is
+a Python loop over per-layer parameter dicts (``params["blocks"][i]``);
+``bridge.params_from_jax`` unstacks the reference's superblock axis into
+that list.
+
+The forward computes the reference function, with its hot spots routed
+through the hand-written kernels exactly where the reference's fused launch
+plan substitutes its Pallas kernels (``repro/runtime/rules.py``).  Per
+forward at L layers:
+
+  * ``rmsnorm_matmul(x, norm1, wq) -> (q, h)``, L times (``h @ wk`` and
+    ``h @ wv`` stay ``torch.matmul``);
+  * ``decode_attention`` (decode) or ``flash_attention`` (prefill), L times;
+  * ``residual_rmsnorm(x, norm2, residual=attn_out)``, L times;
+  * ``residual_rmsnorm(x, final_norm)``, once.
+
+The large plain products (wk, wv, wo, the MLP, the unembed) stay
+``torch.matmul``, as the reference leaves them to XLA.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch import kernels
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.layers import attention as attn
+from repro_torch.layers.common import (dense_init, embed_tokens, mlp_fwd,
+                                       mlp_init, unembed)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for model features this slice of the port does not run."""
+    if tuple(cfg.block_pattern) != ("attn",):
+        raise NotImplementedError(
+            f"{cfg.name}: block pattern {cfg.block_pattern} not ported yet, "
+            "see ROADMAP Queue A items 2 and 10")
+    unported = [name for name, on in (
+        ("moe", cfg.moe is not None), ("encoder", cfg.n_encoder_layers > 0),
+        ("frontend", cfg.frontend != "none"), ("qkv_bias", cfg.qkv_bias),
+        ("attn_softcap", cfg.attn_softcap != 0.0)) if on]
+    if unported:
+        raise NotImplementedError(
+            f"{cfg.name}: {unported} not ported yet, see ROADMAP Queue A "
+            "items 2 and 10")
+
+
+def _layer_init(gen, cfg: ModelConfig, device) -> dict:
+    ones = torch.ones(cfg.d_model, dtype=cfg.pdtype, device=device)
+    return {"norm1": {"scale": ones.clone()},
+            "mixer": attn.attention_init(gen, cfg, device),
+            "norm2": {"scale": ones.clone()},
+            "mlp": mlp_init(gen, cfg, device)}
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, *,
+                device="cuda") -> dict:
+    """Random weights drawn from ``generator`` (on its own device), placed
+    on ``device``.  Same shapes and scales as the reference's init."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    p = {
+        "embed": dense_init(generator, (cfg.vocab_size, cfg.d_model),
+                            cfg.pdtype, dev),
+        "blocks": [_layer_init(generator, cfg, dev)
+                   for _ in range(cfg.n_layers)],
+        "final_norm": {"scale": torch.ones(cfg.d_model, dtype=cfg.pdtype,
+                                           device=dev)},
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(generator, (cfg.d_model, cfg.vocab_size),
+                                  cfg.pdtype, dev)
+    return p
+
+
+def make_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=None,
+               device="cuda") -> list:
+    """Per-layer contiguous KV cache: [{"k","v"}: (B, T, HKV, hd)] * L."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    return [attn.make_self_cache(cfg, batch, max_len, dtype or cfg.cdtype,
+                                 dev) for _ in range(cfg.n_layers)]
+
+
+def forward(params, tokens, cfg: ModelConfig, *, cache: Optional[list] = None,
+            cache_index: int = 0, lengths=None):
+    """Returns (logits f32 (B,S,V), cache).
+
+    ``cache``: from ``make_cache``, updated in place (and returned).
+    ``cache_index``: prefill write offset (no ``lengths``).
+    ``lengths``: (B,) per-row positions for continuous-batching decode,
+    best as a host array; row b's token is written at ``lengths[b]`` and
+    attends to positions ``<= lengths[b]``.  A write past the cache is
+    dropped, as in the reference.
+    """
+    check_supported(cfg)
+    embed = params["embed"]
+    dev = embed.device
+    tokens = torch.as_tensor(tokens).to(dev)
+    b, s = tokens.shape
+    if lengths is not None and cache is None:
+        raise ValueError("lengths= (decode) needs a cache")
+    max_len = cache[0]["k"].shape[1] if cache is not None else None
+    ctx = attn.attention_context(cfg, b, s, dev, cache_index=cache_index,
+                                 lengths=lengths, max_len=max_len)
+    eps = cfg.norm_eps
+    x = embed_tokens(embed, tokens, cfg).to(cfg.cdtype)
+    for i, bp in enumerate(params["blocks"]):
+        q, h = kernels.rmsnorm_matmul(x, bp["norm1"]["scale"],
+                                      bp["mixer"]["wq"], eps=eps)
+        o = attn.attention_fwd(bp["mixer"], h, q, cfg, ctx,
+                               cache=None if cache is None else cache[i])
+        h, x = kernels.residual_rmsnorm(x, bp["norm2"]["scale"], residual=o,
+                                        eps=eps)
+        x = x + mlp_fwd(bp["mlp"], h, cfg)
+    x, _ = kernels.residual_rmsnorm(x, params["final_norm"]["scale"], eps=eps)
+    return unembed(x, embed, params.get("lm_head"), cfg), cache

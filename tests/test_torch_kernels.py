@@ -1,0 +1,193 @@
+"""Plain versions of the port's kernels against the reference's Pallas ops.
+
+Each ``repro_torch.kernels`` wrapper given CPU tensors runs its plain
+PyTorch version; it is held against the JAX op in interpret mode and the
+JAX ``ref.py`` on the same numpy inputs, over a subset of the grids of
+``tests/test_kernels.py`` and ``tests/test_fused_kernels.py``.  Tolerance:
+2e-5 (f32) and 2e-2 (bf16), absolute and relative, as in those tests.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.decode_attention.ops import decode_attention as jx_decode
+from repro.kernels.decode_attention.ref import decode_attention_ref as jx_dref
+from repro.kernels.flash_attention.ops import flash_attention as jx_flash
+from repro.kernels.flash_attention.ref import attention_ref as jx_fref
+from repro.kernels.fused import residual_rmsnorm as jx_res
+from repro.kernels.fused import rmsnorm_matmul as jx_rmm
+from repro.kernels.fused.residual_rmsnorm.ref import residual_rmsnorm_ref
+from repro.kernels.fused.rmsnorm_matmul.ref import rmsnorm_matmul_ref
+from repro.layers.common import rmsnorm as jx_rmsnorm
+from repro_torch import kernels
+
+torch.set_num_threads(2)
+DTYPES = {"f32": (jnp.float32, torch.float32, 2e-5),
+          "bf16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def _pair(shape, dt, seed, scale=1.0, shift=0.0):
+    """The same values as a JAX array and a torch tensor of dtype ``dt``."""
+    a = (np.random.default_rng(seed).standard_normal(shape) * scale
+         + shift).astype(np.float32)
+    jdt, tdt, _ = DTYPES[dt]
+    return jnp.asarray(a, jdt), torch.from_numpy(a).to(tdt)
+
+
+def _close(port, ref, tol):
+    np.testing.assert_allclose(port.float().numpy(),
+                               np.asarray(ref, np.float32),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 2, 64, 64, 32),
+                                   (1, 6, 2, 37, 37, 16),
+                                   (1, 4, 1, 33, 65, 112)])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_attention_plain(shape, dt):
+    b, hq, hkv, s, t, hd = shape
+    jq, q = _pair((b, hq, s, hd), dt, 0)
+    jk, k = _pair((b, hkv, t, hd), dt, 1)
+    jv, v = _pair((b, hkv, t, hd), dt, 2)
+    out = kernels.flash_attention(q, k, v, scale=0.2)
+    tol = DTYPES[dt][2]
+    _close(out, jx_flash(jq, jk, jv, scale=0.2, block_q=32, block_kv=32),
+           tol)
+    _close(out, jx_fref(jq, jk, jv, scale=0.2), tol)
+
+
+@pytest.mark.parametrize("window,cap,kv_len", [(16, 0.0, None),
+                                               (0, 8.0, None),
+                                               (16, 8.0, 40)])
+def test_flash_attention_plain_masks(window, cap, kv_len):
+    jq, q = _pair((1, 4, 64, 32), "f32", 3)
+    jk, k = _pair((1, 2, 64, 32), "f32", 4)
+    jv, v = _pair((1, 2, 64, 32), "f32", 5)
+    kw = dict(scale=0.2, causal=True, window=window, softcap=cap)
+    out = kernels.flash_attention(q, k, v, kv_len, **kw)
+    _close(out, jx_flash(jq, jk, jv, kv_len, block_q=16, block_kv=16, **kw),
+           2e-5)
+    _close(out, jx_fref(jq, jk, jv, kv_len=kv_len, **kw), 2e-5)
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 2, 128, 32), (3, 6, 3, 96, 16)])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_decode_attention_plain(shape, dt):
+    b, hq, hkv, t, hd = shape
+    jq, q = _pair((b, hq, hd), dt, 0)
+    jk, k = _pair((b, hkv, t, hd), dt, 1)
+    jv, v = _pair((b, hkv, t, hd), dt, 2)
+    tol = DTYPES[dt][2]
+    for kv_len in (t, t // 2, 5):
+        out = kernels.decode_attention(q, k, v, kv_len, scale=0.2)
+        _close(out, jx_decode(jq, jk, jv, kv_len, scale=0.2, block_kv=64),
+               tol)
+        _close(out, jx_dref(jq, jk, jv, kv_len, scale=0.2), tol)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_decode_attention_plain_per_row_lengths(dt):
+    """Per-row kv_lens over the engine's (B,T,HKV,hd) cache layout, read
+    as a transposed view, against a per-row loop of the JAX op."""
+    b, hq, hkv, t, hd = 3, 6, 3, 40, 16
+    jq, q = _pair((b, hq, hd), dt, 0)
+    jk, k = _pair((b, hkv, t, hd), dt, 1)
+    jv, v = _pair((b, hkv, t, hd), dt, 2)
+    lens = [1, 17, 40]
+    k_cache = k.transpose(1, 2).contiguous()          # (B,T,HKV,hd)
+    v_cache = v.transpose(1, 2).contiguous()
+    out = kernels.decode_attention(q, k_cache.transpose(1, 2),
+                                   v_cache.transpose(1, 2),
+                                   torch.tensor(lens, dtype=torch.int32),
+                                   scale=0.25)
+    for row, n in enumerate(lens):
+        sl = slice(row, row + 1)
+        ref = jx_decode(jq[sl], jk[sl], jv[sl], n, scale=0.25, block_kv=64)
+        _close(out[sl], ref, DTYPES[dt][2])
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 64), (2, 3, 32), (5, 128)])
+def test_residual_rmsnorm_plain(shape):
+    d = shape[-1]
+    jx, x = _pair(shape, "f32", 0)
+    jr, r = _pair(shape, "f32", 1)
+    jw, w = _pair((d,), "f32", 2)
+    y, s = kernels.residual_rmsnorm(x, w, r)
+    jy, js = jx_res(jx, jw, jr)
+    _close(y, jy, 2e-5)
+    _close(s, js, 2e-5)
+    ry, rs = residual_rmsnorm_ref(jx.reshape(-1, d), jw, jr.reshape(-1, d))
+    _close(y.reshape(-1, d), ry, 2e-5)
+    _close(s.reshape(-1, d), rs, 2e-5)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_residual_rmsnorm_plain_without_residual(dt):
+    """Without a residual: the JAX op, layers.common.rmsnorm, and the input
+    itself returned as the sum."""
+    jx, x = _pair((4, 1, 48), dt, 0)
+    jw, w = _pair((48,), dt, 1, shift=1.0)
+    y, s = kernels.residual_rmsnorm(x, w)
+    tol = DTYPES[dt][2]
+    _close(y, jx_res(jx, jw)[0], tol)
+    _close(y, jx_rmsnorm(jx, jw), tol)
+    assert s is x
+
+
+@pytest.mark.parametrize("n,d,f", [(1, 64, 128), (7, 32, 48), (16, 64, 64)])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_rmsnorm_matmul_plain(n, d, f, dt):
+    jx, x = _pair((n, d), dt, 0)
+    jw, w = _pair((d,), dt, 1)
+    jp, p = _pair((d, f), dt, 2, scale=d ** -0.5)
+    y, normed = kernels.rmsnorm_matmul(x, w, p)
+    jy, jn = jx_rmm(jx, jw, jp)
+    tol = DTYPES[dt][2]
+    _close(y, jy, tol)
+    _close(normed, jn, tol)
+    ry, rn = rmsnorm_matmul_ref(jx, jw, jp)
+    _close(y, ry, tol)
+    _close(normed, rn, tol)
+
+
+def test_masked_rows_stay_finite():
+    """The finite NEG_INF mask: a row with no valid position softmaxes
+    uniformly (the mean of V), as the reference does, never NaN."""
+    jq, q = _pair((2, 2, 16), "f32", 0)
+    jk, k = _pair((2, 1, 8, 16), "f32", 1)
+    jv, v = _pair((2, 1, 8, 16), "f32", 2)
+    out = kernels.decode_attention(q, k, v, 0, scale=0.25)
+    _close(out, jx_dref(jq, jk, jv, 0, scale=0.25), 2e-5)
+    mean_v = v.mean(dim=2, keepdim=True).expand(2, 1, 2, 16)
+    torch.testing.assert_close(out, mean_v.reshape(2, 2, 16))
+
+
+def test_cpu_calls_launch_nothing():
+    before = kernels.launch_counts()
+    x = torch.randn(2, 8)
+    kernels.residual_rmsnorm(x, torch.ones(8))
+    kernels.rmsnorm_matmul(x, torch.ones(8), torch.randn(8, 4))
+    assert kernels.launch_counts() == before
+
+
+@pytest.mark.parametrize("name", sorted(kernels.WRAPPERS))
+def test_wrappers_never_fall_back_off_the_cpu(name):
+    """A tensor that is neither on the CPU nor on a CUDA device (``meta``
+    here, where no GPU exists) is refused, not run by the plain version."""
+    meta = dict(device="meta")
+    args = {
+        "decode_attention": (torch.empty(1, 2, 16, **meta),
+                             torch.empty(1, 1, 8, 16, **meta),
+                             torch.empty(1, 1, 8, 16, **meta)),
+        "flash_attention": (torch.empty(1, 2, 4, 16, **meta),
+                            torch.empty(1, 1, 4, 16, **meta),
+                            torch.empty(1, 1, 4, 16, **meta)),
+        "residual_rmsnorm": (torch.empty(2, 8, **meta),
+                             torch.empty(8, **meta)),
+        "rmsnorm_matmul": (torch.empty(2, 8, **meta), torch.empty(8, **meta),
+                           torch.empty(8, 4, **meta)),
+    }[name]
+    kw = {"scale": 1.0} if "attention" in name else {}
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.WRAPPERS[name](*args, **kw)
