@@ -11,13 +11,28 @@ Phases (any failure exits non-zero before a result is printed):
      bucket; the norms at both the decode rows (4 x 1) and a slot's
      prefill rows (1 x 16)) in f32 and bf16, and time kernel, plain
      version and, where one PyTorch call computes the same function, that
-     call;
-  3. full-width SmolLM-360M logits in f32, kernels against plain versions,
-     for a prefill and batched decode steps;
-  4. the main path: ``repro_torch.launch.serve`` serving full-width
-     SmolLM-360M in bf16 (8 requests, max_batch 4), with every kernel's
-     launch count reset just before and read just after;
-  5. a profiler trace of decode steps (device time by kernel).
+     call.  The paged kernels run at the paged path's shapes (block size
+     16, 8 blocks per row, a 32-page bf16 pool and a 60-page int8 pool,
+     permuted pages and sentinel table entries), and the bf16 one is also
+     held against the contiguous kernel on the same logical KV;
+  3. full-width SmolLM-360M logits in f32, kernels against plain
+     versions, for a prefill and batched decode steps; then the paged
+     path (a chunked prefill in chunks of 8 and the same decode steps)
+     against the contiguous path, both through the kernels;
+  4. the first main path: ``repro_torch.launch.serve`` serving full-width
+     SmolLM-360M in bf16 on the contiguous cache (8 requests, max_batch
+     4), with every kernel's launch count reset just before and read just
+     after;
+  5. a profiler trace of decode steps (device time by kernel, host ops by
+     self time);
+  6. the second main path: the same serve command with ``--cache paged
+     --block-size 16``, the launches checked per decode step and per
+     prefill chunk, then a trace of its decode step as in phase 5;
+  7. the third: ``ServeEngine`` on full-width SmolLM-360M with an int8
+     paged pool too small for the load (prefix sharing, chunked prefill,
+     host offload), which must preempt, offload, restore and share and
+     serve the tokens the same requests get from a pool that never
+     preempts, then a trace of its decode step.
 
 Then it prints the ``{"kernels": [...]}`` line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It needs the repository
@@ -41,9 +56,17 @@ TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
 LOGIT_TOL_F32 = 1e-3               # full model, f32, other summation order
 LOGIT_TOL_BF16 = 0.25              # full model, bf16 rounding at other points
 ARCH, MAX_BATCH, MAX_LEN, BUCKET, N_REQ = "smollm-360m", 4, 128, 16, 8
+BLOCK, CHUNK = 16, 8               # paged path: tokens per page, per chunk
+POOL_PAGES = {"bf16": 32, "int8": 60}   # default_num_blocks at hd 64
 KERNEL_INFO = {
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention/kernel.py:228"),
+    "paged_decode_attention": (
+        "src/repro_torch/csrc/paged_decode_attention.cu",
+        "src/repro/kernels/decode_attention/kernel.py:211"),
+    "paged_decode_attention_quant": (
+        "src/repro_torch/csrc/paged_decode_attention.cu",
+        "src/repro/kernels/decode_attention/kernel.py:170"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:91"),
     "residual_rmsnorm": ("src/repro_torch/csrc/residual_rmsnorm.cu",
@@ -79,19 +102,25 @@ import torch.nn.functional as F                            # noqa: E402
 from repro_torch import kernels                            # noqa: E402
 from repro_torch.configs import get_config                 # noqa: E402
 from repro_torch.kernels import build                      # noqa: E402
-from repro_torch.kernels.decode_attention.ref import \
-    decode_attention_ref                                   # noqa: E402
+from repro_torch.inference.engine import Request, ServeEngine  # noqa: E402
+from repro_torch.inference.kv_quant import quantize_kv     # noqa: E402
+from repro_torch.kernels.decode_attention.ref import (     # noqa: E402
+    decode_attention_ref, paged_decode_attention_quant_ref,
+    paged_decode_attention_ref)
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.fused.residual_rmsnorm.ref import \
     residual_rmsnorm_ref                                   # noqa: E402
 from repro_torch.kernels.fused.rmsnorm_matmul.ref import \
     rmsnorm_matmul_ref                                     # noqa: E402
 from repro_torch.launch import serve                       # noqa: E402
-from repro_torch.models import forward, init_params, make_cache  # noqa: E402
+from repro_torch.models import (forward, init_params, make_cache,  # noqa: E402
+                                make_paged_cache)
 
 DEV = torch.device("cuda", 0)
 PLAINS = {"decode_attention": decode_attention_ref,
           "flash_attention": attention_ref,
+          "paged_decode_attention": paged_decode_attention_ref,
+          "paged_decode_attention_quant": paged_decode_attention_quant_ref,
           "residual_rmsnorm": residual_rmsnorm_ref,
           "rmsnorm_matmul": rmsnorm_matmul_ref}
 
@@ -202,12 +231,28 @@ def phase_build() -> None:
 
 
 # ------------------------------------------------------------------ phase 2
+def paged_table(lens, n_pages, seed) -> torch.Tensor:
+    """(B, MAX_LEN // BLOCK) int32 block table: each row's pages drawn from
+    a permutation of the pool, entries past a row's length the sentinel
+    ``n_pages``, as the engine builds them."""
+    perm = np.random.default_rng(seed).permutation(n_pages)
+    table = np.full((len(lens), MAX_LEN // BLOCK), n_pages, np.int32)
+    nxt = 0
+    for row, n in enumerate(lens):
+        for i in range(-(-n // BLOCK)):
+            table[row, i] = perm[nxt]
+            nxt += 1
+    return torch.from_numpy(table).to(DEV)
+
+
 def main_path_cases(cfg, dtype):
     """Inputs of each kernel at the shapes the main path gives it, with the
     bytes and flops the call needs on these inputs.  A key ``name[variant]``
     is another call of kernel ``name``: without a residual, or at a slot's
     prefill rows (1, BUCKET, d), where ``rmsnorm_matmul`` runs two row
-    tiles."""
+    tiles.  The paged kernels read the valid pages of each row; the bf16
+    one is also held against the contiguous kernel on the same logical
+    KV (``contiguous``)."""
     b, d, hq, hkv, hd = MAX_BATCH, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, \
         cfg.hd
     es = torch.tensor([], dtype=dtype).element_size()
@@ -231,7 +276,42 @@ def main_path_cases(cfg, dtype):
     rp = randn((1, BUCKET, d), dtype, 12)
     pairs = BUCKET * (BUCKET + 1) // 2
     f = hq * hd
+    nb = MAX_LEN // BLOCK
+    lens_host = lens.tolist()
+    bt = paged_table(lens_host, POOL_PAGES["bf16"], 13)
+    kp = randn((POOL_PAGES["bf16"], BLOCK, hkv, hd), dtype, 14)
+    vp = randn((POOL_PAGES["bf16"], BLOCK, hkv, hd), dtype, 15)
+    # the same logical KV as a contiguous (B, T, HKV, hd) cache
+    logical = bt.long().clamp(0, POOL_PAGES["bf16"] - 1)
+    ck = kp[logical].reshape(b, nb * BLOCK, hkv, hd)
+    cv = vp[logical].reshape(b, nb * BLOCK, hkv, hd)
+    bt8 = paged_table(lens_host, POOL_PAGES["int8"], 16)
+    kq, ks = quantize_kv(randn((POOL_PAGES["int8"], BLOCK, hkv, hd),
+                               torch.float32, 17))
+    vq, vs = quantize_kv(randn((POOL_PAGES["int8"], BLOCK, hkv, hd),
+                               torch.float32, 18))
+    table_bytes = 4 * b * nb + 4 * b
     return {
+        "paged_decode_attention": dict(
+            call=lambda: kernels.paged_decode_attention(q_dec, kp, vp, bt,
+                                                        lens, scale=scale),
+            plain=lambda: paged_decode_attention_ref(q_dec, kp, vp, bt, lens,
+                                                     scale=scale),
+            contiguous=lambda: kernels.decode_attention(
+                q_dec, ck.transpose(1, 2), cv.transpose(1, 2), lens,
+                scale=scale),
+            library=None,
+            bytes=(2 * b * hq * hd + 2 * n_kv * hkv * hd) * es + table_bytes,
+            flops=4 * n_kv * hq * hd),
+        "paged_decode_attention_quant": dict(
+            call=lambda: kernels.paged_decode_attention_quant(
+                q_dec, kq, vq, ks, vs, bt8, lens, scale=scale),
+            plain=lambda: paged_decode_attention_quant_ref(
+                q_dec, kq, vq, ks, vs, bt8, lens, scale=scale),
+            library=None,
+            bytes=(2 * b * hq * hd * es + 2 * n_kv * hkv * (hd + 4)
+                   + table_bytes),
+            flops=4 * n_kv * hq * hd),
         "decode_attention": dict(
             call=lambda: kernels.decode_attention(q_dec, kt, vt, lens,
                                                   scale=scale),
@@ -298,6 +378,16 @@ def phase_kernels(cfg) -> dict:
             if not err <= bound:
                 fail(f"{name} {dtype}: max |kernel - plain| {err:.3g} > "
                      f"{bound:.3g}")
+            if "contiguous" in c:
+                c_err = max_err(out, c["contiguous"]())
+                if not c_err <= bound:
+                    fail(f"{name} {dtype}: max |paged - contiguous kernel| "
+                         f"{c_err:.3g} > {bound:.3g}")
+                print(f"phase 2: {name} {str(dtype)[6:]}: max |paged - "
+                      f"contiguous kernel| on the same logical KV {c_err:.3g}"
+                      f" (<= {bound:.3g})")
+                rows.setdefault(name, {})[
+                    f"vs_contiguous_max_abs_err_{str(dtype)[6:]}"] = c_err
             k_ms, k_host = time_ms(c["call"])
             p_ms, p_host = time_ms(c["plain"])
             lib_ms = time_ms(c["library"])[0] if c["library"] else None
@@ -361,14 +451,86 @@ def phase_logits_f32(cfg) -> None:
     print(f"phase 3: full-width {cfg.name} f32 ({cfg.n_layers} layers), "
           f"prefill (4 x {BUCKET}) + 3 decode steps: max |kernel - plain| "
           f"logits {max(errs):.3g} (<= {LOGIT_TOL_F32}), argmax agrees")
-    del params
+
+    # the paged path through its kernels against the contiguous one: each
+    # row's prompt in chunks of CHUNK, then the same ragged decode steps
+    n_pages = MAX_BATCH * (MAX_LEN // BLOCK)
+    cache = make_paged_cache(cfg32, n_pages, BLOCK, device=DEV)
+    tables = np.full((MAX_BATCH, MAX_LEN // BLOCK), n_pages, np.int32)
+    tables[:, :2] = np.random.default_rng(1).permutation(n_pages)[
+        :2 * MAX_BATCH].reshape(MAX_BATCH, 2)          # 32 positions a row
+    n0 = kernels.launch_counts()
+    pre = torch.empty_like(out["kernel"][0])
+    for r in range(MAX_BATCH):
+        for t0 in range(0, BUCKET, CHUNK):
+            lg, cache = forward(params, prompt[r:r + 1, t0:t0 + CHUNK], cfg32,
+                                cache=cache, cache_index=t0,
+                                block_tables=tables[r:r + 1])
+            pre[r, t0:t0 + CHUNK] = lg[0]
+    got = [pre]
+    for i, tok in enumerate(steps):
+        lg, cache = forward(params, torch.from_numpy(tok), cfg32, cache=cache,
+                            lengths=lens0 + i, block_tables=tables)
+        got.append(lg)
+    n1 = kernels.launch_counts()
+    L = cfg.n_layers
+    if (n1["paged_decode_attention"] - n0["paged_decode_attention"] != 3 * L
+            or n1["flash_attention"] - n0["flash_attention"]
+            != MAX_BATCH * (BUCKET // CHUNK) * L):
+        fail(f"phase 3 paged path launches {n0} -> {n1}")
+    errs = [compare_logits(a, b, LOGIT_TOL_F32,
+                           f"f32 paged vs contiguous logits call {i}")
+            for i, (a, b) in enumerate(zip(got, out["kernel"]))]
+    print(f"phase 3: paged path (block {BLOCK}, chunks of {CHUNK}, then the "
+          f"same 3 decode steps) vs the contiguous path, both with kernels: "
+          f"max |paged - contiguous| logits {max(errs):.3g} "
+          f"(<= {LOGIT_TOL_F32}), argmax agrees")
+    del params, cache
     torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------------ phase 4
-def phase_serve(cfg) -> tuple:
+def want_launches(cfg, attention: str) -> tuple:
+    """Hand-written kernel launches per decode step (``attention`` is the
+    decode attention kernel of the path) and per prefill call."""
+    L = cfg.n_layers
+    zero = {name: 0 for name in kernels.WRAPPERS}
+    norms = {"residual_rmsnorm": L + 1, "rmsnorm_matmul": L}
+    return ({**zero, **norms, attention: L},
+            {**zero, **norms, "flash_attention": L})
+
+
+def check_first_tokens(eng, done, cfg) -> int:
+    """The served first tokens against the plain versions on the same bf16
+    weights: they may differ only where the plain top-2 gap is below
+    LOGIT_TOL_BF16.  Returns how many agree."""
+    width = max(len(r.prompt) for r in done)
+    prompts = np.zeros((len(done), width), np.int64)
+    order = sorted(done, key=lambda r: r.rid)
+    for i, r in enumerate(order):
+        prompts[i, :len(r.prompt)] = r.prompt
+    first = torch.tensor([r.generated[0] for r in order], device=DEV)
+    with plain_kernels():
+        logits, _ = forward(eng.params, torch.from_numpy(prompts), cfg)
+    last = torch.tensor([len(r.prompt) - 1 for r in order], device=DEV)
+    plain = logits[torch.arange(len(order), device=DEV), last]
+    top2 = plain.topk(2, dim=-1).values
+    flips = (plain.argmax(-1) != first) & (top2[:, 0] - top2[:, 1]
+                                           >= LOGIT_TOL_BF16)
+    if flips.any():
+        fail(f"{int(flips.sum())} served first tokens disagree with the "
+             f"plain bf16 forward where its top-2 gap >= {LOGIT_TOL_BF16}")
+    return int((plain.argmax(-1) == first).sum())
+
+
+def phase_serve(cfg, phase: int, extra=()) -> tuple:
+    """``repro_torch.launch.serve`` at full width in bf16 (warmup + measured
+    run), with every launch count reset just before and read just after.
+    ``extra`` selects the cache; the launches must match the path's table
+    per decode step and per prefill call (a prefill chunk when paged)."""
     argv = ["--arch", ARCH, "--requests", str(N_REQ), "--max-batch",
-            str(MAX_BATCH), "--max-len", str(MAX_LEN), "--device", "cuda"]
+            str(MAX_BATCH), "--max-len", str(MAX_LEN), "--device", "cuda",
+            *extra]
     buf = io.StringIO()
     kernels.reset_launch_counts()
     with contextlib.redirect_stdout(buf):
@@ -376,7 +538,7 @@ def phase_serve(cfg) -> tuple:
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     rep = json.loads(buf.getvalue().strip().splitlines()[-1])
-    print(f"phase 4: serve {' '.join(argv)}")
+    print(f"phase {phase}: serve {' '.join(argv)}")
     print(f"  report {json.dumps(rep)}")
     print(f"  launches (warmup + measured run) {counts}")
     L = cfg.n_layers
@@ -387,48 +549,33 @@ def phase_serve(cfg) -> tuple:
         if len(r.generated) != 16 or not all(
                 0 <= t < cfg.vocab_size for t in r.generated):
             fail(f"request {r.rid} generated {r.generated}")
-    want_step = {"decode_attention": L, "flash_attention": 0,
-                 "residual_rmsnorm": L + 1, "rmsnorm_matmul": L}
+    paged = eng.kv is not None
+    want_step, want_pre = want_launches(
+        cfg, "paged_decode_attention" if paged else "decode_attention")
     if st.kernel_launches_per_decode_step != want_step:
         fail(f"launches per decode step {st.kernel_launches_per_decode_step}"
              f" != {want_step}")
-    if st.prefill_kernel_launches != st.prefills * (3 * L + 1):
+    n_pre = st.prefill_chunks if paged else st.prefills
+    if st.prefill_kernel_launches != n_pre * (3 * L + 1):
         fail(f"prefill launches {st.prefill_kernel_launches} != "
-             f"{st.prefills} x {3 * L + 1}")
+             f"{n_pre} x {3 * L + 1}")
     runs = 2                               # warmup + measured, same schedule
-    want = {"decode_attention": runs * st.decode_steps * L,
-            "flash_attention": runs * st.prefills * L,
-            "residual_rmsnorm": runs * (st.decode_steps + st.prefills)
-            * (L + 1),
-            "rmsnorm_matmul": runs * (st.decode_steps + st.prefills) * L}
+    want = {name: runs * (st.decode_steps * want_step[name]
+                          + n_pre * want_pre[name]) for name in want_step}
     if counts != want:
         fail(f"launch counts {counts} != {want}")
-
-    # first tokens against the plain versions on the same bf16 weights
-    prompts = np.zeros((N_REQ, BUCKET), np.int64)
-    for r in done:
-        prompts[r.rid, :len(r.prompt)] = r.prompt
-    first = torch.tensor([r.generated[0] for r in
-                          sorted(done, key=lambda r: r.rid)], device=DEV)
-    with plain_kernels():
-        logits, _ = forward(eng.params, torch.from_numpy(prompts), cfg)
-    plain = logits[:, len(done[0].prompt) - 1]
-    top2 = plain.topk(2, dim=-1).values
-    flips = (plain.argmax(-1) != first) & (top2[:, 0] - top2[:, 1]
-                                           >= LOGIT_TOL_BF16)
-    if flips.any():
-        fail(f"{int(flips.sum())} served first tokens disagree with the "
-             f"plain bf16 forward where its top-2 gap >= {LOGIT_TOL_BF16}")
-    agree = int((plain.argmax(-1) == first).sum())
+    agree = check_first_tokens(eng, done, cfg)
     print(f"  served first tokens agree with the plain bf16 forward: "
           f"{agree}/{N_REQ}")
     return counts, rep, eng
 
 
 # ------------------------------------------------------------------ phase 5
-def phase_trace(eng) -> None:
-    """Decode-step wall time, and device time by kernel from torch.profiler
-    (kernels run in order on one stream, so their sum is the busy time)."""
+def phase_trace(eng, label: str) -> None:
+    """Decode-step wall time, device time by kernel from torch.profiler
+    (kernels run in order on one stream, so their sum is the busy time) and
+    the host ops with the most self time, for the engine's cache (a paged
+    engine steps rows that own two pages each)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(2)
@@ -436,10 +583,20 @@ def phase_trace(eng) -> None:
                                          (MAX_BATCH, 1)))
     lens = np.array([20, 20, 20, 20])
     steps = 10
+    if eng.kv is None:
+        def step():
+            return eng.backend.decode(eng.cache, toks, lens)
+    else:
+        bt = np.full((MAX_BATCH, eng.kv.nb_per_slot), eng.kv.sentinel,
+                     np.int32)
+        bt[:, :2] = np.arange(2 * MAX_BATCH).reshape(MAX_BATCH, 2)
+
+        def step():
+            return eng.backend.paged_decode(eng.cache, toks, lens, bt)
 
     def run():
         for _ in range(steps):
-            logits, _ = eng.backend.decode(eng.cache, toks, lens)
+            logits, _ = step()
             logits.cpu()                   # the engine's host argmax sync
 
     run()
@@ -452,7 +609,7 @@ def phase_trace(eng) -> None:
         run()
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kern:
-        print(f"phase 5: decode step wall {wall_ms:.3f} ms; the profiler "
+        print(f"{label}: decode step wall {wall_ms:.3f} ms; the profiler "
               "reported no device events: device time not measured")
         return
     by = {}
@@ -461,22 +618,184 @@ def phase_trace(eng) -> None:
         by[e.name] = (t + e.time_range.elapsed_us(), n + 1)
     busy_ms = sum(t for t, _ in by.values()) / steps / 1e3
     n_kern = sum(n for _, n in by.values()) / steps
-    print(f"phase 5: decode step (batch {MAX_BATCH}, kv len 20): wall "
+    print(f"{label}: decode step (batch {MAX_BATCH}, kv len 20): wall "
           f"{wall_ms:.3f} ms/step unprofiled; profiled: device busy "
           f"{busy_ms:.3f} ms/step ({busy_ms / wall_ms:.1%} of the unprofiled "
           f"wall), {n_kern:.0f} device kernels/step")
     for name, (t, n) in sorted(by.items(), key=lambda kv: -kv[1][0])[:12]:
         print(f"  {t / steps:9.1f} us/step {n / steps:6.1f}x  {name[:90]}")
+    ops = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+    print("  host ops by profiled self time: " + ", ".join(
+        f"{a.key} {a.self_cpu_time_total / steps:.0f} us/step "
+        f"({a.count / steps:.0f}x)" for a in ops[:8]))
+
+
+# ------------------------------------------------------------------ phase 7
+PRESSURE_BLOCKS = 8        # int8 pool of 8 x 16 tokens for 4 slots of 128
+
+
+def pressure_requests(vocab: int) -> list:
+    """Eight requests, four of which share a 32-token prompt prefix: the
+    first decodes long, so its pages are live when the other three arrive;
+    the rest have 20-token prompts of their own."""
+    rng = np.random.default_rng(3)
+    prefix = [int(t) for t in rng.integers(0, vocab, 32)]
+    shapes = [(True, 48), (False, 8), (False, 8), (False, 8),
+              (True, 16), (True, 16), (True, 16), (False, 16)]
+    reqs = []
+    for rid, (shared, budget) in enumerate(shapes):
+        own = [int(t) for t in rng.integers(0, vocab, 8 if shared else 20)]
+        reqs.append(Request(rid, prompt=(prefix if shared else []) + own,
+                            max_new_tokens=budget))
+    return reqs
+
+
+def plain_int8_logits(params, cfg, toks) -> torch.Tensor:
+    """Next-token logits after ``toks`` through the plain versions over an
+    int8 paged pool of one row, prefilled in chunks of CHUNK as the engine
+    does."""
+    n_pages = -(-len(toks) // BLOCK)
+    cache = make_paged_cache(cfg, n_pages, BLOCK, kv_dtype="int8",
+                             device=DEV)
+    table = np.full((1, MAX_LEN // BLOCK), n_pages, np.int32)
+    table[0, :n_pages] = np.arange(n_pages)
+    with plain_kernels():
+        for t0 in range(0, len(toks), CHUNK):
+            chunk = torch.tensor([toks[t0:t0 + CHUNK]])
+            logits, cache = forward(params, chunk, cfg, cache=cache,
+                                    cache_index=t0, block_tables=table)
+    return logits[0, -1]
+
+
+def check_against_unpressured(done, free_done, params, cfg) -> int:
+    """The pressured run's tokens against a run of the same requests in a
+    pool that never preempts or offloads.  Both runs compute every row
+    alike (decode always steps all MAX_BATCH rows; prefill chunks have the
+    same boundaries), so they should agree token for token.  A request may
+    diverge only where the plain versions over int8 pages put the two
+    tokens within LOGIT_TOL_BF16 of each other; its later tokens are then
+    not compared.  Returns how many requests agree entirely."""
+    free = {r.rid: r for r in free_done}
+    same = 0
+    for r in done:
+        want = free[r.rid].generated
+        i = next((i for i, (a, b) in enumerate(zip(r.generated, want))
+                  if a != b), None)
+        if i is None:
+            same += 1
+            continue
+        logits = plain_int8_logits(params, cfg, r.prompt + want[:i])
+        gap = (logits[want[i]] - logits[r.generated[i]]).abs().item()
+        if not gap < LOGIT_TOL_BF16:
+            fail(f"pool pressure: request {r.rid} token {i} is "
+                 f"{r.generated[i]} under pressure and {want[i]} without; "
+                 f"their plain int8 logits differ by {gap:.3g} >= "
+                 f"{LOGIT_TOL_BF16}")
+    return same
+
+
+def phase_pool_pressure(cfg, params) -> tuple:
+    """``ServeEngine`` at full width with an int8 paged pool too small for
+    the load, chunked prefill, prefix sharing and host offload: a warmup
+    run, then the measured run with the launch counts reset just before.
+    Its tokens are then held against the same requests served from the
+    default int8 pool, where nothing is preempted or offloaded."""
+    opts = dict(max_batch=MAX_BATCH, max_len=MAX_LEN, device=DEV,
+                cache="paged", kv_dtype="int8", block_size=BLOCK,
+                prefill_chunk=CHUNK, share_prefix=True)
+    eng = ServeEngine(cfg, params, offload="host",
+                      num_blocks=PRESSURE_BLOCKS, **opts)
+    eng.run(pressure_requests(cfg.vocab_size))
+    eng.reset()
+    reqs = pressure_requests(cfg.vocab_size)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    st, tier = eng.stats, eng.offload_tier
+    rep = serve.report(eng, done, wall)
+    print(f"phase 7: pool pressure, int8 pages, {PRESSURE_BLOCKS} blocks of "
+          f"{BLOCK}, chunks of {CHUNK}, prefix sharing, host offload")
+    print(f"  report {json.dumps(rep)}")
+    print(f"  launches (measured run) {counts}")
+    if len(done) != len(reqs) or any(
+            r.status != "done" or len(r.generated) != r.max_new_tokens
+            for r in done):
+        fail(f"pool pressure finished {len(done)} of {len(reqs)} requests")
+    if not (st.preemptions > 0 and st.prefix_adoptions > 0
+            and st.offload_bytes == st.restore_bytes > 0):
+        fail(f"pool pressure: preemptions {st.preemptions}, adoptions "
+             f"{st.prefix_adoptions}, offload {st.offload_bytes} B, restore "
+             f"{st.restore_bytes} B")
+    L = cfg.n_layers
+    want_step, want_pre = want_launches(cfg, "paged_decode_attention_quant")
+    if st.kernel_launches_per_decode_step != want_step:
+        fail(f"launches per decode step {st.kernel_launches_per_decode_step}"
+             f" != {want_step}")
+    if st.prefill_kernel_launches != st.prefill_chunks * (3 * L + 1):
+        fail(f"prefill launches {st.prefill_kernel_launches} != "
+             f"{st.prefill_chunks} x {3 * L + 1}")
+    want = {name: st.decode_steps * want_step[name]
+            + st.prefill_chunks * want_pre[name] for name in want_step}
+    if counts != want:
+        fail(f"launch counts {counts} != {want}")
+    roomy = ServeEngine(cfg, params, **opts)
+    free_done = roomy.run(pressure_requests(cfg.vocab_size))
+    if roomy.stats.preemptions or len(free_done) != len(reqs):
+        fail(f"the unpressured int8 run preempted {roomy.stats.preemptions} "
+             f"times and finished {len(free_done)} of {len(reqs)} requests")
+    same = check_against_unpressured(done, free_done, params, cfg)
+    print(f"  tokens agree with the same requests in the default "
+          f"{roomy.kv.num_blocks}-block int8 pool (no preemption, no "
+          f"offload): {same}/{len(reqs)} requests token for token")
+    del roomy
+    copy_s = tier.measured_copy_s
+    if not copy_s > 0:
+        fail(f"{tier.timed_copies} offload copies timed at {copy_s} s")
+    print(f"  {rep['tok_per_s']:.2f} tok/s, mean TTFT "
+          f"{rep['mean_ttft_ms']:.2f} ms, mean ITL {rep['mean_itl_ms']:.2f} "
+          f"ms, launch tax {rep['measured_launch_tax_per_step_us']:.1f} "
+          f"us/step; {st.preemptions} preemptions, {st.prefix_adoptions} "
+          f"prefix adoptions ({st.shared_prefix_tokens} tokens), "
+          f"{eng.kv.pool.cow_copies_total} copy-on-write copies")
+    print(f"  offload: {st.offload_bytes} B out, {st.restore_bytes} B back "
+          f"in {st.offload_transfers} block transfers; measured copy time "
+          f"{copy_s * 1e6:.1f} us over {tier.timed_copies} copies (one "
+          f"pinned buffer per eviction or restore, CUDA events), "
+          f"{(st.offload_bytes + st.restore_bytes) / copy_s / 1e9:.2f} GB/s,"
+          f" vs modeled tax {st.modeled_offload_tax_s * 1e6:.1f} us "
+          f"({eng.platform} link)")
+    return counts, rep, eng
 
 
 # ------------------------------------------------------------------ main
+# which main path each kernel's ``launches`` is read from
+MAIN_PATH = {"decode_attention": "contiguous",
+             "flash_attention": "contiguous",
+             "residual_rmsnorm": "contiguous",
+             "rmsnorm_matmul": "contiguous",
+             "paged_decode_attention": "paged_bf16",
+             "paged_decode_attention_quant": "paged_int8_pressure"}
+
+
 def main() -> None:
     cfg = get_config(ARCH)
     phase_build()
     rows = phase_kernels(cfg)
     phase_logits_f32(cfg)
-    counts, rep, eng = phase_serve(cfg)
-    phase_trace(eng)
+    path_counts = {}
+    path_counts["contiguous"], _, eng = phase_serve(cfg, 4)
+    phase_trace(eng, "phase 5")
+    del eng
+    torch.cuda.empty_cache()
+    path_counts["paged_bf16"], _, eng = phase_serve(
+        cfg, 6, ["--cache", "paged", "--block-size", str(BLOCK)])
+    phase_trace(eng, "phase 6 trace")
+    path_counts["paged_int8_pressure"], _, eng = phase_pool_pressure(
+        cfg, eng.params)
+    phase_trace(eng, "phase 7 trace")
 
     entries = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -484,8 +803,14 @@ def main() -> None:
         for key, sub in rows.items():          # e.g. "rmsnorm_matmul[prefill]"
             if key.startswith(name + "["):
                 row[key[len(name) + 1:-1]] = sub
+        launches = path_counts[MAIN_PATH[name]][name]
+        if launches <= 0:
+            fail(f"{name} was not launched on its main path "
+                 f"({MAIN_PATH[name]})")
         entries.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": counts[name],
+                        "replaces": replaces, "launches": launches,
+                        "launches_by_path": {p: c[name] for p, c in
+                                             path_counts.items()},
                         **row})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

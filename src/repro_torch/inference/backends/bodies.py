@@ -1,9 +1,10 @@
-"""The serving step bodies of the contiguous cache.
+"""The serving step bodies of the contiguous and the paged cache.
 
-Counterpart of ``repro/inference/backends/bodies.py`` (prefill and decode;
-the paged and verify bodies come with their slices).  One source of
-numerics for every backend: anything that changes logits or cache writes
-belongs here.
+Counterpart of ``repro/inference/backends/bodies.py`` (prefill, decode,
+paged prefill chunk and paged decode; the verify bodies come with
+speculative decoding, ROADMAP Queue A item 7).  One source of numerics
+for every backend: anything that changes logits or cache writes belongs
+here.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ class StepBodies(NamedTuple):
     """Step functions: (params, cache, ...) -> (logits rows, cache)."""
     prefill: Callable          # contiguous prefill of one slot
     decode: Callable           # batched contiguous decode step
+    paged_prefill: Callable    # one paged prefill chunk
+    paged_decode: Callable     # batched paged decode step
 
 
 def make_step_bodies(cfg: ModelConfig) -> StepBodies:
@@ -37,4 +40,17 @@ def make_step_bodies(cfg: ModelConfig) -> StepBodies:
                                 lengths=lengths)
         return logits[:, 0], cache
 
-    return StepBodies(prefill_body, decode_body)
+    def paged_prefill_body(params, cache, tokens, bt_row, t0: int):
+        # tokens: (1, C) one chunk; bt_row: (NB,) the slot's block table
+        # (host array); t0: the chunk's start offset
+        logits, cache = forward(params, tokens, cfg, cache=cache,
+                                cache_index=t0, block_tables=bt_row[None])
+        return logits[:, -1], cache
+
+    def paged_decode_body(params, cache, tokens, lengths, block_tables):
+        logits, cache = forward(params, tokens, cfg, cache=cache,
+                                lengths=lengths, block_tables=block_tables)
+        return logits[:, 0], cache
+
+    return StepBodies(prefill_body, decode_body, paged_prefill_body,
+                      paged_decode_body)

@@ -1,7 +1,8 @@
 """Single-device execution backend: the step bodies under PyTorch eager.
 
 Counterpart of ``repro/inference/backends/local.py`` for the contiguous
-cache.  Every call runs the step body eagerly (plan label ``"eager"``): the
+and the paged cache (speculative verify is not ported yet, ROADMAP Queue A
+item 7).  Every call runs the step body eagerly (plan label ``"eager"``): the
 reference's ``jit`` and launch-plan modes are not ported yet (ROADMAP
 Queue A item 5), and this backend does not pretend to be either.  Each
 call's host time is measured around the call without a device sync, as
@@ -50,7 +51,9 @@ class LocalBackend(AccountingMixin):
         return make_cache(self.cfg, self.B, self.T, device=self.device)
 
     def init_paged_cache(self, kv):
-        raise ValueError(f"paged KV cache {NOT_PORTED} item 4")
+        """Fresh pooled KV pages for a ``PagedKVCache`` geometry (built for
+        this backend's device)."""
+        return kv.make_pages()
 
     def _run(self, body, *args):
         before = kernels.launch_counts()
@@ -72,10 +75,16 @@ class LocalBackend(AccountingMixin):
         return self._run(self._bodies.decode, cache, tokens, lengths)
 
     def prefill_chunk(self, cache, tokens, bt_row, t0):
-        raise ValueError(f"paged prefill {NOT_PORTED} item 4")
+        """Write one prompt chunk into the paged pool through the slot's
+        block-table row (host array); (last-position logits, cache)."""
+        return self._run(self._bodies.paged_prefill, cache, tokens, bt_row,
+                         int(t0))
 
     def paged_decode(self, cache, tokens, lengths, block_tables):
-        raise ValueError(f"paged decode {NOT_PORTED} item 4")
+        """One batched decode step over the paged pool; ``lengths`` and
+        ``block_tables`` host arrays."""
+        return self._run(self._bodies.paged_decode, cache, tokens, lengths,
+                         block_tables)
 
     def verify(self, cache, tokens, lengths):
         raise ValueError(f"speculative verify {NOT_PORTED} item 7")

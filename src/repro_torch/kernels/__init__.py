@@ -5,13 +5,16 @@ for CPU tensors, and a launch count (``wrapper.launches``) that grows by one
 per kernel launch and nowhere else.  The model calls the wrappers through
 this module, so a test can substitute a spy for any of them.
 """
-from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.decode_attention.ops import (
+    decode_attention, paged_decode_attention, paged_decode_attention_quant)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.fused import residual_rmsnorm, rmsnorm_matmul
 
 WRAPPERS = {
     "decode_attention": decode_attention,
     "flash_attention": flash_attention,
+    "paged_decode_attention": paged_decode_attention,
+    "paged_decode_attention_quant": paged_decode_attention_quant,
     "residual_rmsnorm": residual_rmsnorm,
     "rmsnorm_matmul": rmsnorm_matmul,
 }

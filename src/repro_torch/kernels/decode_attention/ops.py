@@ -1,18 +1,27 @@
-"""Wrapper of the contiguous decode-attention CUDA kernel
-(``csrc/decode_attention.cu``).
+"""Wrappers of the decode-attention CUDA kernels: the contiguous cache
+(``csrc/decode_attention.cu``) and the block-table paged pool in bf16/f32
+or int8 (``csrc/paged_decode_attention.cu``).
 
 A CPU tensor runs the plain version (``ref.py``); a CUDA tensor launches
-the kernel or raises.  ``decode_attention.launches`` counts kernel launches.
+the kernel or raises.  ``decode_attention.launches``,
+``paged_decode_attention.launches`` and
+``paged_decode_attention_quant.launches`` count kernel launches.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_ref, paged_decode_attention_quant_ref,
+    paged_decode_attention_ref)
 
 _ARGS = ([build.P] * 5 + [build.I] * 6 + [build.F] + [build.L] * 10
          + [build.I, build.P])
+_PAGED_ARGS = ([build.P] * 6 + [build.I] * 7 + [build.F] + [build.L] * 11
+               + [build.I, build.P])
+_PAGED_QUANT_ARGS = ([build.P] * 8 + [build.I] * 7 + [build.F]
+                     + [build.L] * 17 + [build.I, build.P])
 MAX_GROUP = 8       # query heads per KV head one CTA serves
 MAX_HEAD_DIM = 128
 
@@ -63,3 +72,115 @@ def decode_attention(q, k, v, kv_len=None, *, scale: float):
 
 
 decode_attention.launches = 0
+
+
+def _check_paged(name, q, k_pages, v_pages, block_tables, kv_lens,
+                 scales=()):
+    """Raise unless the paged kernels take these tensors as they are."""
+    build.require_cuda(name, q, k_pages, v_pages, block_tables, kv_lens,
+                       *scales)
+    if q.dim() != 3 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
+        raise ValueError(f"{name}: q {tuple(q.shape)} must be (B,HQ,hd) "
+                         f"and pages {tuple(k_pages.shape)}, "
+                         f"{tuple(v_pages.shape)} one (P,bs,HKV,hd) shape")
+    b, hq, hd = q.shape
+    _, _, hkv, hd_p = k_pages.shape
+    if hd_p != hd or hq % hkv or hq // hkv > MAX_GROUP or hd > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: needs pages' hd == q's, HQ % HKV == 0, "
+                         f"HQ/HKV <= {MAX_GROUP}, hd <= {MAX_HEAD_DIM}; got "
+                         f"q {tuple(q.shape)}, pages {tuple(k_pages.shape)}")
+    if q.stride(2) != 1 or k_pages.stride(3) != 1 or v_pages.stride(3) != 1:
+        raise ValueError(f"{name}: head_dim must have unit stride")
+    if (block_tables.dim() != 2 or block_tables.shape[0] != b
+            or block_tables.dtype != torch.int32
+            or block_tables.stride(1) != 1):
+        raise ValueError(f"{name}: block_tables must be (B, NB) int32 with "
+                         f"unit stride on NB, got {tuple(block_tables.shape)}"
+                         f" {block_tables.dtype}")
+    if (kv_lens.shape != (b,) or kv_lens.dtype != torch.int32
+            or not kv_lens.is_contiguous()):
+        raise ValueError(f"{name}: kv_lens must be a contiguous (B,) int32 "
+                         "tensor")
+    for s in scales:
+        if s.shape != k_pages.shape[:3] or s.dtype != torch.float32:
+            raise ValueError(f"{name}: scales must be (P,bs,HKV) float32, "
+                             f"got {tuple(s.shape)} {s.dtype}")
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_lens, *,
+                           scale: float, k_scale=None, v_scale=None):
+    """Decode attention through a block-table paged KV pool.
+
+    q: (B,HQ,hd); k_pages/v_pages: (P,bs,HKV,hd), read in place through
+    strides (any view with unit stride on hd); block_tables: (B,NB) int32
+    page ids (entries past a row's length may be any value: they are
+    clamped into the pool and masked); kv_lens: (B,) int32 valid tokens,
+    capped at NB*bs.  Returns (B,HQ,hd) in q's dtype.
+
+    With ``k_scale``/``v_scale`` ((P,bs,HKV) f32) the pages are int8
+    payloads and the call goes to ``paged_decode_attention_quant``.
+    """
+    if k_scale is not None or v_scale is not None:
+        return paged_decode_attention_quant(q, k_pages, v_pages, k_scale,
+                                            v_scale, block_tables, kv_lens,
+                                            scale=scale)
+    if q.device.type == "cpu":
+        return paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
+                                          kv_lens, scale=scale)
+    _check_paged("paged_decode_attention", q, k_pages, v_pages,
+                 block_tables, kv_lens)
+    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise ValueError("paged_decode_attention: q and pages must share "
+                         "one dtype")
+    b, hq, hd = q.shape
+    n_pages, bs, hkv, _ = k_pages.shape
+    out = torch.empty((b, hq, hd), dtype=q.dtype, device=q.device)
+    fn = build.function("paged_decode_attention_launch", _PAGED_ARGS)
+    code = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+              out.data_ptr(), block_tables.data_ptr(), kv_lens.data_ptr(),
+              b, hq, hkv, hd, n_pages, bs, block_tables.shape[1], scale,
+              q.stride(0), q.stride(1), *k_pages.stride()[:3],
+              *v_pages.stride()[:3], out.stride(0), out.stride(1),
+              block_tables.stride(0), build.dtype_code(q),
+              build.stream_ptr(q))
+    build.check(code, "paged_decode_attention")
+    paged_decode_attention.launches += 1
+    return out
+
+
+def paged_decode_attention_quant(q, k_pages, v_pages, k_scale, v_scale,
+                                 block_tables, kv_lens, *, scale: float):
+    """``paged_decode_attention`` over an int8 pool: k_pages/v_pages
+    (P,bs,HKV,hd) int8 and k_scale/v_scale (P,bs,HKV) f32, dequantized in
+    registers inside the kernel.  q: f32 or bf16."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_quant_ref(
+            q, k_pages, v_pages, k_scale, v_scale, block_tables, kv_lens,
+            scale=scale)
+    name = "paged_decode_attention_quant"
+    if k_scale is None or v_scale is None:
+        raise ValueError(f"{name}: needs both k_scale and v_scale")
+    _check_paged(name, q, k_pages, v_pages, block_tables, kv_lens,
+                 (k_scale, v_scale))
+    if k_pages.dtype != torch.int8 or v_pages.dtype != torch.int8:
+        raise ValueError(f"{name}: pages must be int8, got {k_pages.dtype}")
+    b, hq, hd = q.shape
+    n_pages, bs, hkv, _ = k_pages.shape
+    out = torch.empty((b, hq, hd), dtype=q.dtype, device=q.device)
+    fn = build.function("paged_decode_attention_quant_launch",
+                        _PAGED_QUANT_ARGS)
+    code = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+              k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(),
+              block_tables.data_ptr(), kv_lens.data_ptr(),
+              b, hq, hkv, hd, n_pages, bs, block_tables.shape[1], scale,
+              q.stride(0), q.stride(1), *k_pages.stride()[:3],
+              *v_pages.stride()[:3], *k_scale.stride(), *v_scale.stride(),
+              out.stride(0), out.stride(1), block_tables.stride(0),
+              build.dtype_code(q), build.stream_ptr(q))
+    build.check(code, name)
+    paged_decode_attention_quant.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0
+paged_decode_attention_quant.launches = 0

@@ -1,4 +1,5 @@
-"""Plain PyTorch version of the contiguous decode-attention kernel."""
+"""Plain PyTorch versions of the decode-attention kernels: contiguous
+cache, block-table paged pool, and int8 paged pool."""
 from __future__ import annotations
 
 import torch
@@ -20,3 +21,39 @@ def decode_attention_ref(q, k, v, kv_len=None, *, scale: float):
         s = torch.where(torch.arange(t, device=q.device) < lens, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bht,bhtd->bhd", p, vf).to(q.dtype)
+
+
+def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, kv_lens, *,
+                               scale: float):
+    """q: (B,HQ,hd); k_pages/v_pages: (P,bs,HKV,hd) pooled token pages;
+    block_tables: (B,NB) page ids (entries past a row's length may be any
+    value: they are clamped into the pool and masked); kv_lens: (B,) valid
+    tokens per row.  Position t of row b lives at
+    ``pages[tables[b, t // bs], t % bs]``.  Returns (B,HQ,hd)."""
+    b, hq, hd = q.shape
+    n_pages, bs, hkv, _ = k_pages.shape
+    nb = block_tables.shape[1]
+    g = hq // hkv
+    safe = block_tables.long().clamp(0, n_pages - 1)
+    # each row's logical view: (B,NB,bs,HKV,hd) -> (B,HKV,T,hd)
+    kg = k_pages[safe].reshape(b, nb * bs, hkv, hd).transpose(1, 2)
+    vg = v_pages[safe].reshape(b, nb * bs, hkv, hd).transpose(1, 2)
+    kf = kg.float().repeat_interleave(g, dim=1)
+    vf = vg.float().repeat_interleave(g, dim=1)
+    s = torch.einsum("bhd,bhtd->bht", q.float(), kf) * scale
+    pos = torch.arange(nb * bs, device=q.device)
+    mask = pos[None, None, :] < kv_lens.to(q.device).reshape(-1, 1, 1)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bht,bhtd->bhd", p, vf).to(q.dtype)
+
+
+def paged_decode_attention_quant_ref(q, k_pages, v_pages, k_scale, v_scale,
+                                     block_tables, kv_lens, *, scale: float):
+    """Quantized pool: k_pages/v_pages are (P,bs,HKV,hd) int8 with
+    per-(token, head) f32 scales (P,bs,HKV); dequantize the pool in f32
+    and defer to ``paged_decode_attention_ref``."""
+    kf = k_pages.float() * k_scale.float()[..., None]
+    vf = v_pages.float() * v_scale.float()[..., None]
+    return paged_decode_attention_ref(q, kf, vf, block_tables, kv_lens,
+                                      scale=scale)

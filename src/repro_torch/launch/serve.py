@@ -2,14 +2,19 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
         --requests 8 --max-batch 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --cache paged \\
+        --kv-dtype int8 --num-blocks 12 --prefill-chunk 8 --offload host
 
-Counterpart of ``repro.launch.serve`` for the flags the port supports.
+Counterpart of ``repro.launch.serve`` for the flags the port supports
+(``--cache paged`` with its block, dtype, sharing, offload and chunking
+flags, and ``--platform``, which prices the offload tier).
 Weights are random, drawn on the device from a generator seeded 0; prompts
 are 12 tokens from numpy's generator seeded 0, as in the reference.  Runs
 on the GPU by default and raises without one; ``--device cpu`` runs the
 plain PyTorch path.  Prints one JSON line: the fields ``EngineStats``
 fills, the device, and ``kernel_launches_per_decode_step`` of the
-hand-written kernels.
+hand-written kernels; under ``--cache paged`` also the reference's paged
+fields and the measured device time of the offload copies.
 """
 from __future__ import annotations
 
@@ -21,8 +26,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, reduced
+from repro_torch.core.device_model import PLATFORMS
 from repro_torch.device import resolve_device
-from repro_torch.inference.engine import Request, ServeEngine
+from repro_torch.inference.engine import (CACHE_MODES, OFFLOAD_MODES,
+                                          Request, ServeEngine)
+from repro_torch.inference.kv_quant import KV_DTYPES
 from repro_torch.models import init_params
 from repro_torch.telemetry.metrics import percentile
 
@@ -43,15 +51,36 @@ def report(eng: ServeEngine, done: list, wall_s: float) -> dict:
     occ = st.slot_occupancy
     ttft = list(st.ttft_s.values())
     itl = st.itl_samples_s
+    paged = eng.kv is not None
+    tier = eng.offload_tier
     return {
         "arch": eng.cfg.name,
         "device": device_name(eng.backend.device),
         "requests": sum(1 for r in done if r.status == "done"),
         "rejected": st.rejected,
         "plan": st.plan,
-        "cache": "contiguous",
+        "cache": eng.cache_mode,
         "slot_occupancy": {"mean": float(np.mean(occ)) if occ else 0.0,
                            "peak": int(max(occ)) if occ else 0},
+        "block_pool_utilization": {
+            "mean": st.mean_block_pool_utilization,
+            "peak": st.peak_block_pool_utilization},
+        "kv_dtype": eng.kv_dtype,
+        "share_prefix": eng.share_prefix,
+        "num_blocks": eng.kv.num_blocks if paged else 0,
+        "prefix_adoptions": st.prefix_adoptions,
+        "shared_prefix_tokens": st.shared_prefix_tokens,
+        "kv_cow_copies": eng.kv.pool.cow_copies_total if paged else 0,
+        "preemptions": st.preemptions,
+        "prefill_chunks": st.prefill_chunks,
+        "offload_bytes": st.offload_bytes,
+        "restore_bytes": st.restore_bytes,
+        "platform": eng.platform,
+        "modeled_offload_tax_us": st.modeled_offload_tax_s * 1e6,
+        "measured_offload_copy_us": (tier.measured_copy_s * 1e6
+                                     if tier is not None
+                                     and eng.backend.device.type == "cuda"
+                                     else None),
         "tokens_out": st.tokens_out,
         "prefills": st.prefills,
         "decode_steps": st.decode_steps,
@@ -80,12 +109,42 @@ def main(argv=None):
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--platform", default="Intel+H100",
+                    choices=sorted(PLATFORMS),
+                    help="the paper's platform row whose host link prices "
+                         "the offload tier (the H100's host link is PCIe: "
+                         "an LC part)")
+    ap.add_argument("--cache", default="contiguous", choices=CACHE_MODES)
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="tokens per KV block (paged cache)")
+    ap.add_argument("--num-blocks", type=int, default=None,
+                    help="block-pool size; default fits every slot at "
+                         "--max-len (no memory pressure)")
+    ap.add_argument("--kv-dtype", default="bf16", choices=KV_DTYPES,
+                    help="paged KV storage dtype: int8 quantizes pages "
+                         "per-(token, head) with f32 scales (entry cost "
+                         "hd+4 bytes vs 2*hd) and dequantizes at load; "
+                         "the default pool sizes up by the byte ratio")
+    ap.add_argument("--share-prefix", action="store_true",
+                    help="copy-on-write prefix sharing: requests whose "
+                         "prompts share a token prefix map their leading "
+                         "full blocks to the same pool pages (paged only)")
+    ap.add_argument("--offload", default="none", choices=OFFLOAD_MODES,
+                    help="host: evict cold blocks to pinned host memory "
+                         "and restore on resume; none: preempt + recompute")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="admit prompts in chunks of this many tokens, "
+                         "interleaved with decode steps")
     ap.add_argument("--no-warmup", action="store_true",
                     help="skip the warmup pass; measured fields then include "
                          "the kernels' first build and load")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args(argv)
+    if args.cache != "paged" and (args.kv_dtype != "bf16"
+                                  or args.share_prefix):
+        ap.error("--kv-dtype/--share-prefix need --cache paged (the "
+                 "contiguous cache has no block pool to quantize or share)")
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -94,7 +153,12 @@ def main(argv=None):
     gen = torch.Generator(device=dev).manual_seed(0)
     params = init_params(cfg, gen, device=dev)
     eng = ServeEngine(cfg, params, max_batch=args.max_batch,
-                      max_len=args.max_len, device=dev)
+                      max_len=args.max_len, device=dev,
+                      platform=args.platform, cache=args.cache,
+                      block_size=args.block_size, num_blocks=args.num_blocks,
+                      offload=args.offload, prefill_chunk=args.prefill_chunk,
+                      kv_dtype=args.kv_dtype,
+                      share_prefix=args.share_prefix)
     if not args.no_warmup:
         eng.run(make_requests(args.requests, cfg.vocab_size, args.max_new))
         eng.reset()

@@ -13,7 +13,9 @@ forward at L layers:
 
   * ``rmsnorm_matmul(x, norm1, wq) -> (q, h)``, L times (``h @ wk`` and
     ``h @ wv`` stay ``torch.matmul``);
-  * ``decode_attention`` (decode) or ``flash_attention`` (prefill), L times;
+  * ``decode_attention`` (decode), ``paged_decode_attention`` (decode over
+    the paged pool; ``_quant`` in int8) or ``flash_attention`` (prefill and
+    paged prefill chunks), L times;
   * ``residual_rmsnorm(x, norm2, residual=attn_out)``, L times;
   * ``residual_rmsnorm(x, final_norm)``, once.
 
@@ -87,16 +89,37 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=None,
                                  dev) for _ in range(cfg.n_layers)]
 
 
+def make_paged_cache(cfg: ModelConfig, num_pages: int, block_size: int,
+                     dtype=None, kv_dtype: str = "bf16", *,
+                     device="cuda") -> list:
+    """Per-layer PAGED KV cache: per layer a pool of ``num_pages`` token
+    pages shared across batch rows through block tables
+    (``forward(..., block_tables=...)``): [{"k_pages","v_pages"}] * L,
+    pages (P, bs, HKV, hd).  ``kv_dtype="int8"`` adds per-(token, head) f32
+    ``"k_scale"``/``"v_scale"`` (P, bs, HKV) beside int8 pages; ``forward``
+    dispatches on them.  ``check_supported`` rejects every stack the port
+    does not run, non-attention and enc-dec ones included."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    return [attn.make_paged_self_cache(cfg, num_pages, block_size,
+                                       dtype or cfg.cdtype, dev,
+                                       quantized=(kv_dtype == "int8"))
+            for _ in range(cfg.n_layers)]
+
+
 def forward(params, tokens, cfg: ModelConfig, *, cache: Optional[list] = None,
-            cache_index: int = 0, lengths=None):
+            cache_index: int = 0, lengths=None, block_tables=None):
     """Returns (logits f32 (B,S,V), cache).
 
-    ``cache``: from ``make_cache``, updated in place (and returned).
+    ``cache``: from ``make_cache`` or ``make_paged_cache``, updated in place
+    (and returned).
     ``cache_index``: prefill write offset (no ``lengths``).
     ``lengths``: (B,) per-row positions for continuous-batching decode,
     best as a host array; row b's token is written at ``lengths[b]`` and
     attends to positions ``<= lengths[b]``.  A write past the cache is
     dropped, as in the reference.
+    ``block_tables``: (B,NB) page ids of a paged cache, best as a host
+    array; writes past the table or to the sentinel page drop.
     """
     check_supported(cfg)
     embed = params["embed"]
@@ -105,9 +128,19 @@ def forward(params, tokens, cfg: ModelConfig, *, cache: Optional[list] = None,
     b, s = tokens.shape
     if lengths is not None and cache is None:
         raise ValueError("lengths= (decode) needs a cache")
-    max_len = cache[0]["k"].shape[1] if cache is not None else None
-    ctx = attn.attention_context(cfg, b, s, dev, cache_index=cache_index,
-                                 lengths=lengths, max_len=max_len)
+    paged = cache is not None and "k_pages" in cache[0]
+    if paged != (block_tables is not None):
+        raise ValueError("a paged cache needs block_tables=, and "
+                         "block_tables= needs a paged cache")
+    if paged:
+        n_pages, bs = cache[0]["k_pages"].shape[:2]
+        ctx = attn.paged_attention_context(
+            cfg, b, s, dev, block_tables=block_tables, n_pages=n_pages,
+            block_size=bs, cache_index=cache_index, lengths=lengths)
+    else:
+        max_len = cache[0]["k"].shape[1] if cache is not None else None
+        ctx = attn.attention_context(cfg, b, s, dev, cache_index=cache_index,
+                                     lengths=lengths, max_len=max_len)
     eps = cfg.norm_eps
     x = embed_tokens(embed, tokens, cfg).to(cfg.cdtype)
     for i, bp in enumerate(params["blocks"]):

@@ -7,7 +7,8 @@ without JAX, so without this directory's conftest):
         tests/test_torch_cuda_kernels.py
 
 Shapes follow the reference's kernel tests (head dims 16, 32, 64 and 112,
-GQA groups 1-4) plus the SmolLM-360M main-path shapes.  Tolerance: the
+GQA groups 1-4; the paged kernels on the grid of the reference's paged
+tests) plus the SmolLM-360M main-path shapes.  Tolerance: the
 largest absolute error at most 2e-5 (f32) or 2e-2 (bf16) times
 max(1, max |plain|); TF32 is off, so the plain f32 products are exact f32.
 """
@@ -16,7 +17,10 @@ import pytest
 import torch
 
 from repro_torch import kernels
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.inference.kv_quant import quantize_kv
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_ref, paged_decode_attention_quant_ref,
+    paged_decode_attention_ref)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.fused.residual_rmsnorm.ref import residual_rmsnorm_ref
 from repro_torch.kernels.fused.rmsnorm_matmul.ref import rmsnorm_matmul_ref
@@ -113,6 +117,96 @@ def test_decode_attention_per_row_strided_cache(dev, dtype):
     _close(out, decode_attention_ref(q, k, v, lens, scale=0.125), dtype)
 
 
+def _paged_pool(b, hkv, t, hd, bs, dtype, dev, seed, fused_kv=False):
+    """Permuted pages holding B rows of T positions, a pool twice the size
+    needed, unused table entries a sentinel past the pool.  ``fused_kv``
+    stores K and V in one (P, bs, 2, HKV, hd) buffer, so each pool is a
+    strided view."""
+    n_pages = 2 * (b * t // bs)
+    shape = (n_pages, bs, 2, hkv, hd) if fused_kv else (n_pages, bs, hkv, hd)
+    if fused_kv:
+        buf = _randn(shape, dtype, dev, seed)
+        kp, vp = buf[:, :, 0], buf[:, :, 1]
+    else:
+        kp = _randn(shape, dtype, dev, seed)
+        vp = _randn(shape, dtype, dev, seed + 1)
+    perm = np.random.default_rng(seed).permutation(n_pages)
+    tables = np.full((b, t // bs), n_pages + 3, np.int32)
+    lens = np.array([t - 3 * i for i in range(b)], np.int32)
+    nxt = 0
+    for row in range(b):
+        for i in range(-(-int(lens[row]) // bs)):
+            tables[row, i] = perm[nxt]
+            nxt += 1
+    return (kp, vp, torch.from_numpy(tables).to(dev),
+            torch.from_numpy(lens).to(dev))
+
+
+PAGED_GRID = [((2, 6, 2, 32, 32), 8), ((1, 4, 4, 64, 16), 16),
+              ((3, 8, 2, 128, 64), 32), ((4, 15, 5, 128, 64), 16)]
+
+
+@pytest.mark.parametrize("shape,bs", PAGED_GRID)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("fused_kv", [False, True])
+def test_paged_decode_attention(dev, shape, bs, dtype, fused_kv):
+    b, hq, hkv, t, hd = shape
+    q = _randn((b, hq, hd), dtype, dev, 0)
+    kp, vp, tables, lens = _paged_pool(b, hkv, t, hd, bs, dtype, dev, 1,
+                                       fused_kv)
+    n0 = kernels.paged_decode_attention.launches
+    out = kernels.paged_decode_attention(q, kp, vp, tables, lens, scale=0.2)
+    assert kernels.paged_decode_attention.launches == n0 + 1
+    _close(out, paged_decode_attention_ref(q, kp, vp, tables, lens,
+                                           scale=0.2), dtype)
+
+
+@pytest.mark.parametrize("shape,bs", PAGED_GRID)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("fused_kv", [False, True])
+def test_paged_decode_attention_quant(dev, shape, bs, dtype, fused_kv):
+    b, hq, hkv, t, hd = shape
+    q = _randn((b, hq, hd), dtype, dev, 0)
+    kf, vf, tables, lens = _paged_pool(b, hkv, t, hd, bs, torch.float32,
+                                       dev, 2, fused_kv)
+    (kq, ks), (vq, vs) = quantize_kv(kf), quantize_kv(vf)
+    if fused_kv:                  # int8 pools and scales as strided views
+        kq = torch.stack([kq, vq], 2)[:, :, 0]
+        ks = torch.stack([ks, vs], 2)[:, :, 0]
+    n0 = kernels.paged_decode_attention_quant.launches
+    out = kernels.paged_decode_attention(q, kq, vq, tables, lens, scale=0.2,
+                                         k_scale=ks, v_scale=vs)
+    assert kernels.paged_decode_attention_quant.launches == n0 + 1
+    _close(out, paged_decode_attention_quant_ref(q, kq, vq, ks, vs, tables,
+                                                 lens, scale=0.2), dtype)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_decode_attention_sentinel_and_empty_rows(dev, quant):
+    """A row of sentinels with kv_lens 0 softmaxes uniformly over the
+    clamped pages, garbage past a row's length is never read, and lengths
+    past NB*bs are capped, all as in the plain version."""
+    b, hq, hkv, t, hd, bs = 4, 6, 2, 64, 32, 8
+    q = _randn((b, hq, hd), torch.float32, dev, 0)
+    kp, vp, tables, _ = _paged_pool(b, hkv, t, hd, bs, torch.float32, dev, 3)
+    n_pages = kp.shape[0]
+    tables[0] = n_pages                               # all sentinel
+    tables[1, 2:] = torch.tensor([0, n_pages + 1000, -5, 7, 1, 2],
+                                 dtype=torch.int32)   # garbage
+    lens = torch.tensor([0, 13, 64, 500], dtype=torch.int32, device=dev)
+    kw = dict(scale=0.2)
+    if quant:
+        (kp, ks), (vp, vs) = quantize_kv(kp), quantize_kv(vp)
+        out = kernels.paged_decode_attention_quant(q, kp, vp, ks, vs, tables,
+                                                   lens, **kw)
+        ref = paged_decode_attention_quant_ref(q, kp, vp, ks, vs, tables,
+                                               lens, **kw)
+    else:
+        out = kernels.paged_decode_attention(q, kp, vp, tables, lens, **kw)
+        ref = paged_decode_attention_ref(q, kp, vp, tables, lens, **kw)
+    _close(out, ref, torch.float32)
+
+
 @pytest.mark.parametrize("n,d", [(1, 64), (6, 32), (5, 128), (4, 960),
                                  (16, 960)])
 @pytest.mark.parametrize("with_res", [False, True])
@@ -156,3 +250,65 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):   # mixed devices
         kernels.rmsnorm_matmul(x.float(), torch.ones(64, device=dev),
                                torch.ones(64, 8))
+
+
+def test_paged_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    q = _randn((2, 4, 32), torch.float32, dev, 0)
+    kp = _randn((8, 4, 2, 32), torch.float32, dev, 1)
+    bt = torch.zeros((2, 3), dtype=torch.int32, device=dev)
+    lens = torch.ones(2, dtype=torch.int32, device=dev)
+    kt = torch.zeros((8, 4, 32, 2), device=dev).transpose(2, 3)
+    call = kernels.paged_decode_attention
+    for bad in [
+            dict(k_pages=kp[..., :16], v_pages=kp[..., :16]),   # hd differs
+            dict(k_pages=kp.bfloat16(), v_pages=kp.bfloat16()),  # dtype
+            dict(block_tables=bt.long()), dict(block_tables=bt[:1]),
+            dict(kv_lens=lens.float()), dict(kv_lens=lens[:1]),
+            dict(k_pages=kt, v_pages=kt)]:                    # hd stride
+        args = dict(k_pages=kp, v_pages=kp, block_tables=bt, kv_lens=lens)
+        args.update(bad)
+        with pytest.raises(ValueError):
+            call(q, args["k_pages"], args["v_pages"], args["block_tables"],
+                 args["kv_lens"], scale=1.0)
+    ks = torch.ones((8, 4, 2), device=dev)
+    with pytest.raises(ValueError):   # float pages with scales
+        call(q, kp, kp, bt, lens, scale=1.0, k_scale=ks, v_scale=ks)
+    k8 = kp.to(torch.int8)
+    with pytest.raises(ValueError):   # scales of the wrong shape
+        call(q, k8, k8, bt, lens, scale=1.0, k_scale=ks[:, :2],
+             v_scale=ks[:, :2])
+    with pytest.raises(ValueError):   # one scale missing
+        kernels.paged_decode_attention_quant(q, k8, k8, ks, None, bt, lens,
+                                             scale=1.0)
+    with pytest.raises(ValueError):   # a pool on the CPU
+        call(q, kp.cpu(), kp.cpu(), bt, lens, scale=1.0)
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_offload_round_trip_through_pinned_memory(dev, kv_dtype):
+    """An eviction is one copy into one pinned buffer and a restore one
+    copy back; the restored pages equal the evicted ones bit for bit and
+    the tier times both copies."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kvcache import HostOffloadTier, PagedKVCache
+    cfg = reduced(get_config("smollm-360m"))
+    kv = PagedKVCache(cfg, num_blocks=8, block_size=4, max_len=16,
+                      kv_dtype=kv_dtype, device=dev)
+    pages = kv.make_pages()
+    for i, leaf in enumerate(t for layer in pages for t in layer.values()):
+        src = _randn(leaf.shape, torch.float32, dev, i, scale=40.0)
+        leaf.copy_(src.to(leaf.dtype))
+    before = [t.clone() for layer in pages for t in layer.values()]
+    tier = HostOffloadTier("Intel+H100")
+    host = kv.gather_host(pages, [5, 1, 6], timer=tier.copy_timer(dev))
+    assert host.buf.is_pinned() and host.buf.dtype == torch.uint8
+    tier.evict("r", host, 3)
+    kv.zero_pages(pages, [0, 1, 2, 5, 6])
+    got, n_blocks, nbytes, _ = tier.restore("r")
+    kv.scatter_host(pages, [2, 0, 7], got, timer=tier.copy_timer(dev))
+    torch.cuda.synchronize()
+    assert n_blocks == 3 and nbytes == kv.block_bytes(pages, 3)
+    after = [t for layer in pages for t in layer.values()]
+    for old, new in zip(before, after):
+        assert torch.equal(new[[2, 0, 7]], old[[5, 1, 6]])
+    assert tier.timed_copies == 2 and tier.measured_copy_s > 0

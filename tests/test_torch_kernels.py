@@ -183,6 +183,18 @@ def test_wrappers_never_fall_back_off_the_cpu(name):
         "flash_attention": (torch.empty(1, 2, 4, 16, **meta),
                             torch.empty(1, 1, 4, 16, **meta),
                             torch.empty(1, 1, 4, 16, **meta)),
+        "paged_decode_attention": (
+            torch.empty(1, 2, 16, **meta), torch.empty(4, 8, 1, 16, **meta),
+            torch.empty(4, 8, 1, 16, **meta),
+            torch.zeros(1, 2, dtype=torch.int32, **meta),
+            torch.zeros(1, dtype=torch.int32, **meta)),
+        "paged_decode_attention_quant": (
+            torch.empty(1, 2, 16, **meta),
+            torch.zeros(4, 8, 1, 16, dtype=torch.int8, **meta),
+            torch.zeros(4, 8, 1, 16, dtype=torch.int8, **meta),
+            torch.empty(4, 8, 1, **meta), torch.empty(4, 8, 1, **meta),
+            torch.zeros(1, 2, dtype=torch.int32, **meta),
+            torch.zeros(1, dtype=torch.int32, **meta)),
         "residual_rmsnorm": (torch.empty(2, 8, **meta),
                              torch.empty(8, **meta)),
         "rmsnorm_matmul": (torch.empty(2, 8, **meta), torch.empty(8, **meta),

@@ -4,7 +4,8 @@ Six requests of ragged prompt lengths and budgets through ``max_batch 2``
 (so slots are reused): greedy tokens byte-identical to the JAX
 ``ServeEngine(plan="jit")`` on the same bridged weights, with the same
 scheduling counters.  Also: without ``device=`` the engine asks for the GPU
-and raises where there is none, and every feature not ported yet raises.
+and raises where there is none, and every feature not ported yet raises
+(the paged cache's parity is in ``test_torch_paged_serve.py``).
 """
 import contextlib
 import io
@@ -87,7 +88,8 @@ def test_engine_defaults_to_the_gpu(setup):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(cache="paged"), dict(offload="host"), dict(speculative=True),
+    dict(cache="paged", speculative=True),
+    dict(cache="paged", tracer=object()), dict(speculative=True),
     dict(tp=2), dict(plan="jit"), dict(monitor=True), dict(tracer=object()),
     dict(plan_table={})])
 def test_unported_options_raise(setup, kw):
@@ -107,6 +109,6 @@ def test_serve_cli_reports_the_engine_fields():
     assert rep["device"] == "cpu" and rep["plan"] == "eager"
     assert rep["decode_steps"] == eng.stats.decode_steps > 0
     assert set(rep["kernel_launches_per_decode_step"]) == {
-        "decode_attention", "flash_attention", "residual_rmsnorm",
-        "rmsnorm_matmul"}
+        "decode_attention", "flash_attention", "paged_decode_attention",
+        "paged_decode_attention_quant", "residual_rmsnorm", "rmsnorm_matmul"}
     assert rep["measured_launch_tax_per_step_us"] > 0
