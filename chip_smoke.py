@@ -32,7 +32,22 @@ Phases (any failure exits non-zero before a result is printed):
      paged pool too small for the load (prefix sharing, chunked prefill,
      host offload), which must preempt, offload, restore and share and
      serve the tokens the same requests get from a pool that never
-     preempts, then a trace of its decode step.
+     preempts, then a trace of its decode step;
+  8. full-width RWKV-6 3B logits in f32 (after the SmolLM engines are
+     freed), kernels against plain versions, for a 12-token prefill and 3
+     batched decode steps at batch 4;
+  9. the fourth main path: ``repro_torch.launch.serve --arch rwkv6-3b`` in
+     bf16 (wkv6 and the legacy rmsnorm kernel), launches checked per decode
+     step and per prefill, served first tokens against the plain bf16
+     forward; then an f32 engine at full width and 2 layers whose whole
+     token streams must equal an unpadded incremental forward's (the
+     engine prefills a recurrent stack without bucket padding);
+ 10. a trace of the RWKV-6 decode step, as in phase 5.
+
+Phase 2 also holds the RWKV-6 path's two kernels at its shapes: the norm
+at (4, 1, 2560) and (1, 12, 2560) with and without a residual in f32 and
+bf16, WKV6 (f32) at decode (B 4, T 1), a 12-token prefill, 64 steps in one
+launch and the reference's extreme-decay case, which must stay finite.
 
 Then it prints the ``{"kernels": [...]}`` line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It needs the repository
@@ -56,6 +71,7 @@ TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
 LOGIT_TOL_F32 = 1e-3               # full model, f32, other summation order
 LOGIT_TOL_BF16 = 0.25              # full model, bf16 rounding at other points
 ARCH, MAX_BATCH, MAX_LEN, BUCKET, N_REQ = "smollm-360m", 4, 128, 16, 8
+RWKV_ARCH, PROMPT = "rwkv6-3b", 12   # the serve CLI's prompts: 12 tokens
 BLOCK, CHUNK = 16, 8               # paged path: tokens per page, per chunk
 POOL_PAGES = {"bf16": 32, "int8": 60}   # default_num_blocks at hd 64
 KERNEL_INFO = {
@@ -74,6 +90,10 @@ KERNEL_INFO = {
                          "kernel.py:59"),
     "rmsnorm_matmul": ("src/repro_torch/csrc/rmsnorm_matmul.cu",
                        "src/repro/kernels/fused/rmsnorm_matmul/kernel.py:53"),
+    "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
+                "src/repro/kernels/rmsnorm/kernel.py:36"),
+    "wkv6": ("src/repro_torch/csrc/wkv6.cu",
+             "src/repro/kernels/rwkv6/kernel.py:77"),
 }
 
 
@@ -112,9 +132,11 @@ from repro_torch.kernels.fused.residual_rmsnorm.ref import \
     residual_rmsnorm_ref                                   # noqa: E402
 from repro_torch.kernels.fused.rmsnorm_matmul.ref import \
     rmsnorm_matmul_ref                                     # noqa: E402
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref    # noqa: E402
+from repro_torch.kernels.rwkv6.ref import wkv6_oracle, wkv6_ref  # noqa: E402
 from repro_torch.launch import serve                       # noqa: E402
-from repro_torch.models import (forward, init_params, make_cache,  # noqa: E402
-                                make_paged_cache)
+from repro_torch.models import (forward, init_params,      # noqa: E402
+                                is_recurrent, make_cache, make_paged_cache)
 
 DEV = torch.device("cuda", 0)
 PLAINS = {"decode_attention": decode_attention_ref,
@@ -122,7 +144,9 @@ PLAINS = {"decode_attention": decode_attention_ref,
           "paged_decode_attention": paged_decode_attention_ref,
           "paged_decode_attention_quant": paged_decode_attention_quant_ref,
           "residual_rmsnorm": residual_rmsnorm_ref,
-          "rmsnorm_matmul": rmsnorm_matmul_ref}
+          "rmsnorm_matmul": rmsnorm_matmul_ref,
+          "rmsnorm": rmsnorm_ref,
+          "wkv6": wkv6_ref}
 
 
 @contextlib.contextmanager
@@ -366,18 +390,90 @@ def main_path_cases(cfg, dtype):
     }
 
 
-def phase_kernels(cfg) -> dict:
-    """Kernel vs plain version at main-path shapes; returns the bf16 rows
-    (with the f32 error), keyed as the cases are."""
+def wkv_inputs(b, t, h, hd, seed) -> tuple:
+    """r, k, v, logw (B,T,H,hd), u, s0 in f32 at the scales of the
+    reference's WKV6 test (``tests/test_kernels.py::test_wkv6``)."""
+    f32 = torch.float32
+    return (randn((b, t, h, hd), f32, seed, 0.5),
+            randn((b, t, h, hd), f32, seed + 1, 0.5),
+            randn((b, t, h, hd), f32, seed + 2),
+            -torch.exp(randn((b, t, h, hd), f32, seed + 3, 0.5) - 2.0),
+            randn((h, hd), f32, seed + 4, 0.3),
+            randn((b, h, hd, hd), f32, seed + 5, 0.1))
+
+
+def rwkv_cases(cfg, dtype):
+    """The RWKV-6 path's kernels at its shapes, keyed as in
+    ``main_path_cases``.  The norm at the decode rows (4, 1, D) and a
+    prefill's (1, PROMPT, D), with and without a residual.  WKV6 only in
+    f32 (the layer calls it so): decode (B 4, T 1), a PROMPT-token
+    prefill, T 64 (many steps in one launch), and the reference's
+    extreme-decay case (decays exp(-50) and exp(-1e-4) in turn), which must
+    stay finite and is held against the literal float64 recurrence."""
+    d, h, hd = cfg.d_model, cfg.n_heads, cfg.hd
+    es = torch.tensor([], dtype=dtype).element_size()
+    w = randn((d,), dtype, 30) + 1.0
+    cases = {}
+    for tag, (b, t) in (("", (MAX_BATCH, 1)), ("prefill", (1, PROMPT))):
+        x = randn((b, t, d), dtype, 31)
+        res = randn((b, t, d), dtype, 32)
+        n = b * t
+        for res_tag, r in (("", res), ("no_residual", None)):
+            sub = "_".join(p for p in (tag, res_tag) if p)
+            cases["rmsnorm" + (f"[{sub}]" if sub else "")] = dict(
+                call=lambda x=x, r=r: kernels.rmsnorm(x, w, r),
+                plain=lambda x=x, r=r: rmsnorm_ref(x, w, r),
+                library=(None if r is not None else
+                         lambda x=x: F.rms_norm(x, (d,), w,
+                                                eps=cfg.norm_eps)),
+                bytes=((4 if r is not None else 2) * n * d + d) * es,
+                flops=(5 if r is not None else 4) * n * d)
+    if dtype != torch.float32:
+        return cases
+    for tag, (b, t, hh, dd, seed) in (
+            ("", (MAX_BATCH, 1, h, hd, 40)),
+            ("prefill", (1, PROMPT, h, hd, 46)),
+            ("t64", (1, 64, h, hd, 52)),
+            ("extreme_decay", (1, 32, 1, 8, 58))):
+        args = wkv_inputs(b, t, hh, dd, seed)
+        plain = wkv6_ref
+        if tag == "extreme_decay":
+            even = (torch.arange(t, device=DEV) % 2 == 0)[None, :, None,
+                                                         None]
+            args = (*args[:3],
+                    torch.where(even, -50.0, -1e-4).expand(
+                        b, t, hh, dd).contiguous(),
+                    torch.zeros_like(args[4]), torch.zeros_like(args[5]))
+            plain = wkv6_oracle
+        cases["wkv6" + (f"[{tag}]" if tag else "")] = dict(
+            call=lambda a=args: kernels.wkv6(*a),
+            plain=lambda a=args, p=plain: p(*a),
+            library=None, f32_only=True, finite=True,
+            # r, k, v, logw and o per token, u, the state read and written
+            bytes=4 * (5 * b * t * hh * dd + hh * dd + 2 * b * hh * dd * dd),
+            # per token and head: r S (2 hd^2), the state update (3 hd^2),
+            # the bonus (3 hd) and exp (hd)
+            flops=b * t * hh * (5 * dd * dd + 4 * dd))
+    return cases
+
+
+def phase_kernels(cfg, rcfg) -> dict:
+    """Kernel vs plain version at each main path's shapes (SmolLM-360M
+    ``cfg``, RWKV-6 ``rcfg``); returns the bf16 rows (with the f32 error;
+    an f32-only kernel's f32 rows), keyed as the cases are."""
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for name, c in main_path_cases(cfg, dtype).items():
+        cases = {**main_path_cases(cfg, dtype), **rwkv_cases(rcfg, dtype)}
+        for name, c in cases.items():
             out, ref = c["call"](), c["plain"]()
             err = max_err(out, ref)
             bound = rel_bound(ref, dtype)
             if not err <= bound:
                 fail(f"{name} {dtype}: max |kernel - plain| {err:.3g} > "
                      f"{bound:.3g}")
+            if c.get("finite") and not all(
+                    torch.isfinite(o).all().item() for o in out):
+                fail(f"{name} {dtype}: the kernel's output is not finite")
             if "contiguous" in c:
                 c_err = max_err(out, c["contiguous"]())
                 if not c_err <= bound:
@@ -401,10 +497,11 @@ def phase_kernels(cfg) -> dict:
             row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                        bound_ms=b_ms, bound_by=by, library_ms=lib_ms,
                        host_ms=k_host, plain_host_ms=p_host)
+            rows.setdefault(name, {})
             if dtype == torch.float32:
-                rows.setdefault(name, {})["max_abs_err_f32"] = err
-            else:
-                rows.setdefault(name, {}).update(row)
+                rows[name]["max_abs_err_f32"] = err
+            if dtype != torch.float32 or c.get("f32_only"):
+                rows[name].update(row)
     return rows
 
 
@@ -490,11 +587,15 @@ def phase_logits_f32(cfg) -> None:
 
 
 # ------------------------------------------------------------------ phase 4
-def want_launches(cfg, attention: str) -> tuple:
+def want_launches(cfg, attention: str = "") -> tuple:
     """Hand-written kernel launches per decode step (``attention`` is the
-    decode attention kernel of the path) and per prefill call."""
+    decode attention kernel of the path) and per prefill call.  RWKV-6:
+    ``wkv6`` L and the legacy ``rmsnorm`` 2L+1 in both."""
     L = cfg.n_layers
     zero = {name: 0 for name in kernels.WRAPPERS}
+    if is_recurrent(cfg):
+        per = {**zero, "wkv6": L, "rmsnorm": 2 * L + 1}
+        return per, dict(per)
     norms = {"residual_rmsnorm": L + 1, "rmsnorm_matmul": L}
     return ({**zero, **norms, attention: L},
             {**zero, **norms, "flash_attention": L})
@@ -528,7 +629,7 @@ def phase_serve(cfg, phase: int, extra=()) -> tuple:
     run), with every launch count reset just before and read just after.
     ``extra`` selects the cache; the launches must match the path's table
     per decode step and per prefill call (a prefill chunk when paged)."""
-    argv = ["--arch", ARCH, "--requests", str(N_REQ), "--max-batch",
+    argv = ["--arch", cfg.name, "--requests", str(N_REQ), "--max-batch",
             str(MAX_BATCH), "--max-len", str(MAX_LEN), "--device", "cuda",
             *extra]
     buf = io.StringIO()
@@ -541,7 +642,6 @@ def phase_serve(cfg, phase: int, extra=()) -> tuple:
     print(f"phase {phase}: serve {' '.join(argv)}")
     print(f"  report {json.dumps(rep)}")
     print(f"  launches (warmup + measured run) {counts}")
-    L = cfg.n_layers
     st = eng.stats
     if len(done) != N_REQ or any(r.status != "done" for r in done):
         fail(f"serve finished {len(done)} of {N_REQ} requests")
@@ -556,9 +656,9 @@ def phase_serve(cfg, phase: int, extra=()) -> tuple:
         fail(f"launches per decode step {st.kernel_launches_per_decode_step}"
              f" != {want_step}")
     n_pre = st.prefill_chunks if paged else st.prefills
-    if st.prefill_kernel_launches != n_pre * (3 * L + 1):
+    if st.prefill_kernel_launches != n_pre * sum(want_pre.values()):
         fail(f"prefill launches {st.prefill_kernel_launches} != "
-             f"{n_pre} x {3 * L + 1}")
+             f"{n_pre} x {sum(want_pre.values())}")
     runs = 2                               # warmup + measured, same schedule
     want = {name: runs * (st.decode_steps * want_step[name]
                           + n_pre * want_pre[name]) for name in want_step}
@@ -770,6 +870,170 @@ def phase_pool_pressure(cfg, params) -> tuple:
     return counts, rep, eng
 
 
+# ------------------------------------------------------------------ phase 8
+RWKV_LOGIT_LAYERS = 4      # depth of the free-running f32 logits check
+
+
+@contextlib.contextmanager
+def checked_rwkv_kernels():
+    """Run every ``wkv6`` and ``rmsnorm`` call through its kernel and its
+    plain version on the same inputs (the plain one first, before the
+    kernel writes the state in place); fail unless they agree within TOL;
+    return the kernel's result.  Yields {name: [calls, max error]}."""
+    saved = {name: getattr(kernels, name) for name in ("wkv6", "rmsnorm")}
+    seen = {name: [0, 0.0] for name in saved}
+
+    def note(name, out, ref):
+        err, bound = max_err(out, ref), rel_bound(ref, torch.float32)
+        if not err <= bound:
+            fail(f"phase 8: {name} call {seen[name][0]} on the model's "
+                 f"activations: max |kernel - plain| {err:.3g} > "
+                 f"{bound:.3g}")
+        seen[name] = [seen[name][0] + 1, max(seen[name][1], err)]
+
+    def rmsnorm(x, weight, residual=None, *, eps):
+        out = saved["rmsnorm"](x, weight, residual, eps=eps)
+        note("rmsnorm", out, rmsnorm_ref(x, weight, residual, eps))
+        return out
+
+    def wkv6(r, k, v, logw, u, s0, *, s_out=None):
+        ref = wkv6_ref(r, k, v, logw, u, s0)
+        out = saved["wkv6"](r, k, v, logw, u, s0, s_out=s_out)
+        note("wkv6", out, ref)
+        return out
+
+    kernels.rmsnorm, kernels.wkv6 = rmsnorm, wkv6
+    try:
+        yield seen
+    finally:
+        for name, fn in saved.items():
+            setattr(kernels, name, fn)
+
+
+def rwkv_run(params, cfg, prompt, steps, ctx) -> list:
+    """Logits of a prefill of ``prompt`` and one decode step per entry of
+    ``steps``, from a fresh cache, under ``ctx``."""
+    with ctx:
+        cache = make_cache(cfg, prompt.shape[0], MAX_LEN, device=DEV)
+        logits, cache = forward(params, prompt, cfg, cache=cache)
+        got = [logits]
+        for i, tok in enumerate(steps):
+            lg, cache = forward(params, tok, cfg, cache=cache,
+                                lengths=np.full(tok.shape[0],
+                                                prompt.shape[1] + i))
+            got.append(lg)
+    return got
+
+
+def phase_logits_rwkv(cfg) -> None:
+    """Full-width RWKV-6 3B in f32: a PROMPT-token prefill of MAX_BATCH
+    rows and 3 batched decode steps.  (a) At full depth, every kernel call
+    is held against its plain version on the model's own activations.  (b)
+    Free-running logits, kernels against plain versions, within
+    LOGIT_TOL_F32 at RWKV_LOGIT_LAYERS layers.  With these random weights
+    the f32 function is ill-conditioned in depth: a rounding difference of
+    one ulp grows layer by layer, so (c) prints, unchecked, the 32-layer
+    logits of kernels against plain and of the plain versions at batch
+    MAX_BATCH against the same rows one at a time (other GEMM kernels)."""
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    params = init_params(cfg32, torch.Generator(device=DEV).manual_seed(1),
+                         device=DEV)
+    rng = np.random.default_rng(4)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (MAX_BATCH, PROMPT)))
+    steps = [torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (MAX_BATCH, 1)))
+             for _ in range(3)]
+    n0 = kernels.launch_counts()
+    with checked_rwkv_kernels() as seen:
+        full = rwkv_run(params, cfg32, prompt, steps,
+                        contextlib.nullcontext())
+    n1 = kernels.launch_counts()
+    want_step, _ = want_launches(cfg32)
+    if {k: n1[k] - n0[k] for k in n1} != {k: 4 * v
+                                          for k, v in want_step.items()}:
+        fail(f"phase 8 launches {n0} -> {n1}")
+    print(f"phase 8: full-width {cfg.name} f32, {cfg.n_layers} layers, "
+          f"prefill ({MAX_BATCH} x {PROMPT}) + 3 decode steps: every "
+          f"kernel call against its plain version on the same activations:"
+          f" " + ", ".join(f"{n} {c} calls, max err {e:.3g}"
+                           for n, (c, e) in seen.items())
+          + f" (<= {TOL['torch.float32']} x max(1, |plain|))")
+    small = cfg32.replace(n_layers=RWKV_LOGIT_LAYERS)
+    sub = {**params, "blocks": params["blocks"][:RWKV_LOGIT_LAYERS]}
+    got = rwkv_run(sub, small, prompt, steps, contextlib.nullcontext())
+    ref = rwkv_run(sub, small, prompt, steps, plain_kernels())
+    errs = [compare_logits(a, b, LOGIT_TOL_F32, f"rwkv f32 logits call {i}")
+            for i, (a, b) in enumerate(zip(got, ref))]
+    print(f"  {RWKV_LOGIT_LAYERS} layers, free running: max |kernel - "
+          f"plain| logits {max(errs):.3g} (<= {LOGIT_TOL_F32}), argmax "
+          f"agrees")
+    plain_full = rwkv_run(params, cfg32, prompt, steps, plain_kernels())
+    with plain_kernels():
+        rows = torch.cat([forward(params, prompt[i:i + 1], cfg32)[0]
+                          for i in range(MAX_BATCH)])
+    torch.cuda.synchronize()
+    drift = max((a - b).abs().max().item() for a, b in zip(full, plain_full))
+    print(f"  {cfg.n_layers} layers, free running (not checked): max "
+          f"|kernel - plain| logits {drift:.3g}; plain at batch {MAX_BATCH}"
+          f" vs the same rows one at a time, prefill "
+          f"{(plain_full[0] - rows).abs().max().item():.3g}")
+    del params, full, plain_full, got, ref, rows
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------ phase 9
+def first_difference(params, cfg, prompt, served: list) -> tuple:
+    """Run the unpadded incremental forward (the prompt in one call, then
+    one token per call, batch 1) greedily beside the ``served`` tokens.
+    Returns (index of the first token that differs, or None; the
+    incremental logits' gap between the two tokens there)."""
+    cache = make_cache(cfg, 1, MAX_LEN, device=DEV)
+    logits, cache = forward(params, torch.tensor([prompt]), cfg, cache=cache)
+    for i, tok in enumerate(served):
+        row = logits[0, -1]
+        mine = int(row.argmax())
+        if mine != tok:
+            return i, (row[mine] - row[tok]).abs().item()
+        logits, cache = forward(params, torch.tensor([[tok]]), cfg,
+                                cache=cache,
+                                lengths=np.array([len(prompt) + i]))
+    return None, 0.0
+
+
+def check_rwkv_streams(cfg) -> None:
+    """An f32 engine at full width and 2 layers serves the CLI's requests
+    (PROMPT-token prompts, 16 new tokens, max_batch 4); every request's
+    whole token stream must equal the unpadded incremental forward's.  A
+    prompt padded to its bucket (16) would run 4 pad tokens through the
+    recurrence and diverge.  Batched decode and batch-1 decode may round
+    differently, so a stream may part only where the incremental logits of
+    the two tokens lie within LOGIT_TOL_F32; it is not compared further."""
+    cfg2 = cfg.replace(n_layers=2, param_dtype="float32",
+                       compute_dtype="float32")
+    params = init_params(cfg2, torch.Generator(device=DEV).manual_seed(2),
+                         device=DEV)
+    eng = ServeEngine(cfg2, params, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                      device=DEV)
+    done = eng.run(serve.make_requests(N_REQ, cfg.vocab_size, 16))
+    if len(done) != N_REQ or any(len(r.generated) != 16 for r in done):
+        fail(f"phase 9 f32 streams: {len(done)} requests finished")
+    same = 0
+    for r in done:
+        i, gap = first_difference(params, cfg2, r.prompt, r.generated)
+        if i is None:
+            same += 1
+        elif not gap < LOGIT_TOL_F32:
+            fail(f"phase 9 f32 streams: request {r.rid} token {i} is "
+                 f"{r.generated[i]} served and differs from the unpadded "
+                 f"incremental forward by {gap:.3g} >= {LOGIT_TOL_F32}")
+    print(f"phase 9: f32 {cfg.name} at 2 layers, {N_REQ} requests of "
+          f"{PROMPT}-token prompts, 16 new tokens: {same}/{N_REQ} whole "
+          f"streams equal the unpadded incremental forward")
+    del eng, params
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------ main
 # which main path each kernel's ``launches`` is read from
 MAIN_PATH = {"decode_attention": "contiguous",
@@ -777,13 +1041,16 @@ MAIN_PATH = {"decode_attention": "contiguous",
              "residual_rmsnorm": "contiguous",
              "rmsnorm_matmul": "contiguous",
              "paged_decode_attention": "paged_bf16",
-             "paged_decode_attention_quant": "paged_int8_pressure"}
+             "paged_decode_attention_quant": "paged_int8_pressure",
+    "rmsnorm": "rwkv",
+    "wkv6": "rwkv"}
 
 
 def main() -> None:
-    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    cfg, rcfg = get_config(ARCH), get_config(RWKV_ARCH)
     phase_build()
-    rows = phase_kernels(cfg)
+    rows = phase_kernels(cfg, rcfg)
     phase_logits_f32(cfg)
     path_counts = {}
     path_counts["contiguous"], _, eng = phase_serve(cfg, 4)
@@ -796,6 +1063,14 @@ def main() -> None:
     path_counts["paged_int8_pressure"], _, eng = phase_pool_pressure(
         cfg, eng.params)
     phase_trace(eng, "phase 7 trace")
+    del eng
+    torch.cuda.empty_cache()
+    phase_logits_rwkv(rcfg)
+    path_counts["rwkv"], _, eng = phase_serve(rcfg, 9)
+    check_rwkv_streams(rcfg)
+    phase_trace(eng, "phase 10")
+    del eng
+    print(f"chip_smoke: phases 1-10 in {time.perf_counter() - t0:.1f} s")
 
     entries = []
     for name, (source, replaces) in KERNEL_INFO.items():

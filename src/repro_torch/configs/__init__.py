@@ -7,4 +7,4 @@ from repro_torch.configs.base import (  # noqa: F401
     MambaConfig, ModelConfig, MoEConfig, get_config, list_configs, reduced,
     register, torch_dtype,
 )
-from repro_torch.configs import smollm_360m  # noqa: F401
+from repro_torch.configs import rwkv6_3b, smollm_360m  # noqa: F401

@@ -24,9 +24,11 @@ class StepBodies(NamedTuple):
 
 def make_step_bodies(cfg: ModelConfig) -> StepBodies:
     def prefill_body(params, cache, tokens, slot: int, plen: int):
-        # tokens: (1, bucket) padded.  The slot's rows are ZEROED first, as
-        # the reference does, so nothing of a previous occupant survives;
-        # the forward then writes the prompt into a one-row view of them.
+        # tokens: (1, bucket) padded, or exactly the plen prompt tokens for
+        # a recurrent stack (engine.py).  The slot's rows are ZEROED first,
+        # as the reference does, so nothing of a previous occupant (KV or
+        # recurrent state) survives; the forward then writes the prompt
+        # into a one-row view of them.
         sub = [{name: t[slot:slot + 1] for name, t in c.items()}
                for c in cache]
         for c in sub:

@@ -7,7 +7,14 @@ once and is refilled from the queue.  Greedy tokens are chosen by argmax
 on the host, as the reference does.
 
 ``cache="contiguous"`` prefills a whole prompt (padded to a power-of-two
-bucket, min 8) into the slot's rows.  ``cache="paged"`` keeps KV in a pool
+bucket, min 8) into the slot's rows.  A recurrent stack (RWKV-6) is
+prefilled with exactly the prompt's tokens: a pad token would run through
+its recurrence and token shift and change the state decode starts from
+(the reference pads there too, and its tokens then differ from an
+unpadded incremental forward; ROADMAP Queue C).  The paged cache refuses
+a recurrent stack, as the reference's does.
+
+``cache="paged"`` keeps KV in a pool
 of fixed-size pages reached through numpy block tables
 (``repro_torch.kvcache``) and runs the reference's paged policy: chunked
 prefill interleaved with decode steps, evict-or-preempt under pool
@@ -38,6 +45,7 @@ from repro_torch.inference.backends import (NOT_PORTED, CallAccount,
 from repro_torch.inference.kv_quant import KV_DTYPES
 from repro_torch.kvcache import (HostOffloadTier, PagedKVCache,
                                  default_num_blocks)
+from repro_torch.models import is_recurrent
 from repro_torch.telemetry.metrics import RequestTiming
 from repro_torch.telemetry.registry import MetricsRegistry
 
@@ -271,6 +279,7 @@ class ServeEngine:
         self.B = max_batch
         self.T = max_len
         self.cache_mode = cache
+        self.recurrent = is_recurrent(cfg)
         self.prefill_chunk = prefill_chunk
         self.platform = platform
         self.backend = make_backend(cfg, params, max_batch=max_batch,
@@ -398,7 +407,8 @@ class ServeEngine:
         slot = self._free_slot()
         if slot is None:
             return False
-        toks = np.zeros((1, self._bucket(plen)), np.int32)
+        width = plen if self.recurrent else self._bucket(plen)
+        toks = np.zeros((1, width), np.int32)
         toks[0, :plen] = req.prompt
         t0 = time.perf_counter()
         logits, self.cache = self.backend.prefill(

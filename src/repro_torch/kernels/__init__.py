@@ -9,6 +9,8 @@ from repro_torch.kernels.decode_attention.ops import (
     decode_attention, paged_decode_attention, paged_decode_attention_quant)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.fused import residual_rmsnorm, rmsnorm_matmul
+from repro_torch.kernels.rmsnorm.ops import rmsnorm
+from repro_torch.kernels.rwkv6.ops import wkv6
 
 WRAPPERS = {
     "decode_attention": decode_attention,
@@ -17,6 +19,8 @@ WRAPPERS = {
     "paged_decode_attention_quant": paged_decode_attention_quant,
     "residual_rmsnorm": residual_rmsnorm,
     "rmsnorm_matmul": rmsnorm_matmul,
+    "rmsnorm": rmsnorm,
+    "wkv6": wkv6,
 }
 
 

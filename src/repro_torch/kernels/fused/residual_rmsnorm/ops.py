@@ -15,6 +15,31 @@ _ARGS = [build.P, build.P, build.P, build.P, build.P, build.I, build.I,
          build.F, build.I, build.P]
 
 
+def launch_norm(entry: str, name: str, x, weight, residual, eps: float):
+    """Check the tensors and launch the norm kernel through the C entry
+    ``entry`` (``residual_rmsnorm.cuh``); returns (normed, sum or x)."""
+    tensors = (x, weight) if residual is None else (x, weight, residual)
+    build.require_cuda(name, *tensors)
+    d = x.shape[-1]
+    if weight.shape != (d,) or any(t.dtype != x.dtype for t in tensors):
+        raise ValueError(f"{name}: weight must be (D,) and all tensors of "
+                         "one dtype")
+    if residual is not None and residual.shape != x.shape:
+        raise ValueError(f"{name}: residual {tuple(residual.shape)} != x "
+                         f"{tuple(x.shape)}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: tensors must be contiguous")
+    out = torch.empty_like(x)
+    total = None if residual is None else torch.empty_like(x)
+    fn = build.function(entry, _ARGS)
+    code = fn(x.data_ptr(), None if residual is None else residual.data_ptr(),
+              weight.data_ptr(), out.data_ptr(),
+              None if total is None else total.data_ptr(),
+              x.numel() // d, d, eps, build.dtype_code(x), build.stream_ptr(x))
+    build.check(code, name)
+    return out, (x if residual is None else total)
+
+
 def residual_rmsnorm(x, weight, residual=None, *, eps: float = 1e-5):
     """x: (..., D) -> (normed, pre-norm sum), both in x's dtype.
 
@@ -23,27 +48,10 @@ def residual_rmsnorm(x, weight, residual=None, *, eps: float = 1e-5):
     """
     if x.device.type == "cpu":
         return residual_rmsnorm_ref(x, weight, residual, eps)
-    tensors = (x, weight) if residual is None else (x, weight, residual)
-    build.require_cuda("residual_rmsnorm", *tensors)
-    d = x.shape[-1]
-    if weight.shape != (d,) or any(t.dtype != x.dtype for t in tensors):
-        raise ValueError("residual_rmsnorm: weight must be (D,) and all "
-                         "tensors of one dtype")
-    if residual is not None and residual.shape != x.shape:
-        raise ValueError(f"residual_rmsnorm: residual {tuple(residual.shape)}"
-                         f" != x {tuple(x.shape)}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("residual_rmsnorm: tensors must be contiguous")
-    out = torch.empty_like(x)
-    total = None if residual is None else torch.empty_like(x)
-    fn = build.function("residual_rmsnorm_launch", _ARGS)
-    code = fn(x.data_ptr(), None if residual is None else residual.data_ptr(),
-              weight.data_ptr(), out.data_ptr(),
-              None if total is None else total.data_ptr(),
-              x.numel() // d, d, eps, build.dtype_code(x), build.stream_ptr(x))
-    build.check(code, "residual_rmsnorm")
+    out = launch_norm("residual_rmsnorm_launch", "residual_rmsnorm", x,
+                      weight, residual, eps)
     residual_rmsnorm.launches += 1
-    return out, (x if residual is None else total)
+    return out
 
 
 residual_rmsnorm.launches = 0

@@ -1,7 +1,8 @@
 """Decoder-only transformer: parameters, KV cache and forward.
 
-Counterpart of ``repro/models/transformer.py`` for the block pattern
-``("attn",)`` (dense GQA decoders such as SmolLM-360M).  The layer stack is
+Counterpart of ``repro/models/transformer.py`` for the block patterns
+``("attn",)`` (dense GQA decoders such as SmolLM-360M) and ``("rwkv6",)``
+(RWKV-6, ``layers/rwkv.py``).  The layer stack is
 a Python loop over per-layer parameter dicts (``params["blocks"][i]``);
 ``bridge.params_from_jax`` unstacks the reference's superblock axis into
 that list.
@@ -19,6 +20,12 @@ forward at L layers:
   * ``residual_rmsnorm(x, norm2, residual=attn_out)``, L times;
   * ``residual_rmsnorm(x, final_norm)``, once.
 
+An RWKV-6 stack has no norm->single-matmul window; its norm windows sit on
+the residual stream and go through the legacy two-output ``rmsnorm``, 2L+1
+per forward: norm1 of layer 0 (no residual), norm2 with the time mix's
+output as residual, norm1 of layer i > 0 with the previous channel mix's
+output, and the final norm; plus ``wkv6`` L times.
+
 The large plain products (wk, wv, wo, the MLP, the unembed) stay
 ``torch.matmul``, as the reference leaves them to XLA.
 """
@@ -32,13 +39,24 @@ from repro_torch import kernels
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.layers import attention as attn
+from repro_torch.layers import rwkv
 from repro_torch.layers.common import (dense_init, embed_tokens, mlp_fwd,
                                        mlp_init, unembed)
 
 
+PATTERNS = (("attn",), ("rwkv6",))
+RECURRENT_KINDS = ("rwkv6", "mamba")
+
+
+def is_recurrent(cfg: ModelConfig) -> bool:
+    """True when the stack carries recurrent state (no positions, nothing
+    to page): every token it is given runs through the recurrence."""
+    return any(kind in RECURRENT_KINDS for kind in cfg.block_pattern)
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for model features this slice of the port does not run."""
-    if tuple(cfg.block_pattern) != ("attn",):
+    if tuple(cfg.block_pattern) not in PATTERNS:
         raise NotImplementedError(
             f"{cfg.name}: block pattern {cfg.block_pattern} not ported yet, "
             "see ROADMAP Queue A items 2 and 10")
@@ -54,10 +72,14 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def _layer_init(gen, cfg: ModelConfig, device) -> dict:
     ones = torch.ones(cfg.d_model, dtype=cfg.pdtype, device=device)
-    return {"norm1": {"scale": ones.clone()},
-            "mixer": attn.attention_init(gen, cfg, device),
-            "norm2": {"scale": ones.clone()},
-            "mlp": mlp_init(gen, cfg, device)}
+    if is_recurrent(cfg):
+        mixer = rwkv.rwkv_time_init(gen, cfg, device)
+        mlp = rwkv.rwkv_channel_init(gen, cfg, device)
+    else:
+        mixer = attn.attention_init(gen, cfg, device)
+        mlp = mlp_init(gen, cfg, device)
+    return {"norm1": {"scale": ones.clone()}, "mixer": mixer,
+            "norm2": {"scale": ones.clone()}, "mlp": mlp}
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, *,
@@ -82,11 +104,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=None,
                device="cuda") -> list:
-    """Per-layer contiguous KV cache: [{"k","v"}: (B, T, HKV, hd)] * L."""
+    """Per-layer contiguous cache: [{"k","v"}: (B, T, HKV, hd)] * L, or for
+    RWKV-6 [{"shift","shift_c"}: (B, D), "s": (B, H, hd, hd) f32] * L."""
     check_supported(cfg)
     dev = resolve_device(device)
-    return [attn.make_self_cache(cfg, batch, max_len, dtype or cfg.cdtype,
-                                 dev) for _ in range(cfg.n_layers)]
+    dtype = dtype or cfg.cdtype
+    if is_recurrent(cfg):
+        return [rwkv.make_state(cfg, batch, dtype, dev)
+                for _ in range(cfg.n_layers)]
+    return [attn.make_self_cache(cfg, batch, max_len, dtype, dev)
+            for _ in range(cfg.n_layers)]
 
 
 def make_paged_cache(cfg: ModelConfig, num_pages: int, block_size: int,
@@ -98,8 +125,13 @@ def make_paged_cache(cfg: ModelConfig, num_pages: int, block_size: int,
     pages (P, bs, HKV, hd).  ``kv_dtype="int8"`` adds per-(token, head) f32
     ``"k_scale"``/``"v_scale"`` (P, bs, HKV) beside int8 pages; ``forward``
     dispatches on them.  ``check_supported`` rejects every stack the port
-    does not run, non-attention and enc-dec ones included."""
+    does not run; a recurrent stack raises ``ValueError``, as the
+    reference's does: its state is O(1) per slot and has nothing to page."""
     check_supported(cfg)
+    if is_recurrent(cfg):
+        raise ValueError(
+            "paged KV cache supports pure-attention stacks only; "
+            f"{cfg.name} has block kinds {list(cfg.block_pattern)}")
     dev = resolve_device(device)
     return [attn.make_paged_self_cache(cfg, num_pages, block_size,
                                        dtype or cfg.cdtype, dev,
@@ -128,6 +160,11 @@ def forward(params, tokens, cfg: ModelConfig, *, cache: Optional[list] = None,
     b, s = tokens.shape
     if lengths is not None and cache is None:
         raise ValueError("lengths= (decode) needs a cache")
+    if is_recurrent(cfg):
+        if block_tables is not None:
+            raise ValueError(f"{cfg.name}: a recurrent stack has no paged "
+                             "cache (block_tables=)")
+        return _forward_rwkv(params, tokens, cfg, cache), cache
     paged = cache is not None and "k_pages" in cache[0]
     if paged != (block_tables is not None):
         raise ValueError("a paged cache needs block_tables=, and "
@@ -153,3 +190,23 @@ def forward(params, tokens, cfg: ModelConfig, *, cache: Optional[list] = None,
         x = x + mlp_fwd(bp["mlp"], h, cfg)
     x, _ = kernels.residual_rmsnorm(x, params["final_norm"]["scale"], eps=eps)
     return unembed(x, embed, params.get("lm_head"), cfg), cache
+
+
+def _forward_rwkv(params, tokens, cfg: ModelConfig, cache):
+    """RWKV-6 logits (B,S,V) f32.  Every row runs the recurrence from its
+    cache state; there are no positions, so ``cache_index`` and
+    ``lengths`` have nothing to select (free slots step too, as in the
+    reference).  The norms fuse each residual add into the next norm."""
+    eps = cfg.norm_eps
+    x = embed_tokens(params["embed"], tokens, cfg).to(cfg.cdtype)
+    res = None
+    for i, bp in enumerate(params["blocks"]):
+        state = None if cache is None else cache[i]
+        h, x = kernels.rmsnorm(x, bp["norm1"]["scale"], residual=res,
+                               eps=eps)
+        o = rwkv.rwkv_time_fwd(bp["mixer"], h, cfg, state)
+        h, x = kernels.rmsnorm(x, bp["norm2"]["scale"], residual=o, eps=eps)
+        res = rwkv.rwkv_channel_fwd(bp["mlp"], h, cfg, state)
+    x, _ = kernels.rmsnorm(x, params["final_norm"]["scale"], residual=res,
+                           eps=eps)
+    return unembed(x, params["embed"], params.get("lm_head"), cfg)

@@ -8,7 +8,8 @@ without JAX, so without this directory's conftest):
 
 Shapes follow the reference's kernel tests (head dims 16, 32, 64 and 112,
 GQA groups 1-4; the paged kernels on the grid of the reference's paged
-tests) plus the SmolLM-360M main-path shapes.  Tolerance: the
+tests; WKV6 on its grid and extreme-decay case) plus the SmolLM-360M and
+RWKV-6 3B main-path shapes.  Tolerance: the
 largest absolute error at most 2e-5 (f32) or 2e-2 (bf16) times
 max(1, max |plain|); TF32 is off, so the plain f32 products are exact f32.
 """
@@ -24,6 +25,8 @@ from repro_torch.kernels.decode_attention.ref import (
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.fused.residual_rmsnorm.ref import residual_rmsnorm_ref
 from repro_torch.kernels.fused.rmsnorm_matmul.ref import rmsnorm_matmul_ref
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.rwkv6.ref import wkv6_oracle, wkv6_ref
 
 pytestmark = pytest.mark.cuda
 DTYPES = [torch.float32, torch.bfloat16]
@@ -239,6 +242,86 @@ def test_rmsnorm_matmul(dev, n, d, f, dtype):
     _close(y, y_ref, dtype)
 
 
+@pytest.mark.parametrize("n,d", [(7, 64), (100, 256), (4, 2560),
+                                 (12, 2560)])
+@pytest.mark.parametrize("with_res", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm(dev, n, d, with_res, dtype):
+    x = _randn((1, n, d), dtype, dev, 0)
+    w = _randn((d,), dtype, dev, 1) + 1.0
+    r = _randn((1, n, d), dtype, dev, 2) if with_res else None
+    n0 = kernels.rmsnorm.launches
+    y, s = kernels.rmsnorm(x, w, r)
+    assert kernels.rmsnorm.launches == n0 + 1
+    y_ref, s_ref = rmsnorm_ref(x, w, r)
+    _close(y, y_ref, dtype)
+    _close(s, s_ref, dtype)
+    if not with_res:
+        assert s is x
+
+
+def _wkv_inputs(b, t, h, hd, dev, seed):
+    """r, k, v, logw (B,T,H,hd), u, s0 at the scales of the reference's
+    WKV6 test."""
+    r = _randn((b, t, h, hd), torch.float32, dev, seed, 0.5)
+    k = _randn((b, t, h, hd), torch.float32, dev, seed + 1, 0.5)
+    v = _randn((b, t, h, hd), torch.float32, dev, seed + 2)
+    logw = -torch.exp(_randn((b, t, h, hd), torch.float32, dev, seed + 3,
+                             0.5) - 2.0)
+    u = _randn((h, hd), torch.float32, dev, seed + 4, 0.3)
+    s0 = _randn((b, h, hd, hd), torch.float32, dev, seed + 5, 0.1)
+    return r, k, v, logw, u, s0
+
+
+@pytest.mark.parametrize("shape", [(1, 32, 2, 16), (2, 45, 3, 8),
+                                   (1, 16, 1, 32), (4, 1, 40, 64),
+                                   (1, 12, 40, 64), (1, 64, 40, 64),
+                                   (2, 3, 2, 128)])
+def test_wkv6(dev, shape):
+    b, t, h, hd = shape
+    args = _wkv_inputs(b, t, h, hd, dev, 0)
+    n0 = kernels.wkv6.launches
+    o, s = kernels.wkv6(*args)
+    assert kernels.wkv6.launches == n0 + 1
+    o_ref, s_ref = wkv6_ref(*args)
+    _close(o, o_ref, torch.float32)
+    _close(s, s_ref, torch.float32)
+    o_lit, s_lit = wkv6_oracle(*args)
+    _close(o, o_lit, torch.float32)
+    _close(s, s_lit, torch.float32)
+
+
+def test_wkv6_strided_inputs_and_state_in_place(dev):
+    """r, k, v, logw as transposed views of (B,H,T,hd) buffers (the Pallas
+    layout), and the state written over s0."""
+    b, t, h, hd = 2, 20, 3, 64
+    args = [a.transpose(1, 2).contiguous().transpose(1, 2) if a.dim() == 4
+            and i < 4 else a for i, a in
+            enumerate(_wkv_inputs(b, t, h, hd, dev, 10))]
+    assert args[0].stride(1) == hd and not args[0].is_contiguous()
+    o_ref, s_ref = wkv6_ref(*args)
+    state = args[5].clone()
+    o, s = kernels.wkv6(*args[:5], state, s_out=state)
+    assert s is state
+    _close(o, o_ref, torch.float32)
+    _close(state, s_ref, torch.float32)
+
+
+def test_wkv6_extreme_decay(dev):
+    b, t, h, hd = 1, 32, 1, 8
+    r, k, v = (_randn((b, t, h, hd), torch.float32, dev, s)
+               for s in (20, 21, 22))
+    even = (torch.arange(t, device=dev) % 2 == 0)[None, :, None, None]
+    logw = torch.where(even, -50.0, -1e-4).expand(b, t, h, hd).contiguous()
+    u = torch.zeros((h, hd), device=dev)
+    s0 = torch.zeros((b, h, hd, hd), device=dev)
+    o, s = kernels.wkv6(r, k, v, logw, u, s0)
+    assert torch.isfinite(o).all() and torch.isfinite(s).all()
+    o_ref, s_ref = wkv6_oracle(r, k, v, logw, u, s0)
+    _close(o, o_ref, torch.float32)
+    _close(s, s_ref, torch.float32)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x = _randn((4, 64), torch.float16, dev, 0)
     with pytest.raises(TypeError):
@@ -250,6 +333,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):   # mixed devices
         kernels.rmsnorm_matmul(x.float(), torch.ones(64, device=dev),
                                torch.ones(64, 8))
+    args = list(_wkv_inputs(1, 4, 2, 16, dev, 0))
+    with pytest.raises(ValueError):   # bf16
+        kernels.wkv6(*[a.bfloat16() for a in args])
+    with pytest.raises(ValueError):   # head size the kernel has no case for
+        kernels.wkv6(*_wkv_inputs(1, 4, 2, 24, dev, 0))
+    with pytest.raises(ValueError):   # r, k, v, logw with other strides
+        kernels.wkv6(args[0].transpose(1, 2).contiguous().transpose(1, 2),
+                     *args[1:])
 
 
 def test_paged_wrappers_refuse_what_the_kernels_do_not_take(dev):

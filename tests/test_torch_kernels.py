@@ -168,6 +168,9 @@ def test_cpu_calls_launch_nothing():
     x = torch.randn(2, 8)
     kernels.residual_rmsnorm(x, torch.ones(8))
     kernels.rmsnorm_matmul(x, torch.ones(8), torch.randn(8, 4))
+    kernels.rmsnorm(x, torch.ones(8), x)
+    kernels.wkv6(*(torch.randn(1, 3, 2, 8) for _ in range(4)),
+                 torch.randn(2, 8), torch.zeros(1, 2, 8, 8))
     assert kernels.launch_counts() == before
 
 
@@ -199,6 +202,11 @@ def test_wrappers_never_fall_back_off_the_cpu(name):
                              torch.empty(8, **meta)),
         "rmsnorm_matmul": (torch.empty(2, 8, **meta), torch.empty(8, **meta),
                            torch.empty(8, 4, **meta)),
+        "rmsnorm": (torch.empty(2, 8, **meta), torch.empty(8, **meta),
+                    torch.empty(2, 8, **meta)),
+        "wkv6": (*(torch.empty(1, 3, 2, 16, **meta) for _ in range(4)),
+                 torch.empty(2, 16, **meta),
+                 torch.empty(1, 2, 16, 16, **meta)),
     }[name]
     kw = {"scale": 1.0} if "attention" in name else {}
     with pytest.raises(ValueError, match="CUDA"):

@@ -134,7 +134,8 @@ def test_forward_calls_the_kernels_where_the_fused_plan_does(setup,
     assert calls == {"rmsnorm_matmul": n, "residual_rmsnorm": n + 1,
                      "flash_attention": n, "decode_attention": 0,
                      "paged_decode_attention": 0,
-                     "paged_decode_attention_quant": 0}
+                     "paged_decode_attention_quant": 0, "rmsnorm": 0,
+                     "wkv6": 0}
     for name in calls:
         calls[name] = 0
     forward(params, torch.from_numpy(_tokens(3, (2, 1), cfg.vocab_size)),
@@ -142,7 +143,8 @@ def test_forward_calls_the_kernels_where_the_fused_plan_does(setup,
     assert calls == {"rmsnorm_matmul": n, "residual_rmsnorm": n + 1,
                      "flash_attention": 0, "decode_attention": n,
                      "paged_decode_attention": 0,
-                     "paged_decode_attention_quant": 0}
+                     "paged_decode_attention_quant": 0, "rmsnorm": 0,
+                     "wkv6": 0}
 
 
 def test_unported_features_raise():

@@ -110,5 +110,6 @@ def test_serve_cli_reports_the_engine_fields():
     assert rep["decode_steps"] == eng.stats.decode_steps > 0
     assert set(rep["kernel_launches_per_decode_step"]) == {
         "decode_attention", "flash_attention", "paged_decode_attention",
-        "paged_decode_attention_quant", "residual_rmsnorm", "rmsnorm_matmul"}
+        "paged_decode_attention_quant", "residual_rmsnorm", "rmsnorm_matmul",
+        "rmsnorm", "wkv6"}
     assert rep["measured_launch_tax_per_step_us"] > 0
