@@ -15,6 +15,8 @@ Phases (any failure exits non-zero before a result is printed):
      16, 8 blocks per row, a 32-page bf16 pool and a 60-page int8 pool,
      permuted pages and sentinel table entries), and the bf16 one is also
      held against the contiguous kernel on the same logical KV;
+     ``flash_attention`` also at causal prefills of S = T = 128 and 1024
+     (``[t128]``, ``[t1024]``), each beside SDPA;
   3. full-width SmolLM-360M logits in f32, kernels against plain
      versions, for a prefill and batched decode steps; then the paged
      path (a chunked prefill in chunks of 8 and the same decode steps)
@@ -23,8 +25,9 @@ Phases (any failure exits non-zero before a result is printed):
      SmolLM-360M in bf16 on the contiguous cache (8 requests, max_batch
      4), with every kernel's launch count reset just before and read just
      after;
-  5. a profiler trace of decode steps (device time by kernel, host ops by
-     self time);
+  5. a profiler trace of decode steps (device time by kernel, the
+     hand-written kernels' time per step, host ops by self time), then of a
+     slot's prefill (the hand-written kernels' time per prefill);
   6. the second main path: the same serve command with ``--cache paged
      --block-size 16``, the launches checked per decode step and per
      prefill chunk, then a trace of its decode step as in phase 5;
@@ -42,7 +45,7 @@ Phases (any failure exits non-zero before a result is printed):
      forward; then an f32 engine at full width and 2 layers whose whole
      token streams must equal an unpadded incremental forward's (the
      engine prefills a recurrent stack without bucket padding);
- 10. a trace of the RWKV-6 decode step, as in phase 5.
+ 10. a trace of the RWKV-6 decode step and prefill, as in phase 5.
 
 Phase 2 also holds the RWKV-6 path's two kernels at its shapes: the norm
 at (4, 1, 2560) and (1, 12, 2560) with and without a residual in f32 and
@@ -390,6 +393,28 @@ def main_path_cases(cfg, dtype):
     }
 
 
+def flash_cases(cfg, dtype):
+    """``flash_attention`` at longer causal prefills of the same heads: S =
+    T = MAX_LEN (a prompt that fills the smoke's cache) and S = T = 1024,
+    as ``name[t<S>]`` cases."""
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    es = torch.tensor([], dtype=dtype).element_size()
+    cases = {}
+    for n in (MAX_LEN, 1024):
+        q, k, v = (randn((1, n, h, hd), dtype, seed).transpose(1, 2)
+                   for h, seed in ((hq, 19), (hkv, 20), (hkv, 21)))
+        cases[f"flash_attention[t{n}]"] = dict(
+            call=lambda q=q, k=k, v=v: kernels.flash_attention(
+                q, k, v, scale=hd ** -0.5),
+            plain=lambda q=q, k=k, v=v: attention_ref(q, k, v,
+                                                      scale=hd ** -0.5),
+            library=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, scale=hd ** -0.5, enable_gqa=True),
+            bytes=(2 * n * hq * hd + 2 * n * hkv * hd) * es,
+            flops=4 * (n * (n + 1) // 2) * hq * hd)
+    return cases
+
+
 def wkv_inputs(b, t, h, hd, seed) -> tuple:
     """r, k, v, logw (B,T,H,hd), u, s0 in f32 at the scales of the
     reference's WKV6 test (``tests/test_kernels.py::test_wkv6``)."""
@@ -463,7 +488,8 @@ def phase_kernels(cfg, rcfg) -> dict:
     an f32-only kernel's f32 rows), keyed as the cases are."""
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
-        cases = {**main_path_cases(cfg, dtype), **rwkv_cases(rcfg, dtype)}
+        cases = {**main_path_cases(cfg, dtype), **flash_cases(cfg, dtype),
+                 **rwkv_cases(rcfg, dtype)}
         for name, c in cases.items():
             out, ref = c["call"](), c["plain"]()
             err = max_err(out, ref)
@@ -671,13 +697,44 @@ def phase_serve(cfg, phase: int, extra=()) -> tuple:
 
 
 # ------------------------------------------------------------------ phase 5
-def phase_trace(eng, label: str) -> None:
+# device kernel names of the hand-written kernels (csrc/*.cu)
+HAND_KERNELS = ("flash_attention", "residual_rmsnorm_kernel",
+                "rmsnorm_matmul", "decode_attention", "wkv6")
+
+
+def device_times(run):
+    """Profile ``run``: ({kernel name: (device us, launches)} over the run,
+    or None when the profiler saw no device events; the profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        return None, prof
+    by = {}
+    for e in kern:
+        t, n = by.get(e.name, (0.0, 0))
+        by[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+    return by, prof
+
+
+def print_hand_kernels(by, calls: int, per: str) -> None:
+    """The hand-written kernels' device time inside the profiled run."""
+    for name, (t, n) in sorted(by.items(), key=lambda kv: -kv[1][0]):
+        if any(h in name for h in HAND_KERNELS):
+            print(f"  in {per}: {name[:60]} {n / calls:.0f} calls, "
+                  f"{t / calls:.1f} us/{per}, {t / n:.2f} us/call")
+
+
+def phase_trace(eng, label: str, prefill: bool = False) -> None:
     """Decode-step wall time, device time by kernel from torch.profiler
     (kernels run in order on one stream, so their sum is the busy time) and
     the host ops with the most self time, for the engine's cache (a paged
-    engine steps rows that own two pages each)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    engine steps rows that own two pages each).  With ``prefill``, also the
+    device time of a slot's prefill (the serve CLI's 12-token prompt, padded
+    to its bucket for attention), with the hand-written kernels' share."""
     rng = np.random.default_rng(2)
     toks = torch.from_numpy(rng.integers(0, eng.cfg.vocab_size,
                                          (MAX_BATCH, 1)))
@@ -704,18 +761,11 @@ def phase_trace(eng, label: str) -> None:
     t0 = time.perf_counter()
     run()
     wall_ms = (time.perf_counter() - t0) / steps * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kern:
+    by, prof = device_times(run)
+    if by is None:
         print(f"{label}: decode step wall {wall_ms:.3f} ms; the profiler "
               "reported no device events: device time not measured")
         return
-    by = {}
-    for e in kern:
-        t, n = by.get(e.name, (0.0, 0))
-        by[e.name] = (t + e.time_range.elapsed_us(), n + 1)
     busy_ms = sum(t for t, _ in by.values()) / steps / 1e3
     n_kern = sum(n for _, n in by.values()) / steps
     print(f"{label}: decode step (batch {MAX_BATCH}, kv len 20): wall "
@@ -724,10 +774,29 @@ def phase_trace(eng, label: str) -> None:
           f"wall), {n_kern:.0f} device kernels/step")
     for name, (t, n) in sorted(by.items(), key=lambda kv: -kv[1][0])[:12]:
         print(f"  {t / steps:9.1f} us/step {n / steps:6.1f}x  {name[:90]}")
+    print_hand_kernels(by, steps, "step")
     ops = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
     print("  host ops by profiled self time: " + ", ".join(
         f"{a.key} {a.self_cpu_time_total / steps:.0f} us/step "
         f"({a.count / steps:.0f}x)" for a in ops[:8]))
+    if not prefill:
+        return
+    width = PROMPT if is_recurrent(eng.cfg) else BUCKET
+    prompt = torch.from_numpy(rng.integers(0, eng.cfg.vocab_size,
+                                           (1, width)))
+
+    def prefills():
+        for _ in range(steps):
+            logits, _ = eng.backend.prefill(eng.cache, prompt, 0, PROMPT)
+            logits.cpu()
+
+    prefills()
+    by, _ = device_times(prefills)
+    busy_ms = sum(t for t, _ in by.values()) / steps / 1e3
+    print(f"{label} prefill (1 x {width}, slot 0): device busy "
+          f"{busy_ms:.3f} ms/prefill, "
+          f"{sum(n for _, n in by.values()) / steps:.0f} device kernels")
+    print_hand_kernels(by, steps, "prefill")
 
 
 # ------------------------------------------------------------------ phase 7
@@ -1054,7 +1123,7 @@ def main() -> None:
     phase_logits_f32(cfg)
     path_counts = {}
     path_counts["contiguous"], _, eng = phase_serve(cfg, 4)
-    phase_trace(eng, "phase 5")
+    phase_trace(eng, "phase 5", prefill=True)
     del eng
     torch.cuda.empty_cache()
     path_counts["paged_bf16"], _, eng = phase_serve(
@@ -1068,7 +1137,7 @@ def main() -> None:
     phase_logits_rwkv(rcfg)
     path_counts["rwkv"], _, eng = phase_serve(rcfg, 9)
     check_rwkv_streams(rcfg)
-    phase_trace(eng, "phase 10")
+    phase_trace(eng, "phase 10", prefill=True)
     del eng
     print(f"chip_smoke: phases 1-10 in {time.perf_counter() - t0:.1f} s")
 

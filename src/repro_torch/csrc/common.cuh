@@ -55,21 +55,6 @@ __device__ __forceinline__ float rt_warp_max(float v) {
   return v;
 }
 
-// Sum over the block, returned to every thread.  blockDim.x must be a
-// multiple of 32 and at most 1024.
-__device__ __forceinline__ float rt_block_sum(float v) {
-  __shared__ float partial[32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = rt_warp_sum(v);
-  if (lane == 0) partial[warp] = v;
-  __syncthreads();
-  const int n_warps = blockDim.x >> 5;
-  float total = lane < n_warps ? partial[lane] : 0.f;
-  total = rt_warp_sum(total);
-  __syncthreads();  // partial[] may be reused by a later call
-  return total;
-}
-
 // Runs the statement given after `T` with `T` bound to the element type named by `code`.
 #define RT_DISPATCH(code, T, ...)              \
   switch (code) {                              \

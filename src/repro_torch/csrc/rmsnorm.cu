@@ -5,8 +5,9 @@
 //   src/repro/kernels/rmsnorm/kernel.py::rmsnorm_kernel (_rms_kernel).
 // It computes (normed, x + residual) with f32 statistics and the norm of
 // the unrounded f32 sum, or (normed, x) without a residual: the function of
-// residual_rmsnorm.cuh, whose kernel it launches (bytes-bound, one CTA per
-// row; see there).  Without a residual this entry writes only the normed
+// residual_rmsnorm.cuh, whose kernel it launches (bytes-bound, then
+// latency: one CTA per row, all loads issued before the reduction; see
+// there).  Without a residual this entry writes only the normed
 // rows and the wrapper returns x itself as the second output, where the
 // TPU kernel copies x into a second buffer.
 #include "residual_rmsnorm.cuh"

@@ -13,6 +13,9 @@ from repro_torch.kernels.fused.residual_rmsnorm.ref import residual_rmsnorm_ref
 
 _ARGS = [build.P, build.P, build.P, build.P, build.P, build.I, build.I,
          build.F, build.I, build.P]
+# The kernel keeps a row in registers: at most 256 threads of 10 16-byte
+# vectors each (NORM_MAX_THREADS x NORM_MAX_NV in csrc/residual_rmsnorm.cuh).
+MAX_ROW_BYTES = 256 * 10 * 16
 
 
 def launch_norm(entry: str, name: str, x, weight, residual, eps: float):
@@ -29,6 +32,9 @@ def launch_norm(entry: str, name: str, x, weight, residual, eps: float):
                          f"{tuple(x.shape)}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: tensors must be contiguous")
+    if d * x.element_size() > MAX_ROW_BYTES:
+        raise ValueError(f"{name}: rows of {d} x {x.dtype} exceed the "
+                         f"{MAX_ROW_BYTES} bytes the kernel holds")
     out = torch.empty_like(x)
     total = None if residual is None else torch.empty_like(x)
     fn = build.function(entry, _ARGS)

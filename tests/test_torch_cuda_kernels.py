@@ -9,7 +9,10 @@ without JAX, so without this directory's conftest):
 Shapes follow the reference's kernel tests (head dims 16, 32, 64 and 112,
 GQA groups 1-4; the paged kernels on the grid of the reference's paged
 tests; WKV6 on its grid and extreme-decay case) plus the SmolLM-360M and
-RWKV-6 3B main-path shapes.  Tolerance: the
+RWKV-6 3B main-path shapes, and each path inside a kernel: flash attention
+at GQA groups up to 8, head dims that are not multiples of 16 or 8,
+several key tiles with masks, unaligned rows (scalar loads); the norms at
+widths with a scalar tail, wider than a warp holds, and unaligned.  Tolerance: the
 largest absolute error at most 2e-5 (f32) or 2e-2 (bf16) times
 max(1, max |plain|); TF32 is off, so the plain f32 products are exact f32.
 """
@@ -57,7 +60,14 @@ def _close(out, ref, dtype):
 
 @pytest.mark.parametrize("shape", [
     (2, 4, 2, 64, 64, 32), (1, 6, 2, 37, 37, 16), (2, 8, 8, 128, 256, 64),
-    (1, 4, 1, 33, 65, 112), (1, 15, 5, 16, 16, 64)])
+    (1, 4, 1, 33, 65, 112), (1, 15, 5, 16, 16, 64),
+    # the smoke run's t128 and full-width t1024 prefill
+    (1, 15, 5, 128, 128, 64), (1, 15, 5, 1024, 1024, 64),
+    # GQA groups 1, 2, 3 and 8; S not a multiple of 16; S > T
+    (1, 4, 4, 40, 72, 64), (2, 4, 2, 33, 33, 32), (1, 9, 3, 21, 100, 64),
+    (1, 8, 1, 70, 70, 64), (1, 4, 2, 50, 30, 32),
+    # hd % 16 != 0 (a zero-padded k-step) and hd % 8 != 0 (scalar loads)
+    (1, 6, 3, 45, 45, 40), (1, 4, 2, 19, 19, 20)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_attention(dev, shape, dtype):
     b, hq, hkv, s, t, hd = shape
@@ -73,24 +83,61 @@ def test_flash_attention(dev, shape, dtype):
 
 @pytest.mark.parametrize("window,cap,kv_len", [
     (16, 0.0, None), (0, 8.0, None), (16, 8.0, 40), (0, 0.0, 3)])
-def test_flash_attention_masks(dev, window, cap, kv_len):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_masks(dev, window, cap, kv_len, dtype):
     b, hq, hkv, s, t, hd = 1, 4, 2, 64, 64, 32
-    q = _randn((b, hq, s, hd), torch.float32, dev, 3)
-    k = _randn((b, hkv, t, hd), torch.float32, dev, 4)
-    v = _randn((b, hkv, t, hd), torch.float32, dev, 5)
+    q = _randn((b, hq, s, hd), dtype, dev, 3)
+    k = _randn((b, hkv, t, hd), dtype, dev, 4)
+    v = _randn((b, hkv, t, hd), dtype, dev, 5)
     kw = dict(scale=0.2, causal=True, window=window, softcap=cap)
     _close(kernels.flash_attention(q, k, v, kv_len, **kw),
-           attention_ref(q, k, v, kv_len, **kw), torch.float32)
+           attention_ref(q, k, v, kv_len, **kw), dtype)
 
 
-def test_flash_attention_fully_masked_rows(dev):
+@pytest.mark.parametrize("window,kv_len", [(0, None), (48, 100), (0, 70)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_masks_long(dev, window, kv_len, dtype):
+    """Several 64-key tiles: windowed and kv_len-cut rows skip whole tiles
+    and mask only the boundary ones."""
+    b, hq, hkv, s, t, hd = 1, 6, 2, 200, 200, 64
+    q = _randn((b, hq, s, hd), dtype, dev, 9)
+    k = _randn((b, t, hkv, hd), dtype, dev, 10).transpose(1, 2)
+    v = _randn((b, t, hkv, hd), dtype, dev, 11).transpose(1, 2)
+    kw = dict(scale=0.125, causal=True, window=window)
+    _close(kernels.flash_attention(q, k, v, kv_len, **kw),
+           attention_ref(q, k, v, kv_len, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_fully_masked_rows(dev, dtype):
     # S > T puts the first queries before every key: those rows have no
     # valid key and must softmax NEG_INF uniformly, as the plain version
-    q = _randn((1, 2, 40, 16), torch.float32, dev, 6)
-    k = _randn((1, 1, 24, 16), torch.float32, dev, 7)
-    v = _randn((1, 1, 24, 16), torch.float32, dev, 8)
+    q = _randn((1, 2, 40, 16), dtype, dev, 6)
+    k = _randn((1, 1, 24, 16), dtype, dev, 7)
+    v = _randn((1, 1, 24, 16), dtype, dev, 8)
     _close(kernels.flash_attention(q, k, v, scale=0.25),
-           attention_ref(q, k, v, scale=0.25), torch.float32)
+           attention_ref(q, k, v, scale=0.25), dtype)
+
+
+def _offset_view(shape, dtype, dev, seed):
+    """A contiguous tensor one element past a 16-byte boundary."""
+    flat = _randn((int(np.prod(shape)) + 1,), dtype, dev, seed)
+    return flat[1:].view(shape)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_unaligned_rows(dev, dtype):
+    """Q and K rows that do not start on a 16-byte boundary take the
+    kernel's scalar loads."""
+    b, hq, hkv, s, t, hd = 1, 6, 2, 24, 40, 64
+    q = _offset_view((b, hq, s, hd), dtype, dev, 12)
+    k = _offset_view((b, hkv, t, hd), dtype, dev, 13)
+    v = _randn((b, hkv, t, hd), dtype, dev, 14)
+    assert q.data_ptr() % 16 and k.data_ptr() % 16
+    n0 = kernels.flash_attention.launches
+    out = kernels.flash_attention(q, k, v, scale=0.125)
+    assert kernels.flash_attention.launches == n0 + 1
+    _close(out, attention_ref(q, k, v, scale=0.125), dtype)
 
 
 @pytest.mark.parametrize("shape", [(2, 4, 2, 128, 32), (1, 8, 8, 500, 64),
@@ -210,8 +257,13 @@ def test_paged_decode_attention_sentinel_and_empty_rows(dev, quant):
     _close(out, ref, torch.float32)
 
 
-@pytest.mark.parametrize("n,d", [(1, 64), (6, 32), (5, 128), (4, 960),
-                                 (16, 960)])
+# widths with a scalar tail (100, 1001), the port's (960, 2560), many rows
+# (1024 x 960) and a row wider than a warp holds (8192)
+NORM_GRID = [(1, 64), (6, 32), (5, 128), (4, 960), (16, 960), (3, 100),
+             (5, 1001), (1024, 960), (4, 2560), (12, 2560), (2, 8192)]
+
+
+@pytest.mark.parametrize("n,d", NORM_GRID)
 @pytest.mark.parametrize("with_res", [False, True])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_residual_rmsnorm(dev, n, d, with_res, dtype):
@@ -243,7 +295,8 @@ def test_rmsnorm_matmul(dev, n, d, f, dtype):
 
 
 @pytest.mark.parametrize("n,d", [(7, 64), (100, 256), (4, 2560),
-                                 (12, 2560)])
+                                 (12, 2560), (3, 100), (5, 1001),
+                                 (2, 8192)])
 @pytest.mark.parametrize("with_res", [False, True])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_rmsnorm(dev, n, d, with_res, dtype):
@@ -258,6 +311,26 @@ def test_rmsnorm(dev, n, d, with_res, dtype):
     _close(s, s_ref, dtype)
     if not with_res:
         assert s is x
+
+
+@pytest.mark.parametrize("name", ["residual_rmsnorm", "rmsnorm"])
+@pytest.mark.parametrize("with_res", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_norms_unaligned_rows(dev, name, with_res, dtype):
+    """x contiguous but one element past a 16-byte boundary: the kernel's
+    element-wise loads and stores."""
+    n, d = 4, 960
+    x = _offset_view((n, d), dtype, dev, 0)
+    assert x.data_ptr() % 16
+    w = _randn((d,), dtype, dev, 1) + 1.0
+    r = _randn((n, d), dtype, dev, 2) if with_res else None
+    fn = getattr(kernels, name)
+    n0 = fn.launches
+    y, s = fn(x, w, r)
+    assert fn.launches == n0 + 1
+    y_ref, s_ref = residual_rmsnorm_ref(x, w, r)
+    _close(y, y_ref, dtype)
+    _close(s, s_ref, dtype)
 
 
 def _wkv_inputs(b, t, h, hd, dev, seed):
@@ -326,6 +399,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x = _randn((4, 64), torch.float16, dev, 0)
     with pytest.raises(TypeError):
         kernels.residual_rmsnorm(x, torch.ones(64, dtype=x.dtype, device=dev))
+    wide = torch.ones((1, 20481), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):   # a row wider than the kernel holds
+        kernels.rmsnorm(wide, wide[0])
     q = _randn((1, 4, 256), torch.float32, dev, 0)
     k = _randn((1, 2, 8, 256), torch.float32, dev, 1)
     with pytest.raises(ValueError):

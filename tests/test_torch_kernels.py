@@ -71,6 +71,20 @@ def test_flash_attention_plain_masks(window, cap, kv_len):
     _close(out, jx_fref(jq, jk, jv, kv_len=kv_len, **kw), 2e-5)
 
 
+@pytest.mark.parametrize("dt,tol", [("f32", 1e-5), ("bf16", 2e-2)])
+def test_flash_attention_plain_t128(dt, tol):
+    """SmolLM-360M's heads at the smoke run's 128-token prefill (S = T =
+    128, 15 query heads on 5 KV heads, hd 64), against the Pallas kernel in
+    interpret mode over several KV tiles."""
+    jq, q = _pair((1, 15, 128, 64), dt, 6)
+    jk, k = _pair((1, 5, 128, 64), dt, 7)
+    jv, v = _pair((1, 5, 128, 64), dt, 8)
+    out = kernels.flash_attention(q, k, v, scale=0.125)
+    _close(out, jx_flash(jq, jk, jv, scale=0.125, block_q=32, block_kv=32),
+           tol)
+    _close(out, jx_fref(jq, jk, jv, scale=0.125), tol)
+
+
 @pytest.mark.parametrize("shape", [(2, 4, 2, 128, 32), (3, 6, 3, 96, 16)])
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_decode_attention_plain(shape, dt):
@@ -133,6 +147,30 @@ def test_residual_rmsnorm_plain_without_residual(dt):
     _close(y, jx_res(jx, jw)[0], tol)
     _close(y, jx_rmsnorm(jx, jw), tol)
     assert s is x
+
+
+@pytest.mark.parametrize("name", ["residual_rmsnorm", "rmsnorm"])
+@pytest.mark.parametrize("d", [100, 2560])
+@pytest.mark.parametrize("with_res", [False, True])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_norms_plain_at_kernel_widths(name, d, with_res, dt):
+    """Both norm wrappers at a width with a scalar tail (100) and RWKV-6's
+    2560, against the fused Pallas op and ``layers.common.rmsnorm`` (of the
+    f32 sum; in bf16 only without a residual, where the sum is not
+    rounded)."""
+    jx, x = _pair((5, d), dt, 3)
+    jw, w = _pair((d,), dt, 4, shift=1.0)
+    jr, r = _pair((5, d), dt, 5) if with_res else (None, None)
+    y, s = getattr(kernels, name)(x, w, r)
+    tol = DTYPES[dt][2]
+    jy, js = jx_res(jx, jw, jr)
+    _close(y, jy, tol)
+    _close(s, js, tol)
+    if not with_res:
+        assert s is x
+        _close(y, jx_rmsnorm(jx, jw), tol)
+    elif dt == "f32":
+        _close(y, jx_rmsnorm(jx + jr, jw), tol)
 
 
 @pytest.mark.parametrize("n,d,f", [(1, 64, 128), (7, 32, 48), (16, 64, 64)])
