@@ -5,7 +5,8 @@
 Phases (any failure exits non-zero before a result is printed):
 
   1. build the hand-written kernels from ``src/repro_torch/csrc`` with nvcc
-     for sm_90a, and time an empty kernel's launch;
+     for sm_90a (no kernel may spill registers), and time an empty kernel's
+     launch;
   2. hold each kernel against its plain PyTorch version at the main path's
      shapes (SmolLM-360M, max_batch 4, max_len 128, 16-token prefill
      bucket; the norms at both the decode rows (4 x 1) and a slot's
@@ -16,7 +17,11 @@ Phases (any failure exits non-zero before a result is printed):
      permuted pages and sentinel table entries), and the bf16 one is also
      held against the contiguous kernel on the same logical KV;
      ``flash_attention`` also at causal prefills of S = T = 128 and 1024
-     (``[t128]``, ``[t1024]``), each beside SDPA;
+     (``[t128]``, ``[t1024]``), each beside SDPA; ``decode_attention`` and
+     ``paged_decode_attention`` also over a 1024-position cache
+     (``[t1024]``: lengths 1024/768/512/256, block 16, 64 blocks a row, the
+     contiguous one beside SDPA with a mask); ``rmsnorm_matmul`` beside the
+     unfused pair it replaces (``F.rms_norm`` then ``torch.matmul``);
   3. full-width SmolLM-360M logits in f32, kernels against plain
      versions, for a prefill and batched decode steps; then the paged
      path (a chunked prefill in chunks of 8 and the same decode steps)
@@ -63,6 +68,7 @@ import contextlib
 import io
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -238,9 +244,16 @@ def phase_build() -> None:
     built = build.build_seconds is not None
     print(f"phase 1: kernels {'built' if built else 'found'} in {secs:.2f} s "
           f"({path.name}, sm_90a)")
+    spills = 0
     for line in (build.BUILD_DIR / "build.log").read_text().splitlines():
         if line.startswith("==") or "registers" in line or "spill" in line:
             print(f"  {line.strip()}")
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if found:
+            spills += int(found.group(1)) + int(found.group(2))
+    if spills:
+        fail(f"the kernels spill {spills} bytes of registers (build.log)")
     stream = torch.cuda.current_stream(DEV).cuda_stream
     for _ in range(100):
         build.null_launch(stream)
@@ -258,12 +271,12 @@ def phase_build() -> None:
 
 
 # ------------------------------------------------------------------ phase 2
-def paged_table(lens, n_pages, seed) -> torch.Tensor:
-    """(B, MAX_LEN // BLOCK) int32 block table: each row's pages drawn from
-    a permutation of the pool, entries past a row's length the sentinel
-    ``n_pages``, as the engine builds them."""
+def paged_table(lens, n_pages, seed, nb=MAX_LEN // BLOCK) -> torch.Tensor:
+    """(B, nb) int32 block table: each row's pages drawn from a permutation
+    of the pool, entries past a row's length the sentinel ``n_pages``, as
+    the engine builds them."""
     perm = np.random.default_rng(seed).permutation(n_pages)
-    table = np.full((len(lens), MAX_LEN // BLOCK), n_pages, np.int32)
+    table = np.full((len(lens), nb), n_pages, np.int32)
     nxt = 0
     for row, n in enumerate(lens):
         for i in range(-(-n // BLOCK)):
@@ -382,12 +395,16 @@ def main_path_cases(cfg, dtype):
             call=lambda: kernels.rmsnorm_matmul(x, w, wq),
             plain=lambda: rmsnorm_matmul_ref(x, w, wq),
             library=None,
+            unfused=lambda: torch.matmul(
+                F.rms_norm(x, (d,), w, eps=cfg.norm_eps), wq),
             bytes=(2 * b * d + d + d * f + b * f) * es,
             flops=2 * b * d * f + 4 * b * d),
         "rmsnorm_matmul[prefill]": dict(
             call=lambda: kernels.rmsnorm_matmul(xp, w, wq),
             plain=lambda: rmsnorm_matmul_ref(xp, w, wq),
             library=None,
+            unfused=lambda: torch.matmul(
+                F.rms_norm(xp, (d,), w, eps=cfg.norm_eps), wq),
             bytes=(2 * BUCKET * d + d + d * f + BUCKET * f) * es,
             flops=2 * BUCKET * d * f + 4 * BUCKET * d),
     }
@@ -413,6 +430,49 @@ def flash_cases(cfg, dtype):
             bytes=(2 * n * hq * hd + 2 * n * hkv * hd) * es,
             flops=4 * (n * (n + 1) // 2) * hq * hd)
     return cases
+
+
+T_LONG = 1024                      # the [t1024] decode cases' cache
+LONG_LENS = [1024, 768, 512, 256]
+
+
+def decode_long_cases(cfg, dtype):
+    """The decode kernels over a T_LONG-position cache, split over
+    positions: ``decode_attention[t1024]`` (beside SDPA with a mask) and
+    ``paged_decode_attention[t1024]`` (block 16, 64 blocks a row)."""
+    b, hq, hkv, hd = MAX_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    es = torch.tensor([], dtype=dtype).element_size()
+    scale = hd ** -0.5
+    lens = torch.tensor(LONG_LENS, dtype=torch.int32, device=DEV)
+    n_kv = sum(LONG_LENS)
+    q = randn((b, hq, hd), dtype, 60)
+    kt = randn((b, T_LONG, hkv, hd), dtype, 61).transpose(1, 2)
+    vt = randn((b, T_LONG, hkv, hd), dtype, 62).transpose(1, 2)
+    mask = (torch.arange(T_LONG, device=DEV)[None, :]
+            < lens[:, None])[:, None, None, :]
+    nb = T_LONG // BLOCK
+    n_pages = b * nb
+    bt = paged_table(LONG_LENS, n_pages, 63, nb)
+    kp = randn((n_pages, BLOCK, hkv, hd), dtype, 64)
+    vp = randn((n_pages, BLOCK, hkv, hd), dtype, 65)
+    kv_bytes = (2 * b * hq * hd + 2 * n_kv * hkv * hd) * es
+    return {
+        "decode_attention[t1024]": dict(
+            call=lambda: kernels.decode_attention(q, kt, vt, lens,
+                                                  scale=scale),
+            plain=lambda: decode_attention_ref(q, kt, vt, lens, scale=scale),
+            library=lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kt, vt, attn_mask=mask, scale=scale,
+                enable_gqa=True),
+            bytes=kv_bytes + 4 * b, flops=4 * n_kv * hq * hd),
+        "paged_decode_attention[t1024]": dict(
+            call=lambda: kernels.paged_decode_attention(q, kp, vp, bt, lens,
+                                                        scale=scale),
+            plain=lambda: paged_decode_attention_ref(q, kp, vp, bt, lens,
+                                                     scale=scale),
+            library=None,
+            bytes=kv_bytes + 4 * b * nb + 4 * b, flops=4 * n_kv * hq * hd),
+    }
 
 
 def wkv_inputs(b, t, h, hd, seed) -> tuple:
@@ -489,7 +549,7 @@ def phase_kernels(cfg, rcfg) -> dict:
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
         cases = {**main_path_cases(cfg, dtype), **flash_cases(cfg, dtype),
-                 **rwkv_cases(rcfg, dtype)}
+                 **decode_long_cases(cfg, dtype), **rwkv_cases(rcfg, dtype)}
         for name, c in cases.items():
             out, ref = c["call"](), c["plain"]()
             err = max_err(out, ref)
@@ -515,14 +575,22 @@ def phase_kernels(cfg, rcfg) -> dict:
             lib_ms = time_ms(c["library"])[0] if c["library"] else None
             b_ms, by = bound_ms(c["bytes"], c["flops"], dtype)
             lib = "null" if lib_ms is None else f"{lib_ms * 1e3:.2f} us"
+            # the pair of PyTorch calls a fused kernel replaces: not one
+            # call, so not the library time
+            unf_ms = time_ms(c["unfused"])[0] if "unfused" in c else None
+            unf = ("" if unf_ms is None else
+                   f"  unfused pair (F.rms_norm + torch.matmul) "
+                   f"{unf_ms * 1e3:.2f} us")
             print(f"phase 2: {name:38s} {str(dtype)[6:]:9s} max_err "
                   f"{err:.3g} (<= {bound:.3g})  device: kernel "
                   f"{k_ms * 1e3:.2f} us  plain {p_ms * 1e3:.2f} us  library "
-                  f"{lib}  bound {b_ms * 1e3:.4f} us ({by});  host: kernel "
-                  f"{k_host * 1e3:.2f} us  plain {p_host * 1e3:.2f} us")
+                  f"{lib}{unf}  bound {b_ms * 1e3:.4f} us ({by});  host: "
+                  f"kernel {k_host * 1e3:.2f} us  plain {p_host * 1e3:.2f} us")
             row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                        bound_ms=b_ms, bound_by=by, library_ms=lib_ms,
                        host_ms=k_host, plain_host_ms=p_host)
+            if unf_ms is not None:
+                row["unfused_pair_ms"] = unf_ms
             rows.setdefault(name, {})
             if dtype == torch.float32:
                 rows[name]["max_abs_err_f32"] = err

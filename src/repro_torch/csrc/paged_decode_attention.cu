@@ -19,16 +19,19 @@
 // (g = HQ / HKV), so the kernel streams the valid pages of each row and
 // little else.  Design: the kernel of decode_attention.cuh, shared with the
 // contiguous kernel, with the block-table lookup switched on.  One CTA
-// per (row, KV head) serves all g query heads, so each page is read once
-// per KV head, not once per query head as the TPU grid (B, HQ, NB) does.
-// The TPU's sequential NB grid axis becomes a loop inside the CTA; each CTA
-// reads its own block-table row (the TPU scalar-prefetched it).  Positions
-// at or past kv_lens[b] are never loaded.  The pool is read in
-// place in its (P, bs, HKV, hd) layout through strides (the Pallas wrapper
-// re-lays it head-major on every call).  The int8 variant loads the int8
-// payload and the f32 scale of each (token, head) and dequantizes in
-// registers: its HBM traffic is the int8 bytes plus 4 B per (token, head)
-// for K and for V, and no widened copy is ever written.
+// per (KV head, row, split of the positions) serves all g query heads, so
+// each page is read once per KV head, not once per query head as the TPU
+// grid (B, HQ, NB) does.  The TPU's sequential NB grid axis becomes a loop
+// of batches of positions inside the CTA, split across CTAs when NB * bs is
+// long (the last CTA of a (row, KV head) merges the splits in the same
+// launch); each CTA reads its own block-table entries (the TPU
+// scalar-prefetched them).  Positions at or past kv_lens[b] are never
+// loaded.  The pool is read in place in its (P, bs, HKV, hd) layout through
+// strides (the Pallas wrapper re-lays it head-major on every call).  The
+// int8 variant loads 8 bytes of payload a lane and the f32 scale of each
+// (token, head) and dequantizes in registers: its HBM traffic is the int8
+// bytes plus 4 B per (token, head) for K and for V, and no widened copy is
+// ever written.
 #include "decode_attention.cuh"
 
 // Pages in the dtype of q and out (f32 or bf16).  bt: (B, NB) int32 with
@@ -38,22 +41,24 @@ extern "C" int paged_decode_attention_launch(
     const void* kv_lens, int b, int hq, int hkv, int hd, int n_pages, int bs,
     int nb, float scale, long long q_b, long long q_h, long long k_p,
     long long k_t, long long k_h, long long v_p, long long v_t,
-    long long v_h, long long o_b, long long o_h, long long bt_b, int dtype,
-    void* stream) {
-  if (!da_shapes_ok(b, hq, hkv, hd, n_pages, bs, nb))
+    long long v_h, long long o_b, long long o_h, long long bt_b, int n_split,
+    int split_len, void* ws, void* counters, int dtype, void* stream) {
+  const DecodeSplit sp{n_split, split_len, static_cast<float*>(ws),
+                       static_cast<unsigned*>(counters)};
+  if (!da_shapes_ok(b, hq, hkv, hd, n_pages, bs, nb, sp))
     return static_cast<int>(cudaErrorInvalidValue);
   const DecodeStrides st{q_b, q_h, k_p, k_t, k_h, v_p, v_t, v_h, 0,
                          0,   0,   0,   0,   0,   o_b, o_h, bt_b};
-  const dim3 grid(hkv, b);
+  const dim3 grid(hkv, b, n_split);
   auto s = static_cast<cudaStream_t>(stream);
   RT_DISPATCH(dtype, T,
               decode_attention_kernel<T, T, false, true>
-              <<<grid, DA_WARPS * 32, 0, s>>>(
+              <<<grid, DA_THREADS, 0, s>>>(
                   static_cast<const T*>(q), static_cast<const T*>(kp),
                   static_cast<const T*>(vp), nullptr, nullptr,
                   static_cast<T*>(out), static_cast<const int*>(bt),
                   static_cast<const int*>(kv_lens), 0, hq, hkv, hd, n_pages,
-                  bs, nb, scale, st));
+                  bs, nb, scale, st, sp, da_vec_ok<T, T>(hd, q, kp, vp, st)));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -66,22 +71,26 @@ extern "C" int paged_decode_attention_quant_launch(
     long long k_h, long long v_p, long long v_t, long long v_h,
     long long ks_p, long long ks_t, long long ks_h, long long vs_p,
     long long vs_t, long long vs_h, long long o_b, long long o_h,
-    long long bt_b, int dtype, void* stream) {
-  if (!da_shapes_ok(b, hq, hkv, hd, n_pages, bs, nb))
+    long long bt_b, int n_split, int split_len, void* ws, void* counters,
+    int dtype, void* stream) {
+  const DecodeSplit sp{n_split, split_len, static_cast<float*>(ws),
+                       static_cast<unsigned*>(counters)};
+  if (!da_shapes_ok(b, hq, hkv, hd, n_pages, bs, nb, sp))
     return static_cast<int>(cudaErrorInvalidValue);
   const DecodeStrides st{q_b,  q_h,  k_p,  k_t,  k_h, v_p, v_t, v_h, ks_p,
                          ks_t, ks_h, vs_p, vs_t, vs_h, o_b, o_h, bt_b};
-  const dim3 grid(hkv, b);
+  const dim3 grid(hkv, b, n_split);
   auto s = static_cast<cudaStream_t>(stream);
   RT_DISPATCH(dtype, T,
               decode_attention_kernel<T, int8_t, true, true>
-              <<<grid, DA_WARPS * 32, 0, s>>>(
+              <<<grid, DA_THREADS, 0, s>>>(
                   static_cast<const T*>(q), static_cast<const int8_t*>(kp),
                   static_cast<const int8_t*>(vp),
                   static_cast<const float*>(ks),
                   static_cast<const float*>(vs), static_cast<T*>(out),
                   static_cast<const int*>(bt),
                   static_cast<const int*>(kv_lens), 0, hq, hkv, hd, n_pages,
-                  bs, nb, scale, st));
+                  bs, nb, scale, st, sp,
+                  da_vec_ok<T, int8_t>(hd, q, kp, vp, st)));
   return static_cast<int>(cudaGetLastError());
 }

@@ -29,47 +29,6 @@
 constexpr int NORM_MAX_THREADS = 256;  // threads of one row, at most
 constexpr int NORM_MAX_NV = 10;        // 16-byte vectors a thread, at most
 
-// 16 bytes of T as f32 values
-template <typename T>
-struct NormVec;
-
-template <>
-struct NormVec<float> {
-  static constexpr int N = 4;
-  static __device__ __forceinline__ void unpack(const uint4& u, float* f) {
-    f[0] = __uint_as_float(u.x);
-    f[1] = __uint_as_float(u.y);
-    f[2] = __uint_as_float(u.z);
-    f[3] = __uint_as_float(u.w);
-  }
-  static __device__ __forceinline__ uint4 pack(const float* f) {
-    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
-                      __float_as_uint(f[2]), __float_as_uint(f[3]));
-  }
-};
-
-template <>
-struct NormVec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  static __device__ __forceinline__ void unpack(const uint4& u, float* f) {
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {          // bf16 is the high half of f32
-      f[2 * i] = __uint_as_float(w[i] << 16);
-      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-  static __device__ __forceinline__ uint4 pack(const float* f) {
-    uint32_t w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-      w[i] = *reinterpret_cast<const uint32_t*>(&h);
-    }
-    return make_uint4(w[0], w[1], w[2], w[3]);
-  }
-};
-
 // Row blockIdx.x, over blockDim.x threads (a multiple of 32, at most
 // NORM_MAX_THREADS); vec: every row start and w 16-byte aligned and d a
 // multiple of the vector width.
@@ -78,7 +37,7 @@ __global__ void __launch_bounds__(NORM_MAX_THREADS)
 residual_rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ r,
                         const T* __restrict__ w, T* __restrict__ out,
                         T* __restrict__ sum_out, int d, float eps, int vec) {
-  using V = NormVec<T>;
+  using V = RtVec16<T>;
   constexpr int E = NV * V::N;            // values a thread holds
   const int tid = threadIdx.x, nt = blockDim.x;
   const size_t base = static_cast<size_t>(blockIdx.x) * d;
@@ -170,10 +129,6 @@ static inline int residual_rmsnorm_max_d(int es) {
   return NORM_MAX_THREADS * NORM_MAX_NV * (16 / es);
 }
 
-static inline bool norm_aligned(const void* p) {
-  return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
 // x, r, out, sum_out: (n, d) contiguous; w: (d,).  r and sum_out may both
 // be null (the bare-norm form writes only `out`).
 static inline int residual_rmsnorm_run(const void* x, const void* r,
@@ -189,9 +144,9 @@ static inline int residual_rmsnorm_run(const void* x, const void* r,
   int threads = 32;
   while ((nvec + threads - 1) / threads > NORM_MAX_NV) threads *= 2;
   const int nv = (nvec + threads - 1) / threads;
-  const int vec = d % per_vec == 0 && norm_aligned(x) && norm_aligned(r) &&
-                  norm_aligned(w) && norm_aligned(out) &&
-                  norm_aligned(sum_out);
+  const int vec = d % per_vec == 0 && rt_aligned(x) && rt_aligned(r) &&
+                  rt_aligned(w) && rt_aligned(out) &&
+                  rt_aligned(sum_out);
   auto st = static_cast<cudaStream_t>(stream);
   RT_DISPATCH(dtype, T, {
     const auto kernel = nv <= 4 ? residual_rmsnorm_kernel<T, 4>

@@ -17,13 +17,86 @@ from repro_torch.kernels.decode_attention.ref import (
     paged_decode_attention_ref)
 
 _ARGS = ([build.P] * 5 + [build.I] * 6 + [build.F] + [build.L] * 10
-         + [build.I, build.P])
+         + [build.I, build.I, build.P, build.P, build.I, build.P])
 _PAGED_ARGS = ([build.P] * 6 + [build.I] * 7 + [build.F] + [build.L] * 11
-               + [build.I, build.P])
+               + [build.I, build.I, build.P, build.P, build.I, build.P])
 _PAGED_QUANT_ARGS = ([build.P] * 8 + [build.I] * 7 + [build.F]
-                     + [build.L] * 17 + [build.I, build.P])
+                     + [build.L] * 17
+                     + [build.I, build.I, build.P, build.P, build.I, build.P])
 MAX_GROUP = 8       # query heads per KV head one CTA serves
 MAX_HEAD_DIM = 128
+MAX_ROWS = 65535    # grid.y
+SPLIT_MIN = 128     # positions one CTA takes before a call splits
+TARGET_CTAS = 264   # two waves of the H100's 132 SMs
+WARPS, POSITIONS_PER_LANE_GROUP = 4, 2    # csrc/decode_attention.cuh
+
+
+def split_plan(t_len: int, rows: int, kv_heads: int) -> tuple:
+    """(splits, positions per split) of a call over ``t_len`` positions
+    (T, or NB * bs when paged): from the static shapes only, never the
+    device lengths.  One split up to SPLIT_MIN positions (the main path's T
+    = 128); longer caches split into runs of at least SPLIT_MIN until about
+    TARGET_CTAS CTAs cover the (row, KV head) pairs, with no empty split."""
+    n = max(1, min(-(-t_len // SPLIT_MIN),
+                   -(-TARGET_CTAS // max(1, rows * kv_heads))))
+    per = -(-t_len // n)
+    return -(-t_len // per), per
+
+
+def visit_plan(n_split: int, split_len: int, t_len: int, length: int,
+               head_dim: int) -> dict:
+    """The positions each (split, warp, lane group) visits, as the kernel
+    walks them for a row of ``length`` valid positions (all ``t_len`` when
+    length <= 0, the masked row): {(split, warp, group): [positions]}.
+    Every split, including one that starts past the length, is a key."""
+    lp = 1
+    while lp * 8 < head_dim:
+        lp *= 2
+    ppw = 32 // lp
+    n = t_len if length <= 0 else min(length, t_len)
+    per_warp = POSITIONS_PER_LANE_GROUP * ppw
+    out = {}
+    for s in range(n_split):
+        t0, t1 = s * split_len, min((s + 1) * split_len, n)
+        for w in range(WARPS):
+            for grp in range(ppw):
+                seen = out.setdefault((s, w, grp), [])
+                for base in range(t0 + w * per_warp, t1, WARPS * per_warp):
+                    seen += [t for u in range(POSITIONS_PER_LANE_GROUP)
+                             if (t := base + u * ppw + grp) < t1]
+    return out
+
+
+_counters: dict = {}
+
+
+def _split_buffers(name, q, b, hkv, g, hd, t_len):
+    """The split plan and, with more than one split, the workspace (from
+    the caching allocator, uninitialised) and the arrival counters.  The
+    counters start at zero and the kernel's last CTA of each (row, KV
+    head) sets its counter back to zero, so no call clears them.  They are
+    kept per (device, stream): two streams running the kernel at once
+    would otherwise count each other's CTAs."""
+    n_split, per = split_plan(t_len, b, hkv)
+    if b > MAX_ROWS:
+        raise ValueError(f"{name}: {b} rows exceed the kernel's grid "
+                         f"({MAX_ROWS})")
+    if n_split == 1:
+        return n_split, per, None, None
+    ws = torch.empty(b * hkv * n_split * g * (hd + 2), dtype=torch.float32,
+                     device=q.device)
+    key = (q.device.index, build.stream_ptr(q))
+    cnt = _counters.get(key)
+    if cnt is None or cnt.numel() < b * hkv:
+        cnt = torch.zeros(b * hkv, dtype=torch.int32, device=q.device)
+        _counters[key] = cnt
+    return n_split, per, ws, cnt
+
+
+def _split_args(split):
+    n_split, per, ws, cnt = split
+    return (n_split, per, None if ws is None else ws.data_ptr(),
+            None if cnt is None else cnt.data_ptr())
 
 
 def decode_attention(q, k, v, kv_len=None, *, scale: float):
@@ -58,13 +131,14 @@ def decode_attention(q, k, v, kv_len=None, *, scale: float):
                          "contiguous (B,) int32 tensor")
     out = torch.empty((b, hq, hd), dtype=q.dtype, device=q.device)
     scalar = t if kv_len is None or per_row else int(kv_len)
+    split = _split_buffers("decode_attention", q, b, hkv, hq // hkv, hd, t)
     fn = build.function("decode_attention_launch", _ARGS)
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
               kv_len.data_ptr() if per_row else None, scalar,
               b, hq, hkv, t, hd, scale,
               q.stride(0), q.stride(1), k.stride(0), k.stride(1),
               k.stride(2), v.stride(0), v.stride(1), v.stride(2),
-              out.stride(0), out.stride(1),
+              out.stride(0), out.stride(1), *_split_args(split),
               build.dtype_code(q), build.stream_ptr(q))
     build.check(code, "decode_attention")
     decode_attention.launches += 1
@@ -134,15 +208,18 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_lens, *,
                          "one dtype")
     b, hq, hd = q.shape
     n_pages, bs, hkv, _ = k_pages.shape
+    nb = block_tables.shape[1]
     out = torch.empty((b, hq, hd), dtype=q.dtype, device=q.device)
+    split = _split_buffers("paged_decode_attention", q, b, hkv, hq // hkv,
+                           hd, nb * bs)
     fn = build.function("paged_decode_attention_launch", _PAGED_ARGS)
     code = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
               out.data_ptr(), block_tables.data_ptr(), kv_lens.data_ptr(),
-              b, hq, hkv, hd, n_pages, bs, block_tables.shape[1], scale,
+              b, hq, hkv, hd, n_pages, bs, nb, scale,
               q.stride(0), q.stride(1), *k_pages.stride()[:3],
               *v_pages.stride()[:3], out.stride(0), out.stride(1),
-              block_tables.stride(0), build.dtype_code(q),
-              build.stream_ptr(q))
+              block_tables.stride(0), *_split_args(split),
+              build.dtype_code(q), build.stream_ptr(q))
     build.check(code, "paged_decode_attention")
     paged_decode_attention.launches += 1
     return out
@@ -166,17 +243,19 @@ def paged_decode_attention_quant(q, k_pages, v_pages, k_scale, v_scale,
         raise ValueError(f"{name}: pages must be int8, got {k_pages.dtype}")
     b, hq, hd = q.shape
     n_pages, bs, hkv, _ = k_pages.shape
+    nb = block_tables.shape[1]
     out = torch.empty((b, hq, hd), dtype=q.dtype, device=q.device)
+    split = _split_buffers(name, q, b, hkv, hq // hkv, hd, nb * bs)
     fn = build.function("paged_decode_attention_quant_launch",
                         _PAGED_QUANT_ARGS)
     code = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
               k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(),
               block_tables.data_ptr(), kv_lens.data_ptr(),
-              b, hq, hkv, hd, n_pages, bs, block_tables.shape[1], scale,
+              b, hq, hkv, hd, n_pages, bs, nb, scale,
               q.stride(0), q.stride(1), *k_pages.stride()[:3],
               *v_pages.stride()[:3], *k_scale.stride(), *v_scale.stride(),
               out.stride(0), out.stride(1), block_tables.stride(0),
-              build.dtype_code(q), build.stream_ptr(q))
+              *_split_args(split), build.dtype_code(q), build.stream_ptr(q))
     build.check(code, name)
     paged_decode_attention_quant.launches += 1
     return out

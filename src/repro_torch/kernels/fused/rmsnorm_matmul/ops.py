@@ -12,15 +12,51 @@ from repro_torch.kernels import build
 from repro_torch.kernels.fused.rmsnorm_matmul.ref import rmsnorm_matmul_ref
 
 _ARGS = [build.P, build.P, build.P, build.P, build.P, build.I, build.I,
-         build.I, build.I, build.F, build.I, build.P]
-_SMEM = 48 * 1024            # static shared budget of one CTA
-_PART_BYTES = 8 * 8 * 32 * 4  # the kernel's K-slice partial sums
-MAX_ROWS_PER_CTA = 8
+         build.I, build.I, build.I, build.F, build.I, build.P]
+COLS = 8             # output columns per CTA (csrc/rmsnorm_matmul.cu RM_COLS)
+ROWS = 16            # rows per CTA; more rows take more CTAs along grid.y
+GROUP_ROWS = 8       # rows per register group of the FMA kernel
+THREADS = 256
+WARPS = THREADS // 32
+K_CHUNK = 1024       # W rows one CTA holds at once: THREADS x 4 a thread
+MAX_GRID_Y = 65535
 
 
-def rows_per_cta(d: int) -> int:
-    """Rows one CTA normalises and holds in shared memory at width d."""
-    return min(MAX_ROWS_PER_CTA, (_SMEM - _PART_BYTES) // (4 * d))
+def tile_plan(n: int, d: int, f: int) -> dict:
+    """The kernel's launch plan for x (n, d) @ W (d, f): grid (column tiles
+    of COLS, row blocks of ROWS) and K chunks.  The C entry checks the grid
+    it is given against the same rule."""
+    return dict(grid=(-(-f // COLS), -(-n // ROWS)),
+                k_chunks=-(-d // K_CHUNK))
+
+
+def plan_cover(n: int, d: int, f: int, mma: bool = False):
+    """What each CTA of ``tile_plan`` computes, as the FMA kernel (f32 and
+    unaligned bf16) or with ``mma`` the bf16 tensor-core kernel indexes it:
+    yields ((row groups, column range), [k range of each (chunk, thread)]
+    or, with ``mma``, of each (chunk, warp, 16-row step)) per CTA, so that
+    a test can check that every (row, column) of the product is one CTA's
+    and gets every k once."""
+    p = tile_plan(n, d, f)
+    gx, gy = p["grid"]
+    group = ROWS if mma else GROUP_ROWS
+    if mma:
+        steps = K_CHUNK // 16 // WARPS
+        ks = [range(k, min(k + 16, d))
+              for c in range(p["k_chunks"]) for w in range(WARPS)
+              for s in range(steps)
+              if (k := c * K_CHUNK + (w * steps + s) * 16) < d]
+    else:
+        ks = [range(c * K_CHUNK + t, min(d, (c + 1) * K_CHUNK), THREADS)
+              for c in range(p["k_chunks"]) for t in range(THREADS)]
+        assert all(len(k) <= K_CHUNK // THREADS for k in ks)
+    for by in range(gy):
+        rows = range(by * ROWS, min(n, (by + 1) * ROWS))
+        groups = [range(g, min(rows.stop, g + group))
+                  for g in range(rows.start, rows.stop, group)]
+        for bx in range(gx):
+            cols = range(bx * COLS, min(f, (bx + 1) * COLS))
+            yield (groups, cols), ks
 
 
 def rmsnorm_matmul(x, weight, w_proj, *, eps: float = 1e-5):
@@ -39,17 +75,18 @@ def rmsnorm_matmul(x, weight, w_proj, *, eps: float = 1e-5):
     if not (x.is_contiguous() and weight.is_contiguous()
             and w_proj.is_contiguous()):
         raise ValueError("rmsnorm_matmul: tensors must be contiguous")
-    rows = rows_per_cta(d)
-    if rows < 1:
-        raise ValueError(f"rmsnorm_matmul: D={d} too wide for one CTA")
     f = w_proj.shape[1]
     n = x.numel() // d
+    plan = tile_plan(n, d, f)
+    if plan["grid"][1] > MAX_GRID_Y:
+        raise ValueError(f"rmsnorm_matmul: {n} rows exceed the kernel's "
+                         f"grid ({ROWS * MAX_GRID_Y} rows)")
     proj = torch.empty(x.shape[:-1] + (f,), dtype=w_proj.dtype,
                        device=x.device)
     normed = torch.empty_like(x)
     fn = build.function("rmsnorm_matmul_launch", _ARGS)
     code = fn(x.data_ptr(), weight.data_ptr(), w_proj.data_ptr(),
-              proj.data_ptr(), normed.data_ptr(), n, d, f, rows, eps,
+              proj.data_ptr(), normed.data_ptr(), n, d, f, *plan["grid"], eps,
               build.dtype_code(x), build.stream_ptr(x))
     build.check(code, "rmsnorm_matmul")
     rmsnorm_matmul.launches += 1

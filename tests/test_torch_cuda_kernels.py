@@ -22,6 +22,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.inference.kv_quant import quantize_kv
+from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref, paged_decode_attention_quant_ref,
     paged_decode_attention_ref)
@@ -257,6 +258,181 @@ def test_paged_decode_attention_sentinel_and_empty_rows(dev, quant):
     _close(out, ref, torch.float32)
 
 
+def _paged_t1024(b, hkv, hd, lens, bs, dtype, dev, seed):
+    """A pool of b * 1024 / bs permuted pages, each row's table holding its
+    pages and then sentinels past the pool."""
+    nb = 1024 // bs
+    n_pages = b * nb + 8
+    kp = _randn((n_pages, bs, hkv, hd), dtype, dev, seed)
+    vp = _randn((n_pages, bs, hkv, hd), dtype, dev, seed + 1)
+    perm = np.random.default_rng(seed).permutation(n_pages)
+    tables = np.full((b, nb), n_pages + 5, np.int32)
+    nxt = 0
+    for row, n in enumerate(lens):
+        for i in range(-(-n // bs)):
+            tables[row, i] = perm[nxt]
+            nxt += 1
+    return (kp, vp, torch.from_numpy(tables).to(dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+T1024_LENS = [1024, 768, 512, 256]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_t1024(dev, dtype):
+    """The main path's heads over a 1024-position cache, split over
+    positions (split_plan) and merged by the last CTA of each pair."""
+    b, hq, hkv, t, hd = 4, 15, 5, 1024, 64
+    assert da_ops.split_plan(t, b, hkv)[0] > 1
+    q = _randn((b, hq, hd), dtype, dev, 0)
+    k = _randn((b, t, hkv, hd), dtype, dev, 1).transpose(1, 2)
+    v = _randn((b, t, hkv, hd), dtype, dev, 2).transpose(1, 2)
+    lens = torch.tensor(T1024_LENS, dtype=torch.int32, device=dev)
+    n0 = kernels.decode_attention.launches
+    out = kernels.decode_attention(q, k, v, lens, scale=0.125)
+    assert kernels.decode_attention.launches == n0 + 1
+    _close(out, decode_attention_ref(q, k, v, lens, scale=0.125), dtype)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_decode_attention_t1024(dev, quant, dtype):
+    b, hq, hkv, hd, bs = 4, 15, 5, 64, 16
+    q = _randn((b, hq, hd), dtype, dev, 3)
+    kp, vp, tables, lens = _paged_t1024(b, hkv, hd, T1024_LENS, bs,
+                                        torch.float32 if quant else dtype,
+                                        dev, 4)
+    if quant:
+        (kp, ks), (vp, vs) = quantize_kv(kp), quantize_kv(vp)
+        out = kernels.paged_decode_attention_quant(q, kp, vp, ks, vs, tables,
+                                                   lens, scale=0.125)
+        ref = paged_decode_attention_quant_ref(q, kp, vp, ks, vs, tables,
+                                               lens, scale=0.125)
+    else:
+        out = kernels.paged_decode_attention(q, kp, vp, tables, lens,
+                                             scale=0.125)
+        ref = paged_decode_attention_ref(q, kp, vp, tables, lens,
+                                         scale=0.125)
+    _close(out, ref, dtype)
+
+
+# (B, HQ, HKV, T, hd): GQA groups 1 and 8, head dims 20 and 128, several
+# splits; lengths: masked (0), exactly one split's worth, one past it, all
+SPLIT_GRID = [(4, 4, 4, 1024, 64), (2, 8, 1, 1024, 64), (3, 6, 3, 777, 20),
+              (4, 8, 2, 1024, 128), (1, 16, 2, 2048, 128),
+              (5, 3, 1, 600, 32)]
+
+
+@pytest.mark.parametrize("shape", SPLIT_GRID)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_many_splits_mixed_lengths(dev, shape, dtype):
+    b, hq, hkv, t, hd = shape
+    n_split, per = da_ops.split_plan(t, b, hkv)
+    assert n_split > 1
+    lens = [0, per, per + 1, t, t // 3][:b]
+    lens += [t - 1] * (b - len(lens))
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = _randn((b, hq, hd), dtype, dev, 5)
+    k = _randn((b, t, hkv, hd), dtype, dev, 6).transpose(1, 2)
+    v = _randn((b, t, hkv, hd), dtype, dev, 7).transpose(1, 2)
+    _close(kernels.decode_attention(q, k, v, lens, scale=hd ** -0.5),
+           decode_attention_ref(q, k, v, lens, scale=hd ** -0.5), dtype)
+    bs = 16
+    kp, vp, tables, _ = _paged_pool(b, hkv, t - t % bs, hd, bs, dtype, dev,
+                                    8)
+    lens_p = lens.clamp(max=t - t % bs)
+    _close(kernels.paged_decode_attention(q, kp, vp, tables, lens_p,
+                                          scale=hd ** -0.5),
+           paged_decode_attention_ref(q, kp, vp, tables, lens_p,
+                                      scale=hd ** -0.5), dtype)
+
+
+@pytest.mark.parametrize("t", [128, 1024])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_ignores_what_lies_past_a_length(dev, t, dtype):
+    """Cache rows at or past a row's length may hold anything, NaN too (a
+    batch loads them and weighs them 0): the output equals the plain
+    version's on a cache with those rows zeroed."""
+    b, hq, hkv, hd = 4, 15, 5, 64
+    q = _randn((b, hq, hd), dtype, dev, 17)
+    k = _randn((b, t, hkv, hd), dtype, dev, 18)
+    v = _randn((b, t, hkv, hd), dtype, dev, 19)
+    lens = torch.tensor([1, t // 3, 5, t - 1], dtype=torch.int32, device=dev)
+    past = (torch.arange(t, device=dev)[None, :]
+            >= lens[:, None])[:, :, None, None]
+    k_nan, v_nan = k.masked_fill(past, float("nan")), \
+        v.masked_fill(past, float("nan"))
+    out = kernels.decode_attention(q, k_nan.transpose(1, 2),
+                                   v_nan.transpose(1, 2), lens, scale=0.125)
+    ref = decode_attention_ref(q, k.masked_fill(past, 0).transpose(1, 2),
+                               v.masked_fill(past, 0).transpose(1, 2), lens,
+                               scale=0.125)
+    _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_unaligned_views(dev, dtype):
+    """q, K and V one element into their buffers (element loads), with one
+    split and with several."""
+    for t in (128, 1024):
+        b, hq, hkv, hd = 2, 6, 2, 64
+        qb = _randn((b * hq * hd + 1,), dtype, dev, 9)
+        kb = _randn((b * t * hkv * hd + 1,), dtype, dev, 10)
+        vb = _randn((b * t * hkv * hd + 1,), dtype, dev, 11)
+        q = qb[1:].view(b, hq, hd)
+        k = kb[1:].view(b, t, hkv, hd).transpose(1, 2)
+        v = vb[1:].view(b, t, hkv, hd).transpose(1, 2)
+        lens = torch.tensor([t // 2, t - 3], dtype=torch.int32, device=dev)
+        _close(kernels.decode_attention(q, k, v, lens, scale=0.125),
+               decode_attention_ref(q, k, v, lens, scale=0.125), dtype)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_decode_attention_repeats_bit_for_bit(dev, quant):
+    """Three calls in a row give the same bits: each call's last CTA of a
+    (row, KV head) leaves its counter at zero for the next."""
+    b, hq, hkv, hd, bs = 4, 15, 5, 64, 16
+    q = _randn((b, hq, hd), torch.bfloat16, dev, 12)
+    kp, vp, tables, lens = _paged_t1024(b, hkv, hd, [1024, 0, 16, 500], bs,
+                                        torch.float32 if quant
+                                        else torch.bfloat16, dev, 13)
+    if quant:
+        (kp, ks), (vp, vs) = quantize_kv(kp), quantize_kv(vp)
+        kw = dict(k_scale=ks, v_scale=vs)
+    else:
+        kw = {}
+    runs = [kernels.paged_decode_attention(q, kp, vp, tables, lens,
+                                           scale=0.125, **kw)
+            for _ in range(3)]
+    k = _randn((b, 1024, hkv, hd), torch.bfloat16, dev, 14).transpose(1, 2)
+    runs_c = [kernels.decode_attention(q, k, k, lens, scale=0.125)
+              for _ in range(3)]
+    for rs in (runs, runs_c):
+        assert all(torch.equal(r, rs[0]) for r in rs[1:])
+
+
+def test_decode_attention_counters_per_stream(dev):
+    """The split counters are kept per stream: the same call on a side
+    stream and on the default one, interleaved, gives the same bits."""
+    b, hq, hkv, t, hd = 4, 15, 5, 1024, 64
+    q = _randn((b, hq, hd), torch.bfloat16, dev, 15)
+    k = _randn((b, hkv, t, hd), torch.bfloat16, dev, 16)
+    lens = torch.tensor(T1024_LENS, dtype=torch.int32, device=dev)
+    want = kernels.decode_attention(q, k, k, lens, scale=0.125)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    outs = []
+    for _ in range(4):
+        with torch.cuda.stream(side):
+            outs.append(kernels.decode_attention(q, k, k, lens, scale=0.125))
+        outs.append(kernels.decode_attention(q, k, k, lens, scale=0.125))
+    torch.cuda.current_stream(dev).wait_stream(side)
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want) for o in outs)
+    assert len(da_ops._counters) >= 2
+
+
 # widths with a scalar tail (100, 1001), the port's (960, 2560), many rows
 # (1024 x 960) and a row wider than a warp holds (8192)
 NORM_GRID = [(1, 64), (6, 32), (5, 128), (4, 960), (16, 960), (3, 100),
@@ -292,6 +468,64 @@ def test_rmsnorm_matmul(dev, n, d, f, dtype):
     y_ref, normed_ref = rmsnorm_matmul_ref(x, w, p)
     _close(normed, normed_ref, dtype)
     _close(y, y_ref, dtype)
+
+
+@pytest.mark.parametrize("n", list(range(1, 17)))
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_matmul_rows_1_to_16(dev, n, dtype):
+    """Every row count the main path sends at SmolLM's 960 x 960, in f32
+    (FMA kernel: two groups of 8 rows over the held W tile, ragged last
+    groups) and bf16 (one 16-row tensor-core tile, rows past N zero)."""
+    x = _randn((n, 960), dtype, dev, 3)
+    w = _randn((960,), dtype, dev, 4) + 1.0
+    p = _randn((960, 960), dtype, dev, 5, scale=0.02)
+    y, normed = kernels.rmsnorm_matmul(x, w, p)
+    y_ref, normed_ref = rmsnorm_matmul_ref(x, w, p)
+    _close(normed, normed_ref, dtype)
+    _close(y, y_ref, dtype)
+
+
+@pytest.mark.parametrize("n,d,f", [(4, 2560, 960), (16, 2560, 64),
+                                   (4, 8192, 24), (12, 8192, 8),
+                                   (40, 1025, 100), (33, 960, 960),
+                                   (6, 968, 40), (3, 1001, 13), (5, 77, 7)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_matmul_wide_and_ragged(dev, n, d, f, dtype):
+    """D over several 1024-row chunks (2560, 8192), more than 16 rows
+    (several row blocks), D not a multiple of 16 (a half-empty last
+    tensor-core step), and D or F not multiples of 8 (element loads)."""
+    x = _randn((n, d), dtype, dev, 6)
+    w = _randn((d,), dtype, dev, 7) + 1.0
+    p = _randn((d, f), dtype, dev, 8, scale=d ** -0.5)
+    y, normed = kernels.rmsnorm_matmul(x, w, p)
+    y_ref, normed_ref = rmsnorm_matmul_ref(x, w, p)
+    _close(normed, normed_ref, dtype)
+    _close(y, y_ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_matmul_unaligned_views(dev, dtype):
+    """x, w and W as views one element into their buffers: not 16-byte
+    aligned, so the statistics and W take element loads."""
+    n, d, f = 4, 960, 960
+    xb = _randn((n * d + 1,), dtype, dev, 9)
+    wb = _randn((d + 1,), dtype, dev, 10) + 1.0
+    pb = _randn((d * f + 1,), dtype, dev, 11, scale=0.02)
+    x, w, p = xb[1:].view(n, d), wb[1:], pb[1:].view(d, f)
+    y, normed = kernels.rmsnorm_matmul(x, w, p)
+    y_ref, normed_ref = rmsnorm_matmul_ref(x, w, p)
+    _close(normed, normed_ref, dtype)
+    _close(y, y_ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_matmul_repeats_bit_for_bit(dev, dtype):
+    x = _randn((16, 960), dtype, dev, 12)
+    w = _randn((960,), dtype, dev, 13) + 1.0
+    p = _randn((960, 960), dtype, dev, 14, scale=0.02)
+    runs = [kernels.rmsnorm_matmul(x, w, p) for _ in range(3)]
+    for y, normed in runs[1:]:
+        assert torch.equal(y, runs[0][0]) and torch.equal(normed, runs[0][1])
 
 
 @pytest.mark.parametrize("n,d", [(7, 64), (100, 256), (4, 2560),
@@ -409,6 +643,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):   # mixed devices
         kernels.rmsnorm_matmul(x.float(), torch.ones(64, device=dev),
                                torch.ones(64, 8))
+    rows = torch.ones((16 * 65535 + 1, 1), device=dev)
+    with pytest.raises(ValueError):   # more row blocks than grid.y holds
+        kernels.rmsnorm_matmul(rows, rows[0], torch.ones((1, 8), device=dev))
+    q1 = torch.ones((65536, 1, 8), device=dev)
+    k1 = torch.ones((65536, 1, 4, 8), device=dev)
+    with pytest.raises(ValueError):   # more rows than grid.y holds
+        kernels.decode_attention(q1, k1, k1, scale=1.0)
+    with pytest.raises(ValueError):   # more than 8 query heads a KV head
+        kernels.decode_attention(torch.ones((1, 9, 8), device=dev),
+                                 k1[:1], k1[:1], scale=1.0)
     args = list(_wkv_inputs(1, 4, 2, 16, dev, 0))
     with pytest.raises(ValueError):   # bf16
         kernels.wkv6(*[a.bfloat16() for a in args])

@@ -12,6 +12,8 @@ import pytest
 import torch
 
 from repro.kernels.decode_attention.ops import decode_attention as jx_decode
+from repro.kernels.decode_attention.ops import \
+    paged_decode_attention as jx_paged
 from repro.kernels.decode_attention.ref import decode_attention_ref as jx_dref
 from repro.kernels.flash_attention.ops import flash_attention as jx_flash
 from repro.kernels.flash_attention.ref import attention_ref as jx_fref
@@ -21,6 +23,9 @@ from repro.kernels.fused.residual_rmsnorm.ref import residual_rmsnorm_ref
 from repro.kernels.fused.rmsnorm_matmul.ref import rmsnorm_matmul_ref
 from repro.layers.common import rmsnorm as jx_rmsnorm
 from repro_torch import kernels
+from repro_torch.kernels.decode_attention.ops import split_plan, visit_plan
+from repro_torch.kernels.fused.rmsnorm_matmul.ops import (GROUP_ROWS,
+                                                          plan_cover)
 
 torch.set_num_threads(2)
 DTYPES = {"f32": (jnp.float32, torch.float32, 2e-5),
@@ -187,6 +192,123 @@ def test_rmsnorm_matmul_plain(n, d, f, dt):
     ry, rn = rmsnorm_matmul_ref(jx, jw, jp)
     _close(y, ry, tol)
     _close(normed, rn, tol)
+
+
+@pytest.mark.parametrize("n", [4, 16, 8])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_rmsnorm_matmul_plain_at_smollm_width(n, dt):
+    """SmolLM-360M's fused pair (D = F = 960): decode (4 rows), a slot's
+    prefill (16) and a paged prefill chunk (8), against the Pallas kernel
+    in interpret mode and the reference's own norm plus a matmul."""
+    d = f = 960
+    jx, x = _pair((n, d), dt, 20)
+    jw, w = _pair((d,), dt, 21, shift=1.0)
+    jp, p = _pair((d, f), dt, 22, scale=0.02)
+    y, normed = kernels.rmsnorm_matmul(x, w, p)
+    tol = DTYPES[dt][2]
+    jy, jn = jx_rmm(jx, jw, jp)
+    _close(y, jy, tol)
+    _close(normed, jn, tol)
+    jn2 = jx_rmsnorm(jx, jw)
+    _close(normed, jn2, tol)
+    _close(y, jnp.matmul(jn2.astype(jnp.float32), jp.astype(jnp.float32)),
+           tol)
+
+
+LENS_T1024 = [1024, 768, 512, 0]
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_decode_attention_plain_t1024(dt):
+    """SmolLM's heads over a 1024-position cache with lengths
+    1024/768/512/0, against the Pallas kernel (one scalar kv_len, so row
+    by row, KV tiles of 512) and the JAX ref."""
+    b, hq, hkv, t, hd = 4, 15, 5, 1024, 64
+    jq, q = _pair((b, hq, hd), dt, 23)
+    jk, k = _pair((b, hkv, t, hd), dt, 24)
+    jv, v = _pair((b, hkv, t, hd), dt, 25)
+    out = kernels.decode_attention(
+        q, k, v, torch.tensor(LENS_T1024, dtype=torch.int32), scale=0.125)
+    tol = DTYPES[dt][2]
+    for row, n in enumerate(LENS_T1024):
+        sl = slice(row, row + 1)
+        _close(out[sl], jx_decode(jq[sl], jk[sl], jv[sl], n, scale=0.125,
+                                  block_kv=512), tol)
+        _close(out[sl], jx_dref(jq[sl], jk[sl], jv[sl], n, scale=0.125),
+               tol)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_paged_decode_attention_plain_t1024(dt):
+    """The paged pool at T = 1024 (block 64, 16 blocks a row, permuted
+    pages, sentinels past each row), lengths 1024/768/512/0, against the
+    paged Pallas kernel in interpret mode, which takes the per-row
+    lengths."""
+    b, hq, hkv, hd, bs = 4, 15, 5, 64, 64
+    nb = 1024 // bs
+    n_pages = b * nb
+    jq, q = _pair((b, hq, hd), dt, 26)
+    jkp, kp = _pair((n_pages, bs, hkv, hd), dt, 27)
+    jvp, vp = _pair((n_pages, bs, hkv, hd), dt, 28)
+    perm = np.random.default_rng(29).permutation(n_pages)
+    tables = np.full((b, nb), n_pages, np.int32)
+    nxt = 0
+    for row, n in enumerate(LENS_T1024):
+        for i in range(-(-n // bs)):
+            tables[row, i] = perm[nxt]
+            nxt += 1
+    lens = np.array(LENS_T1024, np.int32)
+    out = kernels.paged_decode_attention(q, kp, vp, torch.from_numpy(tables),
+                                         torch.from_numpy(lens), scale=0.125)
+    _close(out, jx_paged(jq, jkp, jvp, jnp.asarray(tables), jnp.asarray(lens),
+                         scale=0.125), DTYPES[dt][2])
+
+
+@pytest.mark.parametrize("n,d,f", [(4, 960, 960), (16, 960, 960),
+                                   (8, 960, 960), (1, 64, 128), (3, 100, 13),
+                                   (17, 2560, 24), (40, 1025, 9),
+                                   (2, 8192, 16)])
+@pytest.mark.parametrize("mma", [False, True])
+def test_rmsnorm_matmul_tile_plan_covers_the_product_once(n, d, f, mma):
+    """Every (row, column) of the product belongs to one CTA of the plan
+    and one of its row groups, and each CTA's chunks and threads (FMA
+    kernel) or warps and 16-row steps (tensor-core kernel) take every k
+    below D exactly once."""
+    owner = np.zeros((n, f), np.int32)
+    for (groups, cols), ks in plan_cover(n, d, f, mma):
+        for g in groups:
+            assert len(g) <= (16 if mma else GROUP_ROWS)
+            owner[g.start:g.stop, cols.start:cols.stop] += 1
+        seen = np.zeros(d, np.int32)
+        for k in ks:
+            seen[k.start:k.stop:k.step] += 1
+        assert (seen == 1).all()
+    assert (owner == 1).all()
+
+
+@pytest.mark.parametrize("t_len", [1, 7, 100, 128, 129, 1000, 1024, 1025])
+@pytest.mark.parametrize("hd", [20, 64, 128])
+def test_decode_split_plan_visits_each_position_once(t_len, hd):
+    """For every split count (T a multiple of it or not) and lengths 0
+    (masked: all T positions), 1, part and past T, the (split, warp, lane
+    group) walk of the kernel visits each position below the row's length
+    exactly once, and a split that starts past it visits none."""
+    for n_split in range(1, 9):
+        per = -(-t_len // n_split)
+        for length in (0, 1, t_len // 2, t_len, t_len + 5):
+            n = t_len if length <= 0 else min(length, t_len)
+            visits = visit_plan(n_split, per, t_len, length, hd)
+            flat = sorted(t for ts in visits.values() for t in ts)
+            assert flat == list(range(n))
+            for (s, _, _), ts in visits.items():
+                if s * per >= n:
+                    assert ts == []
+    for rows, heads in ((4, 5), (1, 5), (1, 1), (64, 8)):
+        n_split, per = split_plan(t_len, rows, heads)
+        assert n_split * per >= t_len > (n_split - 1) * per
+        assert n_split == 1 or per >= 64
+    assert split_plan(128, 4, 5)[0] == 1          # the main path: one split
+    assert split_plan(1024, 4, 5)[0] * 20 >= 132  # T 1024 fills the card
 
 
 def test_masked_rows_stay_finite():
