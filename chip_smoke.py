@@ -54,8 +54,9 @@ Phases (any failure exits non-zero before a result is printed):
 
 Phase 2 also holds the RWKV-6 path's two kernels at its shapes: the norm
 at (4, 1, 2560) and (1, 12, 2560) with and without a residual in f32 and
-bf16, WKV6 (f32) at decode (B 4, T 1), a 12-token prefill, 64 steps in one
-launch and the reference's extreme-decay case, which must stay finite.
+bf16, WKV6 (f32) at decode (B 4, T 1), a 12-token prefill, 64 and 1024
+steps in one launch (``[t64]``, ``[t1024]``: B 1, H 40, hd 64) and the
+reference's extreme-decay case, which must stay finite.
 
 Then it prints the ``{"kernels": [...]}`` line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It needs the repository
@@ -492,9 +493,10 @@ def rwkv_cases(cfg, dtype):
     ``main_path_cases``.  The norm at the decode rows (4, 1, D) and a
     prefill's (1, PROMPT, D), with and without a residual.  WKV6 only in
     f32 (the layer calls it so): decode (B 4, T 1), a PROMPT-token
-    prefill, T 64 (many steps in one launch), and the reference's
-    extreme-decay case (decays exp(-50) and exp(-1e-4) in turn), which must
-    stay finite and is held against the literal float64 recurrence."""
+    prefill, T 64 and T 1024 (many chunks in one launch), and the
+    reference's extreme-decay case (decays exp(-50) and exp(-1e-4) in
+    turn), which must stay finite and is held against the literal float64
+    recurrence."""
     d, h, hd = cfg.d_model, cfg.n_heads, cfg.hd
     es = torch.tensor([], dtype=dtype).element_size()
     w = randn((d,), dtype, 30) + 1.0
@@ -519,6 +521,7 @@ def rwkv_cases(cfg, dtype):
             ("", (MAX_BATCH, 1, h, hd, 40)),
             ("prefill", (1, PROMPT, h, hd, 46)),
             ("t64", (1, 64, h, hd, 52)),
+            ("t1024", (1, 1024, h, hd, 64)),
             ("extreme_decay", (1, 32, 1, 8, 58))):
         args = wkv_inputs(b, t, hh, dd, seed)
         plain = wkv6_ref

@@ -11,7 +11,7 @@ def make_backend(cfg, params, *, max_batch: int, max_len: int, tp: int = 1,
                  plan: str = "eager", device="cuda"):
     """Backend for a tensor-parallel degree; only tp=1 is ported."""
     if tp != 1:
-        raise ValueError(f"tp={tp}: tensor-parallel serving {NOT_PORTED} "
-                         "item 9")
+        raise ValueError(f"tp={tp}: tensor-parallel serving {NOT_PORTED}, "
+                         "\"tensor parallel\"")
     return LocalBackend(cfg, params, max_batch=max_batch, max_len=max_len,
                         plan=plan, device=device)

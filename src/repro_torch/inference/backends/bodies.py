@@ -2,9 +2,9 @@
 
 Counterpart of ``repro/inference/backends/bodies.py`` (prefill, decode,
 paged prefill chunk and paged decode; the verify bodies come with
-speculative decoding, ROADMAP Queue A item 7).  One source of numerics
-for every backend: anything that changes logits or cache writes belongs
-here.
+speculative decoding, ROADMAP Queue A "speculative decoding").  One
+source of numerics for every backend: anything that changes logits or
+cache writes belongs here.
 """
 from __future__ import annotations
 

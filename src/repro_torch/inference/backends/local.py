@@ -1,13 +1,14 @@
 """Single-device execution backend: the step bodies under PyTorch eager.
 
 Counterpart of ``repro/inference/backends/local.py`` for the contiguous
-and the paged cache (speculative verify is not ported yet, ROADMAP Queue A
-item 7).  Every call runs the step body eagerly (plan label ``"eager"``): the
-reference's ``jit`` and launch-plan modes are not ported yet (ROADMAP
-Queue A item 5), and this backend does not pretend to be either.  Each
-call's host time is measured around the call without a device sync, as
-the reference measures its jit dispatch, and the launches of the
-hand-written kernels in the call are read from the wrappers' counts.
+and the paged cache (speculative verify is not ported yet, ROADMAP Queue A,
+"speculative decoding").  Every call runs the step body eagerly (plan label
+``"eager"``): the reference's ``jit`` and launch-plan modes are not ported
+yet (ROADMAP Queue A, "CUDA graph / launch plans"), and this backend does
+not pretend to be either.  Each call's host time is measured around the
+call without a device sync, as the reference measures its jit dispatch,
+and the launches of the hand-written kernels in the call are read from
+the wrappers' counts.
 """
 from __future__ import annotations
 
@@ -30,8 +31,8 @@ class LocalBackend(AccountingMixin):
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int,
                  max_len: int, plan: str = "eager", device="cuda"):
         if plan != "eager":
-            raise ValueError(f"plan {plan!r} {NOT_PORTED} item 5 (the port "
-                             "runs eager PyTorch)")
+            raise ValueError(f"plan {plan!r} {NOT_PORTED}, \"CUDA graph / "
+                             "launch plans\" (the port runs eager PyTorch)")
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, "
@@ -87,10 +88,12 @@ class LocalBackend(AccountingMixin):
                          block_tables)
 
     def verify(self, cache, tokens, lengths):
-        raise ValueError(f"speculative verify {NOT_PORTED} item 7")
+        raise ValueError(f"speculative verify {NOT_PORTED}, \"speculative "
+                         "decoding\"")
 
     def paged_verify(self, cache, tokens, lengths, block_tables):
-        raise ValueError(f"speculative verify {NOT_PORTED} item 7")
+        raise ValueError(f"speculative verify {NOT_PORTED}, \"speculative "
+                         "decoding\"")
 
     @property
     def planned_decode(self):

@@ -130,7 +130,8 @@ def attention_context(cfg: ModelConfig, b: int, s: int, device, *,
     if s != 1:
         raise NotImplementedError(
             "multi-token decode with per-row lengths (speculative verify) "
-            "is not ported yet, see ROADMAP Queue A item 7")
+            "is not ported yet, see ROADMAP Queue A, \"speculative "
+            "decoding\"")
     if isinstance(lengths, torch.Tensor):
         lengths = lengths.cpu()
     lens = np.asarray(lengths, dtype=np.int64).reshape(b)
@@ -166,7 +167,8 @@ def paged_attention_context(cfg: ModelConfig, b: int, s: int, device, *,
         if s != 1:
             raise NotImplementedError(
                 "multi-token decode with per-row lengths (speculative "
-                "verify) is not ported yet, see ROADMAP Queue A item 7")
+                "verify) is not ported yet, see ROADMAP Queue A, "
+                "\"speculative decoding\"")
         if isinstance(lengths, torch.Tensor):
             lengths = lengths.cpu()
         start = np.asarray(lengths, dtype=np.int64).reshape(b, 1)

@@ -59,15 +59,18 @@ def check_supported(cfg: ModelConfig) -> None:
     if tuple(cfg.block_pattern) not in PATTERNS:
         raise NotImplementedError(
             f"{cfg.name}: block pattern {cfg.block_pattern} not ported yet, "
-            "see ROADMAP Queue A items 2 and 10")
+            "see ROADMAP Queue A, \"model features\"")
+    # the port's attention is causal; the reference runs an encoder-only
+    # family without the causal mask
     unported = [name for name, on in (
         ("moe", cfg.moe is not None), ("encoder", cfg.n_encoder_layers > 0),
+        ("family encoder", cfg.family == "encoder"),
         ("frontend", cfg.frontend != "none"), ("qkv_bias", cfg.qkv_bias),
         ("attn_softcap", cfg.attn_softcap != 0.0)) if on]
     if unported:
         raise NotImplementedError(
-            f"{cfg.name}: {unported} not ported yet, see ROADMAP Queue A "
-            "items 2 and 10")
+            f"{cfg.name}: {unported} not ported yet, see ROADMAP Queue A, "
+            "\"model features\"")
 
 
 def _layer_init(gen, cfg: ModelConfig, device) -> dict:

@@ -629,6 +629,97 @@ def test_wkv6_extreme_decay(dev):
     _close(s, s_ref, torch.float32)
 
 
+def _wkv6_close_to_both(out, args):
+    """The kernel's (o, sT) within TOL of the plain chunked version and of
+    the literal float64 recurrence."""
+    for plain in (wkv6_ref, wkv6_oracle):
+        o_ref, s_ref = plain(*args)
+        _close(out[0], o_ref, torch.float32)
+        _close(out[1], s_ref, torch.float32)
+
+
+@pytest.mark.parametrize("t", [15, 16, 17, 33, 1024])
+def test_wkv6_chunk_edges(dev, t):
+    """T just below, at and past a chunk of 16, a ragged third chunk, and
+    64 chunks at the width of RWKV-6 3B's heads; one launch each."""
+    args = _wkv_inputs(1, t, 3, 64, dev, 30 + t)
+    n0 = kernels.wkv6.launches
+    out = kernels.wkv6(*args)
+    assert kernels.wkv6.launches == n0 + 1
+    _wkv6_close_to_both(out, args)
+
+
+@pytest.mark.parametrize("t", [1, 20])
+@pytest.mark.parametrize("hd", [8, 16, 32, 64, 128])
+def test_wkv6_every_head_dim(dev, hd, t):
+    """Every compiled head size (hd 8 below the 16 columns a CTA owns, so
+    one CTA takes the whole head) at B * H = 1, on the step path (T 1)
+    and the chunk path."""
+    args = _wkv_inputs(1, t, 1, hd, dev, hd + t)
+    _wkv6_close_to_both(kernels.wkv6(*args), args)
+
+
+@pytest.mark.parametrize("t", [1, 33])
+def test_wkv6_state_in_place(dev, t):
+    """The state written over s0 (the engine's cache) on the step path and
+    on the chunk path, where each column CTA reads its columns before it
+    writes them."""
+    args = _wkv_inputs(2, t, 5, 64, dev, 70 + t)
+    state = args[5].clone()
+    o, s = kernels.wkv6(*args[:5], state, s_out=state)
+    assert s is state
+    _wkv6_close_to_both((o, state), args)
+
+
+@pytest.mark.parametrize("t", [1, 20])
+def test_wkv6_unaligned_inputs(dev, t):
+    """r, k, v, logw one element past a 16-byte boundary: the kernels'
+    scalar path (no 16-byte loads, no bulk copies)."""
+    args = _wkv_inputs(2, t, 3, 32, dev, 80 + t)
+    seq = [_offset_view(a.shape, torch.float32, dev, 0) for a in args[:4]]
+    for view, a in zip(seq, args[:4]):
+        view.copy_(a)
+    assert all(a.data_ptr() % 16 for a in seq)
+    args = (*seq, *args[4:])
+    _wkv6_close_to_both(kernels.wkv6(*args), args)
+
+
+@pytest.mark.parametrize("even,odd", [(-50.0, -1e-4), (-1e-4, -50.0)])
+@pytest.mark.parametrize("hd", [8, 64])
+def test_wkv6_extreme_decay_over_three_chunks(dev, even, odd, hd):
+    """Decays exp(-50) and exp(-1e-4) in turn over 40 tokens (three chunks,
+    the last ragged): finite, and within TOL of the float64 recurrence.
+    The plain chunked version is not the yardstick here: its f32 cumsum of
+    log-decays reaches -400 within a chunk and drops the -1e-4 steps, which
+    puts it up to 1.5 x TOL off the recurrence (the kernel's sum is
+    compensated)."""
+    b, t, h = 1, 40, 2
+    r, k, v = (_randn((b, t, h, hd), torch.float32, dev, s)
+               for s in (23, 24, 25))
+    is_even = (torch.arange(t, device=dev) % 2 == 0)[None, :, None, None]
+    logw = torch.where(is_even, even, odd).expand(b, t, h, hd).contiguous()
+    u = _randn((h, hd), torch.float32, dev, 26, 0.3)
+    s0 = _randn((b, h, hd, hd), torch.float32, dev, 27, 0.1)
+    o, s = kernels.wkv6(r, k, v, logw, u, s0)
+    assert torch.isfinite(o).all() and torch.isfinite(s).all()
+    o_ref, s_ref = wkv6_oracle(r, k, v, logw, u, s0)
+    _close(o, o_ref, torch.float32)
+    _close(s, s_ref, torch.float32)
+
+
+@pytest.mark.parametrize("t", [1, 12, 40])
+def test_wkv6_repeats_bit_identical_and_counts_each_launch(dev, t):
+    """Three calls in a row give the same bits, and each adds one launch
+    (T 12 and 40 end in a ragged chunk)."""
+    args = _wkv_inputs(4, t, 40, 64, dev, 90 + t)
+    n0 = kernels.wkv6.launches
+    outs = [kernels.wkv6(*args) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert kernels.wkv6.launches == n0 + 3
+    for o, s in outs[1:]:
+        assert torch.equal(o, outs[0][0]) and torch.equal(s, outs[0][1])
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x = _randn((4, 64), torch.float16, dev, 0)
     with pytest.raises(TypeError):

@@ -151,7 +151,8 @@ def test_unported_features_raise():
     cfg = reduced(get_config("smollm-360m"))
     gen = torch.Generator().manual_seed(0)
     for bad in (cfg.replace(block_pattern=("attn_local", "attn")),
-                cfg.replace(qkv_bias=True), cfg.replace(attn_softcap=50.0)):
+                cfg.replace(qkv_bias=True), cfg.replace(attn_softcap=50.0),
+                cfg.replace(family="encoder")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             init_params(bad, gen, device="cpu")
     params = init_params(cfg, gen, device="cpu")
@@ -159,7 +160,38 @@ def test_unported_features_raise():
         forward(params, torch.zeros((1, 2), dtype=torch.int32), cfg,
                 cache=make_cache(cfg, 1, 8, device="cpu"),
                 lengths=np.array([1]))
+    # the reference runs an encoder non-causal; the port's forward refuses
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        forward(params, torch.zeros((1, 2), dtype=torch.int32),
+                cfg.replace(family="encoder"))
     assert params["embed"].shape == (cfg.vocab_size, cfg.d_model)
+
+
+def test_unported_messages_name_their_roadmap_item():
+    """Each refusal names its ROADMAP Queue A item by name, not by a
+    number that a renumbering would leave stale."""
+    import re
+
+    from repro_torch.inference.backends import LocalBackend, make_backend
+    from repro_torch.models import check_supported
+    cfg = reduced(get_config("smollm-360m"))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    backend = LocalBackend(cfg, params, max_batch=1, max_len=8, device="cpu")
+    calls = {
+        "tensor parallel": lambda: make_backend(cfg, params, max_batch=1,
+                                                max_len=8, tp=2),
+        "CUDA graph / launch plans": lambda: LocalBackend(
+            cfg, params, max_batch=1, max_len=8, plan="jit", device="cpu"),
+        "speculative decoding": lambda: backend.verify(None, None, None),
+        "model features": lambda: check_supported(
+            cfg.replace(family="encoder")),
+    }
+    for item, call in calls.items():
+        with pytest.raises((ValueError, NotImplementedError)) as err:
+            call()
+        msg = str(err.value)
+        assert "ROADMAP" in msg and item in msg, msg
+        assert not re.search(r"item \d", msg), msg
 
 
 def test_layer_primitives_match_the_reference():
