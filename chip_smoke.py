@@ -50,7 +50,18 @@ Phases (any failure exits non-zero before a result is printed):
      forward; then an f32 engine at full width and 2 layers whose whole
      token streams must equal an unpadded incremental forward's (the
      engine prefills a recurrent stack without bucket padding);
- 10. a trace of the RWKV-6 decode step and prefill, as in phase 5.
+ 10. a trace of the RWKV-6 decode step and prefill, as in phase 5;
+ 11. the four main paths again under ``--plan jit`` (the serve default:
+     each step one CUDA graph replay), each beside its ``--plan eager`` run
+     above: the same tokens request for request (under pool pressure, a
+     token may differ only where the plain int8 logits of the two lie
+     within LOGIT_TOL_BF16), one dispatch per decode step and eager's
+     launches per decode step and per prefill; then per cell and plan the
+     decode step's wall, host and device-busy time, idle share, tok/s,
+     TTFT, ITL and the graphs captured (count, seconds, pool memory).
+
+Phases 4, 6, 7 and 9 serve with ``--plan eager`` (``plan="eager"``), so
+their traces (5, 6, 7, 10) stay those of the eager step.
 
 Phase 2 also holds the RWKV-6 path's two kernels at its shapes: the norm
 at (4, 1, 2560) and (1, 12, 2560) with and without a residual in f32 and
@@ -721,14 +732,19 @@ def check_first_tokens(eng, done, cfg) -> int:
     return int((plain.argmax(-1) == first).sum())
 
 
-def phase_serve(cfg, phase: int, extra=()) -> tuple:
-    """``repro_torch.launch.serve`` at full width in bf16 (warmup + measured
-    run), with every launch count reset just before and read just after.
-    ``extra`` selects the cache; the launches must match the path's table
-    per decode step and per prefill call (a prefill chunk when paged)."""
-    argv = ["--arch", cfg.name, "--requests", str(N_REQ), "--max-batch",
+def serve_argv(cfg, extra, plan: str) -> list:
+    return ["--arch", cfg.name, "--requests", str(N_REQ), "--max-batch",
             str(MAX_BATCH), "--max-len", str(MAX_LEN), "--device", "cuda",
-            *extra]
+            "--plan", plan, *extra]
+
+
+def phase_serve(cfg, phase: int, extra=()) -> tuple:
+    """``repro_torch.launch.serve --plan eager`` at full width in bf16
+    (warmup + measured run), with every launch count reset just before and
+    read just after.  ``extra`` selects the cache; the launches must match
+    the path's table per decode step and per prefill call (a prefill chunk
+    when paged).  Returns (counts, report, engine, finished requests)."""
+    argv = serve_argv(cfg, extra, "eager")
     buf = io.StringIO()
     kernels.reset_launch_counts()
     with contextlib.redirect_stdout(buf):
@@ -764,7 +780,7 @@ def phase_serve(cfg, phase: int, extra=()) -> tuple:
     agree = check_first_tokens(eng, done, cfg)
     print(f"  served first tokens agree with the plain bf16 forward: "
           f"{agree}/{N_REQ}")
-    return counts, rep, eng
+    return counts, rep, eng, done
 
 
 # ------------------------------------------------------------------ phase 5
@@ -799,13 +815,31 @@ def print_hand_kernels(by, calls: int, per: str) -> None:
                   f"{t / calls:.1f} us/{per}, {t / n:.2f} us/call")
 
 
-def phase_trace(eng, label: str, prefill: bool = False) -> None:
+def events_busy_ms(step, steps: int) -> float:
+    """Device ms per call of ``step`` between CUDA events around it (each
+    call waited for), where the profiler sees no device events."""
+    total = 0.0
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / steps
+
+
+def phase_trace(eng, label: str, prefill: bool = False) -> dict:
     """Decode-step wall time, device time by kernel from torch.profiler
     (kernels run in order on one stream, so their sum is the busy time) and
     the host ops with the most self time, for the engine's cache (a paged
     engine steps rows that own two pages each).  With ``prefill``, also the
     device time of a slot's prefill (the serve CLI's 12-token prompt, padded
-    to its bucket for attention), with the hand-written kernels' share."""
+    to its bucket for attention), with the hand-written kernels' share.
+    Returns the step's wall, host (the backend call) and device-busy ms,
+    its device kernels and how busy was measured.  Under ``plan="jit"``
+    each call replays the engine's captured graph for its signature."""
     rng = np.random.default_rng(2)
     toks = torch.from_numpy(rng.integers(0, eng.cfg.vocab_size,
                                          (MAX_BATCH, 1)))
@@ -822,25 +856,35 @@ def phase_trace(eng, label: str, prefill: bool = False) -> None:
         def step():
             return eng.backend.paged_decode(eng.cache, toks, lens, bt)
 
+    host = []
+
     def run():
         for _ in range(steps):
             logits, _ = step()
+            host.append(eng.backend.last.host_time_s)
             logits.cpu()                   # the engine's host argmax sync
 
     run()
     torch.cuda.synchronize()
+    host.clear()
     t0 = time.perf_counter()
     run()
     wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    out = dict(wall_ms=wall_ms, host_ms=float(np.mean(host)) * 1e3)
     by, prof = device_times(run)
     if by is None:
+        out.update(busy_ms=events_busy_ms(lambda: step()[0].cpu(), steps),
+                   kernels=None, busy_by="CUDA events")
         print(f"{label}: decode step wall {wall_ms:.3f} ms; the profiler "
-              "reported no device events: device time not measured")
-        return
+              "reported no device events; CUDA events around each call: "
+              f"{out['busy_ms']:.3f} ms")
+        return out
     busy_ms = sum(t for t, _ in by.values()) / steps / 1e3
     n_kern = sum(n for _, n in by.values()) / steps
+    out.update(busy_ms=busy_ms, kernels=n_kern, busy_by="profiler")
     print(f"{label}: decode step (batch {MAX_BATCH}, kv len 20): wall "
-          f"{wall_ms:.3f} ms/step unprofiled; profiled: device busy "
+          f"{wall_ms:.3f} ms/step unprofiled, host {out['host_ms']:.3f} "
+          f"ms/step (the backend call); profiled: device busy "
           f"{busy_ms:.3f} ms/step ({busy_ms / wall_ms:.1%} of the unprofiled "
           f"wall), {n_kern:.0f} device kernels/step")
     for name, (t, n) in sorted(by.items(), key=lambda kv: -kv[1][0])[:12]:
@@ -851,7 +895,7 @@ def phase_trace(eng, label: str, prefill: bool = False) -> None:
         f"{a.key} {a.self_cpu_time_total / steps:.0f} us/step "
         f"({a.count / steps:.0f}x)" for a in ops[:8]))
     if not prefill:
-        return
+        return out
     width = PROMPT if is_recurrent(eng.cfg) else BUCKET
     prompt = torch.from_numpy(rng.integers(0, eng.cfg.vocab_size,
                                            (1, width)))
@@ -863,11 +907,16 @@ def phase_trace(eng, label: str, prefill: bool = False) -> None:
 
     prefills()
     by, _ = device_times(prefills)
+    if by is None:
+        print(f"{label} prefill: the profiler reported no device events")
+        return out
     busy_ms = sum(t for t, _ in by.values()) / steps / 1e3
+    out["prefill_busy_ms"] = busy_ms
     print(f"{label} prefill (1 x {width}, slot 0): device busy "
           f"{busy_ms:.3f} ms/prefill, "
           f"{sum(n for _, n in by.values()) / steps:.0f} device kernels")
     print_hand_kernels(by, steps, "prefill")
+    return out
 
 
 # ------------------------------------------------------------------ phase 7
@@ -907,18 +956,19 @@ def plain_int8_logits(params, cfg, toks) -> torch.Tensor:
     return logits[0, -1]
 
 
-def check_against_unpressured(done, free_done, params, cfg) -> int:
-    """The pressured run's tokens against a run of the same requests in a
-    pool that never preempts or offloads.  Both runs compute every row
-    alike (decode always steps all MAX_BATCH rows; prefill chunks have the
-    same boundaries), so they should agree token for token.  A request may
-    diverge only where the plain versions over int8 pages put the two
-    tokens within LOGIT_TOL_BF16 of each other; its later tokens are then
-    not compared.  Returns how many requests agree entirely."""
-    free = {r.rid: r for r in free_done}
+def check_near_ties(done, ref_done, params, cfg, names) -> int:
+    """One int8 run's tokens against another's of the same requests (the
+    pressured run against an unpressured one; jit against eager).  Both
+    runs compute every row alike (decode always steps all MAX_BATCH rows;
+    prefill chunks have the same boundaries), so they should agree token
+    for token.  A request may diverge only where the plain versions over
+    int8 pages put the two tokens within LOGIT_TOL_BF16 of each other; its
+    later tokens are then not compared.  ``names`` label the two runs.
+    Returns how many requests agree entirely."""
+    ref = {r.rid: r for r in ref_done}
     same = 0
     for r in done:
-        want = free[r.rid].generated
+        want = ref[r.rid].generated
         i = next((i for i, (a, b) in enumerate(zip(r.generated, want))
                   if a != b), None)
         if i is None:
@@ -928,23 +978,27 @@ def check_against_unpressured(done, free_done, params, cfg) -> int:
         gap = (logits[want[i]] - logits[r.generated[i]]).abs().item()
         if not gap < LOGIT_TOL_BF16:
             fail(f"pool pressure: request {r.rid} token {i} is "
-                 f"{r.generated[i]} under pressure and {want[i]} without; "
+                 f"{r.generated[i]} {names[0]} and {want[i]} {names[1]}; "
                  f"their plain int8 logits differ by {gap:.3g} >= "
                  f"{LOGIT_TOL_BF16}")
+        print(f"  near tie: request {r.rid} token {i} is {r.generated[i]} "
+              f"{names[0]} and {want[i]} {names[1]}; their plain int8 "
+              f"logits differ by {gap:.3g} < {LOGIT_TOL_BF16}")
     return same
 
 
-def phase_pool_pressure(cfg, params) -> tuple:
-    """``ServeEngine`` at full width with an int8 paged pool too small for
-    the load, chunked prefill, prefix sharing and host offload: a warmup
-    run, then the measured run with the launch counts reset just before.
-    Its tokens are then held against the same requests served from the
-    default int8 pool, where nothing is preempted or offloaded."""
-    opts = dict(max_batch=MAX_BATCH, max_len=MAX_LEN, device=DEV,
-                cache="paged", kv_dtype="int8", block_size=BLOCK,
-                prefill_chunk=CHUNK, share_prefix=True)
-    eng = ServeEngine(cfg, params, offload="host",
-                      num_blocks=PRESSURE_BLOCKS, **opts)
+PRESSURE_OPTS = dict(max_batch=MAX_BATCH, max_len=MAX_LEN, device=DEV,
+                     cache="paged", kv_dtype="int8", block_size=BLOCK,
+                     prefill_chunk=CHUNK, share_prefix=True)
+
+
+def serve_pressured(cfg, params, plan: str, phase: int) -> tuple:
+    """The pool-pressure engine under ``plan``: a warmup run, then the
+    measured run with the launch counts reset just before; it must
+    preempt, offload, restore and share.  Returns (engine, finished
+    requests, counts, report)."""
+    eng = ServeEngine(cfg, params, offload="host", plan=plan,
+                      num_blocks=PRESSURE_BLOCKS, **PRESSURE_OPTS)
     eng.run(pressure_requests(cfg.vocab_size))
     eng.reset()
     reqs = pressure_requests(cfg.vocab_size)
@@ -954,10 +1008,11 @@ def phase_pool_pressure(cfg, params) -> tuple:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
-    st, tier = eng.stats, eng.offload_tier
+    st = eng.stats
     rep = serve.report(eng, done, wall)
-    print(f"phase 7: pool pressure, int8 pages, {PRESSURE_BLOCKS} blocks of "
-          f"{BLOCK}, chunks of {CHUNK}, prefix sharing, host offload")
+    print(f"phase {phase}: pool pressure, int8 pages, {PRESSURE_BLOCKS} "
+          f"blocks of {BLOCK}, chunks of {CHUNK}, prefix sharing, host "
+          f"offload, plan {plan}")
     print(f"  report {json.dumps(rep)}")
     print(f"  launches (measured run) {counts}")
     if len(done) != len(reqs) or any(
@@ -969,6 +1024,17 @@ def phase_pool_pressure(cfg, params) -> tuple:
         fail(f"pool pressure: preemptions {st.preemptions}, adoptions "
              f"{st.prefix_adoptions}, offload {st.offload_bytes} B, restore "
              f"{st.restore_bytes} B")
+    return eng, done, counts, rep
+
+
+def phase_pool_pressure(cfg, params) -> tuple:
+    """``ServeEngine(plan="eager")`` at full width with an int8 paged pool
+    too small for the load, chunked prefill, prefix sharing and host
+    offload (``serve_pressured``).  Its tokens are then held against the
+    same requests served from the default int8 pool, where nothing is
+    preempted or offloaded."""
+    eng, done, counts, rep = serve_pressured(cfg, params, "eager", 7)
+    st, tier = eng.stats, eng.offload_tier
     L = cfg.n_layers
     want_step, want_pre = want_launches(cfg, "paged_decode_attention_quant")
     if st.kernel_launches_per_decode_step != want_step:
@@ -981,15 +1047,16 @@ def phase_pool_pressure(cfg, params) -> tuple:
             + st.prefill_chunks * want_pre[name] for name in want_step}
     if counts != want:
         fail(f"launch counts {counts} != {want}")
-    roomy = ServeEngine(cfg, params, **opts)
+    roomy = ServeEngine(cfg, params, plan="eager", **PRESSURE_OPTS)
     free_done = roomy.run(pressure_requests(cfg.vocab_size))
-    if roomy.stats.preemptions or len(free_done) != len(reqs):
+    if roomy.stats.preemptions or len(free_done) != len(done):
         fail(f"the unpressured int8 run preempted {roomy.stats.preemptions} "
-             f"times and finished {len(free_done)} of {len(reqs)} requests")
-    same = check_against_unpressured(done, free_done, params, cfg)
+             f"times and finished {len(free_done)} of {len(done)} requests")
+    same = check_near_ties(done, free_done, params, cfg,
+                           ("under pressure", "without"))
     print(f"  tokens agree with the same requests in the default "
           f"{roomy.kv.num_blocks}-block int8 pool (no preemption, no "
-          f"offload): {same}/{len(reqs)} requests token for token")
+          f"offload): {same}/{len(done)} requests token for token")
     del roomy
     copy_s = tier.measured_copy_s
     if not copy_s > 0:
@@ -1007,7 +1074,7 @@ def phase_pool_pressure(cfg, params) -> tuple:
           f"{(st.offload_bytes + st.restore_bytes) / copy_s / 1e9:.2f} GB/s,"
           f" vs modeled tax {st.modeled_offload_tax_s * 1e6:.1f} us "
           f"({eng.platform} link)")
-    return counts, rep, eng
+    return counts, rep, eng, done
 
 
 # ------------------------------------------------------------------ phase 8
@@ -1154,7 +1221,7 @@ def check_rwkv_streams(cfg) -> None:
     params = init_params(cfg2, torch.Generator(device=DEV).manual_seed(2),
                          device=DEV)
     eng = ServeEngine(cfg2, params, max_batch=MAX_BATCH, max_len=MAX_LEN,
-                      device=DEV)
+                      plan="eager", device=DEV)
     done = eng.run(serve.make_requests(N_REQ, cfg.vocab_size, 16))
     if len(done) != N_REQ or any(len(r.generated) != 16 for r in done):
         fail(f"phase 9 f32 streams: {len(done)} requests finished")
@@ -1172,6 +1239,106 @@ def check_rwkv_streams(cfg) -> None:
           f"streams equal the unpadded incremental forward")
     del eng, params
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------ phase 11
+PAGED = ["--cache", "paged", "--block-size", str(BLOCK)]
+# cell -> (config: "smollm" or "rwkv", serve flags, trace a prefill too)
+JIT_CELLS = {"contiguous": ("smollm", [], True),
+             "paged_bf16": ("smollm", PAGED, False),
+             "paged_int8_pressure": ("smollm", None, False),
+             "rwkv": ("rwkv", [], True)}
+
+
+def cell_row(rep, trace) -> dict:
+    """One plan's numbers in a cell: the measured serve run's (decode step
+    wall and host ms, tok/s, TTFT, ITL, graphs) and the trace's."""
+    return dict(
+        step_ms=rep["mean_decode_step_ms"],
+        host_ms=rep["measured_launch_tax_per_decode_step_us"] / 1e3,
+        trace_wall_ms=trace["wall_ms"], trace_host_ms=trace["host_ms"],
+        busy_ms=trace["busy_ms"], busy_by=trace["busy_by"],
+        idle=1.0 - trace["busy_ms"] / trace["wall_ms"],
+        kernels=trace["kernels"],
+        prefill_busy_ms=trace.get("prefill_busy_ms"),
+        tok_per_s=rep["tok_per_s"], mean_ttft_ms=rep["mean_ttft_ms"],
+        p50_itl_ms=rep["p50_itl_ms"], p99_itl_ms=rep["p99_itl_ms"],
+        dispatches=rep["dispatches_per_decode_step"],
+        graphs=rep["graphs_captured"], capture_s=rep["graph_capture_s"],
+        graph_mb=rep["graph_memory_bytes"] / 2 ** 20)
+
+
+def check_jit(cell, rep, erep, done, edone, params, cfg) -> None:
+    """The jit run against the eager run of the same cell: the same
+    requests finished with the same tokens, one dispatch per decode step,
+    and eager's hand-written launches per decode step and per prefill."""
+    if len(done) != len(edone) or any(r.status != "done" for r in done):
+        fail(f"{cell} jit: finished {len(done)} of {len(edone)} requests")
+    if rep["dispatches_per_decode_step"] != 1.0:
+        fail(f"{cell} jit: {rep['dispatches_per_decode_step']} dispatches "
+             "per decode step, not 1")
+    for key in ("kernel_launches_per_decode_step", "prefill_kernel_launches",
+                "decode_steps"):
+        if rep[key] != erep[key]:
+            fail(f"{cell} jit: {key} {rep[key]} != eager's {erep[key]}")
+    if cell == "paged_int8_pressure":
+        same = check_near_ties(done, edone, params, cfg,
+                               ("under jit", "under eager"))
+    else:
+        want = {r.rid: r.generated for r in edone}
+        bad = [r.rid for r in done if r.generated != want[r.rid]]
+        if bad:
+            fail(f"{cell} jit: requests {bad} served other tokens than "
+                 "under eager")
+        same = len(done)
+    print(f"  {cell}: jit tokens equal eager's in {same}/{len(done)} "
+          f"requests; 1 dispatch per decode step (eager "
+          f"{erep['dispatches_per_decode_step']:.0f}); launches per decode "
+          "step and per prefill as eager's")
+
+
+def phase_jit(cfg, rcfg, eager: dict) -> dict:
+    """Phase 11: each cell served again under ``--plan jit`` (the int8
+    pool-pressure engine under ``plan="jit"``, with the paged run's
+    weights), checked against its eager run (``eager[cell]``: report,
+    finished requests, trace) and traced as in phases 5-10.  Returns
+    {cell: {plan: numbers}}."""
+    rows, params = {}, None
+    for cell, (arch, extra, prefill) in JIT_CELLS.items():
+        c = cfg if arch == "smollm" else rcfg
+        erep, edone, etrace = eager[cell]
+        if extra is None:
+            eng, done, _, rep = serve_pressured(c, params, "jit", 11)
+        else:
+            argv = serve_argv(c, extra, "jit")
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                eng, done = serve.main(argv)
+            rep = json.loads(buf.getvalue().strip().splitlines()[-1])
+            print(f"phase 11: serve {' '.join(argv)}")
+            print(f"  report {json.dumps(rep)}")
+        check_jit(cell, rep, erep, done, edone, eng.params, c)
+        trace = phase_trace(eng, f"phase 11 {cell} jit trace", prefill)
+        rows[cell] = {"eager": cell_row(erep, etrace),
+                      "jit": cell_row(rep, trace)}
+        for plan, r in rows[cell].items():
+            pre = ("" if r["prefill_busy_ms"] is None else
+                   f", prefill busy {r['prefill_busy_ms']:.3f} ms")
+            print(f"phase 11: {cell} {plan}: decode step {r['step_ms']:.3f}"
+                  f" ms wall, {r['host_ms']:.3f} ms host (serve); trace: "
+                  f"{r['trace_wall_ms']:.3f} ms wall, {r['trace_host_ms']:.3f}"
+                  f" ms host, {r['busy_ms']:.3f} ms device busy "
+                  f"({r['busy_by']}), idle {r['idle']:.1%}{pre}; "
+                  f"{r['tok_per_s']:.1f} tok/s, mean TTFT "
+                  f"{r['mean_ttft_ms']:.2f} ms, ITL p50 {r['p50_itl_ms']:.3f}"
+                  f" / p99 {r['p99_itl_ms']:.3f} ms; {r['dispatches']:.0f} "
+                  f"dispatches/step; {r['graphs']} graphs, "
+                  f"{r['capture_s']:.3f} s capture, {r['graph_mb']:.1f} MiB")
+        params = eng.params if cell == "paged_bf16" else None
+        del eng
+        torch.cuda.empty_cache()
+    print("phase 11: " + json.dumps(rows))
+    return rows
 
 
 # ------------------------------------------------------------------ main
@@ -1192,25 +1359,28 @@ def main() -> None:
     phase_build()
     rows = phase_kernels(cfg, rcfg)
     phase_logits_f32(cfg)
-    path_counts = {}
-    path_counts["contiguous"], _, eng = phase_serve(cfg, 4)
-    phase_trace(eng, "phase 5", prefill=True)
+    path_counts, eager = {}, {}
+    path_counts["contiguous"], rep, eng, done = phase_serve(cfg, 4)
+    eager["contiguous"] = (rep, done, phase_trace(eng, "phase 5",
+                                                  prefill=True))
     del eng
     torch.cuda.empty_cache()
-    path_counts["paged_bf16"], _, eng = phase_serve(
-        cfg, 6, ["--cache", "paged", "--block-size", str(BLOCK)])
-    phase_trace(eng, "phase 6 trace")
-    path_counts["paged_int8_pressure"], _, eng = phase_pool_pressure(
+    path_counts["paged_bf16"], rep, eng, done = phase_serve(cfg, 6, PAGED)
+    eager["paged_bf16"] = (rep, done, phase_trace(eng, "phase 6 trace"))
+    path_counts["paged_int8_pressure"], rep, eng, done = phase_pool_pressure(
         cfg, eng.params)
-    phase_trace(eng, "phase 7 trace")
+    eager["paged_int8_pressure"] = (rep, done,
+                                    phase_trace(eng, "phase 7 trace"))
     del eng
     torch.cuda.empty_cache()
     phase_logits_rwkv(rcfg)
-    path_counts["rwkv"], _, eng = phase_serve(rcfg, 9)
+    path_counts["rwkv"], rep, eng, done = phase_serve(rcfg, 9)
     check_rwkv_streams(rcfg)
-    phase_trace(eng, "phase 10", prefill=True)
+    eager["rwkv"] = (rep, done, phase_trace(eng, "phase 10", prefill=True))
     del eng
-    print(f"chip_smoke: phases 1-10 in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    phase_jit(cfg, rcfg, eager)
+    print(f"chip_smoke: phases 1-11 in {time.perf_counter() - t0:.1f} s")
 
     entries = []
     for name, (source, replaces) in KERNEL_INFO.items():

@@ -3,12 +3,12 @@ from repro_torch.inference.backends.base import (  # noqa: F401
     BackendInfo, CallAccount, ExecutionBackend,
 )
 from repro_torch.inference.backends.local import (  # noqa: F401
-    NOT_PORTED, LocalBackend,
+    NOT_PORTED, PLANS, LocalBackend,
 )
 
 
 def make_backend(cfg, params, *, max_batch: int, max_len: int, tp: int = 1,
-                 plan: str = "eager", device="cuda"):
+                 plan: str = "jit", device="cuda"):
     """Backend for a tensor-parallel degree; only tp=1 is ported."""
     if tp != 1:
         raise ValueError(f"tp={tp}: tensor-parallel serving {NOT_PORTED}, "

@@ -18,8 +18,9 @@ monolithic engine used, plus fills ``backend.last`` with a ``CallAccount``
 the scheduler folds into ``EngineStats`` — one merge path for jit, planned,
 and sharded execution instead of three inline copies.
 
-The port has ``LocalBackend`` (one device, eager PyTorch); the sharded
-and speculative backends are still to port (ROADMAP Queue A).
+The port has ``LocalBackend`` (one device: CUDA graphs under ``plan="jit"``,
+eager PyTorch under ``plan="eager"``); the sharded and speculative
+backends are still to port (ROADMAP Queue A).
 """
 from __future__ import annotations
 

@@ -23,10 +23,12 @@ resume or, with ``offload="host"``, staged in pinned host memory and
 restored), int8 pages (``kv_dtype="int8"``) and copy-on-write prefix
 sharing (``share_prefix=True``).
 
-Device work goes through an ``ExecutionBackend`` (``backends.local``).
-Speculative decoding, tensor parallelism, launch plans, the request tracer
-and the boundedness monitor are not ported yet: asking for any of them
-raises ``ValueError`` rather than being ignored.
+Device work goes through an ``ExecutionBackend`` (``backends.local``):
+``plan="jit"`` (the default, as in the reference) replays each step as
+one CUDA graph, ``plan="eager"`` runs it op by op.  Speculative decoding,
+tensor parallelism, the launch-plan strategies, the request tracer and the
+boundedness monitor are not ported yet: asking for any of them raises
+``ValueError`` rather than being ignored.
 """
 from __future__ import annotations
 
@@ -86,8 +88,7 @@ class EngineStats:
     Scalar fields live in registry gauges (attribute reads pull the gauge,
     assignments and ``+=`` write it); series and per-request timings are
     plain attributes.  The field set is the reference's, restricted to what
-    the contiguous eager path fills, plus the hand-written kernels' launch
-    counts.
+    the port's plans fill, plus the hand-written kernels' launch counts.
     """
 
     # attribute -> (gauge name, python type, help text)
@@ -100,6 +101,8 @@ class EngineStats:
                                 "measured host launch tax, all steps"),
         "decode_dispatch_time_s": ("engine_decode_dispatch_seconds", float,
                                    "measured launch tax, decode only"),
+        "decode_dispatches": ("engine_decode_dispatches", int,
+                              "host dispatches issued by decode steps"),
         "rejected": ("engine_rejected", int,
                      "admissions refused: plen + budget > max_len"),
         "prefill_kernel_launches": ("engine_prefill_kernel_launches", int,
@@ -128,7 +131,7 @@ class EngineStats:
                                  "instead of re-prefilling"),
     }
 
-    def __init__(self, plan: str = "eager", registry=None):
+    def __init__(self, plan: str = "jit", registry=None):
         if registry is None:
             registry = MetricsRegistry()
         object.__setattr__(self, "registry", registry)
@@ -213,6 +216,12 @@ class EngineStats:
                 if self.decode_steps else 0.0)
 
     @property
+    def dispatches_per_decode_step(self) -> float:
+        """Host dispatches per decode step (1 under jit: one replay)."""
+        return (self.decode_dispatches / self.decode_steps
+                if self.decode_steps else 0.0)
+
+    @property
     def kernel_launches_per_decode_step(self) -> dict:
         """Mean hand-written kernel launches per decode step, by kernel."""
         n = self.decode_steps
@@ -232,7 +241,7 @@ class ServeEngine:
     """
 
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 4,
-                 max_len: int = 256, plan: str = "eager", device="cuda",
+                 max_len: int = 256, plan: str = "jit", device="cuda",
                  platform: str = "Intel+H100", plan_table=None, tp: int = 1,
                  cache: str = "contiguous", block_size: int = 16,
                  num_blocks: Optional[int] = None, offload: str = "none",
@@ -350,6 +359,7 @@ class ServeEngine:
         """Fold one backend call's accounting into EngineStats."""
         if decode:
             self.stats.decode_dispatch_time_s += acct.host_time_s
+            self.stats.decode_dispatches += acct.dispatches
             by = self.stats.decode_launches_by_kernel
             for name, c in acct.kernel_launches.items():
                 by[name] = by.get(name, 0) + c

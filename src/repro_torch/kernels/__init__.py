@@ -2,7 +2,9 @@
 
 Each wrapper has a plain PyTorch version beside it (``ref.py``) that it runs
 for CPU tensors, and a launch count (``wrapper.launches``) that grows by one
-per kernel launch and nowhere else.  The model calls the wrappers through
+per kernel launch and nowhere else; a CUDA graph replay, which launches the
+kernels it captured without calling the wrappers, credits them
+(``credit_launches``).  The model calls the wrappers through
 this module, so a test can substitute a spy for any of them.
 """
 from repro_torch.kernels.decode_attention.ops import (
@@ -32,3 +34,9 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+
+
+def credit_launches(counts: dict) -> None:
+    """Add ``counts`` (wrapper name -> launches) to the wrappers' counts."""
+    for name, n in counts.items():
+        WRAPPERS[name].launches += n

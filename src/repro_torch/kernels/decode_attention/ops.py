@@ -76,7 +76,8 @@ def _split_buffers(name, q, b, hkv, g, hd, t_len):
     counters start at zero and the kernel's last CTA of each (row, KV
     head) sets its counter back to zero, so no call clears them.  They are
     kept per (device, stream): two streams running the kernel at once
-    would otherwise count each other's CTAs."""
+    would otherwise count each other's CTAs; and per size, never freed, so
+    a CUDA graph that captured their address stays valid."""
     n_split, per = split_plan(t_len, b, hkv)
     if b > MAX_ROWS:
         raise ValueError(f"{name}: {b} rows exceed the kernel's grid "
@@ -85,9 +86,9 @@ def _split_buffers(name, q, b, hkv, g, hd, t_len):
         return n_split, per, None, None
     ws = torch.empty(b * hkv * n_split * g * (hd + 2), dtype=torch.float32,
                      device=q.device)
-    key = (q.device.index, build.stream_ptr(q))
+    key = (q.device.index, build.stream_ptr(q), b * hkv)
     cnt = _counters.get(key)
-    if cnt is None or cnt.numel() < b * hkv:
+    if cnt is None:
         cnt = torch.zeros(b * hkv, dtype=torch.int32, device=q.device)
         _counters[key] = cnt
     return n_split, per, ws, cnt

@@ -6,15 +6,20 @@
         --kv-dtype int8 --num-blocks 12 --prefill-chunk 8 --offload host
 
 Counterpart of ``repro.launch.serve`` for the flags the port supports
-(``--cache paged`` with its block, dtype, sharing, offload and chunking
-flags, and ``--platform``, which prices the offload tier).
+(``--plan jit|eager``, ``--cache paged`` with its block, dtype, sharing,
+offload and chunking flags, and ``--platform``, which prices the offload
+tier).  ``--plan jit``, the default as in the reference, replays each
+step as one CUDA graph (``inference.backends.local``); ``--plan eager``
+runs it op by op.
 Weights are random, drawn on the device from a generator seeded 0; prompts
 are 12 tokens from numpy's generator seeded 0, as in the reference.  Runs
 on the GPU by default and raises without one; ``--device cpu`` runs the
 plain PyTorch path.  Prints one JSON line: the fields ``EngineStats``
-fills, the device, and ``kernel_launches_per_decode_step`` of the
-hand-written kernels; under ``--cache paged`` also the reference's paged
-fields and the measured device time of the offload copies.
+fills (``dispatches_per_decode_step`` among them), the device,
+``kernel_launches_per_decode_step`` of the hand-written kernels, and the
+CUDA graphs captured (count, seconds, device memory); under ``--cache
+paged`` also the reference's paged fields and the measured device time of
+the offload copies.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import torch
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.device_model import PLATFORMS
 from repro_torch.device import resolve_device
+from repro_torch.inference.backends import PLANS
 from repro_torch.inference.engine import (CACHE_MODES, OFFLOAD_MODES,
                                           Request, ServeEngine)
 from repro_torch.inference.kv_quant import KV_DTYPES
@@ -53,6 +59,7 @@ def report(eng: ServeEngine, done: list, wall_s: float) -> dict:
     itl = st.itl_samples_s
     paged = eng.kv is not None
     tier = eng.offload_tier
+    graphs = eng.backend.graph_stats
     return {
         "arch": eng.cfg.name,
         "device": device_name(eng.backend.device),
@@ -96,6 +103,11 @@ def report(eng: ServeEngine, done: list, wall_s: float) -> dict:
         "measured_launch_tax_per_step_us": st.launch_tax_per_step_s * 1e6,
         "measured_launch_tax_per_decode_step_us":
             st.launch_tax_per_decode_step_s * 1e6,
+        "decode_dispatches": st.decode_dispatches,
+        "dispatches_per_decode_step": st.dispatches_per_decode_step,
+        "graphs_captured": graphs.captured,
+        "graph_capture_s": graphs.capture_s,
+        "graph_memory_bytes": graphs.memory_bytes,
         "kernel_launches_per_decode_step": st.kernel_launches_per_decode_step,
         "prefill_kernel_launches": st.prefill_kernel_launches,
     }
@@ -109,6 +121,9 @@ def main(argv=None):
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--plan", default="jit", choices=PLANS,
+                    help="jit: each step one CUDA graph replay (captured "
+                         "once per signature); eager: op by op")
     ap.add_argument("--platform", default="Intel+H100",
                     choices=sorted(PLATFORMS),
                     help="the paper's platform row whose host link prices "
@@ -153,7 +168,7 @@ def main(argv=None):
     gen = torch.Generator(device=dev).manual_seed(0)
     params = init_params(cfg, gen, device=dev)
     eng = ServeEngine(cfg, params, max_batch=args.max_batch,
-                      max_len=args.max_len, device=dev,
+                      max_len=args.max_len, plan=args.plan, device=dev,
                       platform=args.platform, cache=args.cache,
                       block_size=args.block_size, num_blocks=args.num_blocks,
                       offload=args.offload, prefill_chunk=args.prefill_chunk,

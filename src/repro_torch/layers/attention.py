@@ -22,11 +22,8 @@ Paged cache, a pool of (P,bs,HKV,hd) pages per layer
 quantized), reached through a (B,NB) block table (``_paged_attention_fwd``
 in the reference):
 
-  * writes: each new token's page ``bt[b, t // bs]`` and offset ``t % bs``
-    are worked out on the host from the engine's numpy table and lengths;
-    writes whose block is past the table or whose page id is out of the
-    pool (the sentinel) are dropped there, as the reference's
-    ``mode="drop"`` scatter drops them.  An int8 pool quantizes on write;
+  * writes: each new token's page ``bt[b, t // bs]`` and offset ``t % bs``;
+    an int8 pool quantizes on write;
   * decode: ``kernels.paged_decode_attention`` (``_quant`` for an int8
     pool) reads the pool in place with ``kv_lens = lengths + 1`` (capped at
     NB*bs);
@@ -36,6 +33,18 @@ in the reference):
     ``kernels.flash_attention`` attends over its first t0+C positions with
     right-aligned causal queries, the reference's
     ``kv_valid = kv_pos < cache_index + s``.
+
+Every per-token index is derived on the device from device tensors of
+fixed shape (``lengths``, ``block_tables``), so one forward issues the
+same kernels whatever their values, and a CUDA graph can replay it.  A
+write the reference's ``mode="drop"`` scatter drops (a decode write past
+``max_len``, a paged write past the table or to a page id outside the
+pool, such as the sentinel) is therefore decided by value: it goes to a
+hidden scratch row (contiguous) or page (paged) that every cache leaf
+carries in its storage past the (B,...) or (P,...) view that consumers
+see (``with_scratch``).  Only dropped writes land there, so they can
+never collide with a valid write in the same scatter, and no visible
+entry changes.
 
 The cache is updated in place (the reference returns a new pytree); the
 per-forward index tensors are built once by ``attention_context`` or
@@ -67,11 +76,33 @@ def attention_init(gen, cfg: ModelConfig, device) -> dict:
     }
 
 
+def _zeros_with_scratch(shape, dtype, device) -> torch.Tensor:
+    """Zeros of ``shape`` as the first ``shape[0]`` entries of a buffer one
+    entry longer: the hidden scratch entry that dropped writes go to."""
+    return torch.zeros((shape[0] + 1, *shape[1:]), dtype=dtype,
+                       device=device)[:shape[0]]
+
+
+def with_scratch(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (a cache leaf) extended by its hidden scratch entry along dim
+    0: the same storage and strides, one more row (contiguous cache) or
+    page (paged pool).  Raises for a tensor built without one."""
+    n = t.shape[0] + 1
+    need = t.storage_offset() + 1 + sum(
+        (size - 1) * st for size, st in zip((n, *t.shape[1:]), t.stride()))
+    if t.untyped_storage().nbytes() < need * t.element_size():
+        raise ValueError(
+            f"cache leaf {tuple(t.shape)} has no hidden scratch entry for "
+            "dropped writes: build caches with make_cache / "
+            "make_paged_cache")
+    return t.as_strided((n, *t.shape[1:]), t.stride(), t.storage_offset())
+
+
 def make_self_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                     device) -> dict:
     shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return {"k": _zeros_with_scratch(shape, dtype, device),
+            "v": _zeros_with_scratch(shape, dtype, device)}
 
 
 def make_paged_self_cache(cfg: ModelConfig, num_pages: int, block_size: int,
@@ -81,18 +112,19 @@ def make_paged_self_cache(cfg: ModelConfig, num_pages: int, block_size: int,
 
     ``quantized``: int8 payload pages plus per-(token, head) f32 scale
     pages (``inference.kv_quant`` layout): hd + 4 bytes per (token, head)
-    instead of 2*hd.
+    instead of 2*hd.  Each leaf is a (P, ...) view of P + 1 pages: page P
+    is the hidden scratch page of dropped writes.
     """
     shape = (num_pages, block_size, cfg.n_kv_heads, cfg.hd)
     if quantized:
-        return {"k_pages": torch.zeros(shape, dtype=torch.int8, device=device),
-                "v_pages": torch.zeros(shape, dtype=torch.int8, device=device),
-                "k_scale": torch.zeros(shape[:-1], dtype=torch.float32,
-                                       device=device),
-                "v_scale": torch.zeros(shape[:-1], dtype=torch.float32,
-                                       device=device)}
-    return {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
-            "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
+        return {"k_pages": _zeros_with_scratch(shape, torch.int8, device),
+                "v_pages": _zeros_with_scratch(shape, torch.int8, device),
+                "k_scale": _zeros_with_scratch(shape[:-1], torch.float32,
+                                               device),
+                "v_scale": _zeros_with_scratch(shape[:-1], torch.float32,
+                                               device)}
+    return {"k_pages": _zeros_with_scratch(shape, dtype, device),
+            "v_pages": _zeros_with_scratch(shape, dtype, device)}
 
 
 @dataclass
@@ -102,9 +134,10 @@ class AttnContext:
     decode: bool                      # per-row lengths (one token per row)
     start: int = 0                    # prefill write offset
     kv_lens: Optional[torch.Tensor] = None   # (B,) int32, decode only
-    rows: Optional[torch.Tensor] = None      # rows (paged: tokens) written
-    pos: object = None                # their positions (paged: page, offset)
-    all_rows: bool = True             # every row's write lands
+    # the writes (int64, so no scatter converts them), one per token, a
+    # dropped one to the scratch entry: contiguous decode (row, position);
+    # paged (page, offset) over B*S tokens
+    pos: tuple = ()
     # paged cache only
     paged: bool = False
     block_tables: Optional[torch.Tensor] = None  # (B,NB) int32, decode
@@ -112,15 +145,32 @@ class AttnContext:
     kv_end: int = 0                   # positions a prefill attends over
 
 
+def device_ints(x, shape, device) -> torch.Tensor:
+    """``x`` (a device tensor, or host values) as an int32 tensor of
+    ``shape`` on ``device``; host values cross in one copy."""
+    if isinstance(x, torch.Tensor) and x.device == device:
+        return x.to(torch.int32).reshape(shape)
+    if isinstance(x, torch.Tensor):
+        x = x.cpu().numpy()
+    arr = np.ascontiguousarray(np.asarray(x, dtype=np.int32).reshape(shape))
+    return torch.from_numpy(arr).to(device)
+
+
+def _multi_token_decode() -> NotImplementedError:
+    return NotImplementedError(
+        "multi-token decode with per-row lengths (speculative verify) is "
+        "not ported yet, see ROADMAP Queue A, \"speculative decoding\"")
+
+
 def attention_context(cfg: ModelConfig, b: int, s: int, device, *,
                       cache_index: int = 0, lengths=None,
                       max_len: Optional[int] = None) -> AttnContext:
     """Positions and cache-write indices for one forward.
 
-    ``lengths`` (decode) is best given as a host array: the positions are
-    then known on the host, writes past ``max_len`` are dropped there (as
-    the reference's ``mode="drop"`` scatter drops them), and all per-row
-    indices reach the device in one copy.
+    ``lengths`` (decode): (B,) per-row positions, a device tensor or host
+    values.  Row b writes at ``(b, lengths[b])``; a write past ``max_len``
+    goes to the hidden scratch row B instead (it drops, as in the
+    reference).
     """
     if lengths is None:
         positions = torch.arange(cache_index, cache_index + s,
@@ -128,24 +178,13 @@ def attention_context(cfg: ModelConfig, b: int, s: int, device, *,
         return AttnContext(rope_tables(positions, cfg.hd, cfg.rope_theta),
                            decode=False, start=cache_index)
     if s != 1:
-        raise NotImplementedError(
-            "multi-token decode with per-row lengths (speculative verify) "
-            "is not ported yet, see ROADMAP Queue A, \"speculative "
-            "decoding\"")
-    if isinstance(lengths, torch.Tensor):
-        lengths = lengths.cpu()
-    lens = np.asarray(lengths, dtype=np.int64).reshape(b)
-    valid = np.flatnonzero(lens < max_len)
-    pack = np.zeros((4, b), np.int32)
-    pack[0] = lens                                  # positions
-    pack[1] = lens + 1                              # kv_lens
-    pack[2, :len(valid)] = valid                    # rows written
-    pack[3, :len(valid)] = lens[valid]              # where
-    dev = torch.from_numpy(pack).to(device)
+        raise _multi_token_decode()
+    lens = device_ints(lengths, (b,), device)
+    ok = lens < max_len
+    rows = torch.where(ok, torch.arange(b, device=device), b)
     return AttnContext(
-        rope_tables(dev[0][:, None], cfg.hd, cfg.rope_theta), decode=True,
-        kv_lens=dev[1], rows=dev[2, :len(valid)], pos=dev[3, :len(valid)],
-        all_rows=len(valid) == b)
+        rope_tables(lens[:, None], cfg.hd, cfg.rope_theta), decode=True,
+        kv_lens=lens + 1, pos=(rows, torch.where(ok, lens, 0).long()))
 
 
 def paged_attention_context(cfg: ModelConfig, b: int, s: int, device, *,
@@ -153,63 +192,42 @@ def paged_attention_context(cfg: ModelConfig, b: int, s: int, device, *,
                             cache_index: int = 0,
                             lengths=None) -> AttnContext:
     """Positions, page writes and page reads of one forward over the paged
-    cache, from the host's (B,NB) ``block_tables`` and ``lengths`` (decode)
-    or ``cache_index`` (prefill chunk).  A write whose block is past the
-    table or whose page id is outside the pool is dropped here; every index
-    reaches the device in one copy.  ``rows``/``pos`` hold the writes: the
-    token (flattened over B*S) and its (page, offset) as ``pos[0]``,
-    ``pos[1]``."""
-    if isinstance(block_tables, torch.Tensor):
-        block_tables = block_tables.cpu()
-    bt = np.asarray(block_tables, dtype=np.int64).reshape(b, -1)
+    cache, from the (B,NB) ``block_tables`` and ``lengths`` (decode) or
+    ``cache_index`` (prefill chunk), device tensors or host values.  A
+    write whose block is past the table or whose page id is outside the
+    pool goes to the hidden scratch page ``n_pages`` (it drops).  The
+    chunk's ``cache_index`` is a host int: it sets how many pages the
+    prefill gathers and how many positions it attends over."""
+    bt = device_ints(block_tables, (b, -1), device)
     nb, bs = bt.shape[1], block_size
     if lengths is not None:
         if s != 1:
-            raise NotImplementedError(
-                "multi-token decode with per-row lengths (speculative "
-                "verify) is not ported yet, see ROADMAP Queue A, "
-                "\"speculative decoding\"")
-        if isinstance(lengths, torch.Tensor):
-            lengths = lengths.cpu()
-        start = np.asarray(lengths, dtype=np.int64).reshape(b, 1)
-    else:
-        cache_index = int(cache_index)
-        start = np.full((b, 1), cache_index, np.int64)
-    positions = start + np.arange(s)                     # (B,S)
-    blk = positions // bs
-    page = np.take_along_axis(bt, np.minimum(blk, nb - 1), axis=1)
-    ok = (blk < nb) & (page >= 0) & (page < n_pages)
-    src = np.flatnonzero(ok.ravel())
-    writes = [src, page.ravel()[src], (positions % bs).ravel()[src]]
-    if lengths is not None:
-        kv_lens = np.minimum(start[:, 0] + 1, nb * bs)
-        parts = [start[:, 0], kv_lens, *writes, bt.ravel()]
-    else:
-        end = cache_index + s
-        n_read = -(-end // bs)
-        if n_read > nb:
-            raise ValueError(f"prefill writes [{cache_index}, {end}) past "
-                             f"the table's {nb * bs} positions")
-        parts = [*writes, np.clip(bt[:, :n_read], 0, n_pages - 1).ravel()]
-    sizes = [len(p) for p in parts]
-    dev = torch.from_numpy(
-        np.concatenate(parts).astype(np.int32)).to(device).split(sizes)
-    n_w = len(src)
-    if lengths is not None:
-        lens, kv_lens, w_src, w_page, w_off, bt_dev = dev
+            raise _multi_token_decode()
+        lens = device_ints(lengths, (b,), device)
+        blk = lens // bs
+        page = bt.gather(1, blk.clamp(max=nb - 1)[:, None].long())[:, 0]
+        ok = (blk < nb) & (page >= 0) & (page < n_pages)
         return AttnContext(
             rope_tables(lens[:, None], cfg.hd, cfg.rope_theta), decode=True,
-            kv_lens=kv_lens, rows=w_src, pos=(w_page, w_off),
-            all_rows=n_w == b, paged=True,
-            block_tables=bt_dev.reshape(b, nb))
-    w_src, w_page, w_off, gather = dev
-    pos = torch.arange(cache_index, cache_index + s,
-                       device=device)[None].expand(b, s)
+            kv_lens=(lens + 1).clamp(max=nb * bs),
+            pos=(torch.where(ok, page, n_pages).long(), (lens % bs).long()),
+            paged=True, block_tables=bt)
+    cache_index = int(cache_index)
+    end = cache_index + s
+    n_read = -(-end // bs)
+    if n_read > nb:
+        raise ValueError(f"prefill writes [{cache_index}, {end}) past the "
+                         f"table's {nb * bs} positions")
+    pos = torch.arange(cache_index, end, device=device)
+    page = bt[:, pos // bs]                               # (B,S)
+    ok = (page >= 0) & (page < n_pages)
     return AttnContext(
-        rope_tables(pos, cfg.hd, cfg.rope_theta), decode=False,
-        start=cache_index, rows=w_src, pos=(w_page, w_off),
-        all_rows=n_w == b * s, paged=True, gather=gather.reshape(b, -1),
-        kv_end=cache_index + s)
+        rope_tables(pos[None].expand(b, s), cfg.hd, cfg.rope_theta),
+        decode=False, start=cache_index,
+        pos=(torch.where(ok, page, n_pages).reshape(-1).long(),
+             (pos % bs).repeat(b)),
+        paged=True, gather=bt[:, :n_read].clamp(0, n_pages - 1).long(),
+        kv_end=end)
 
 
 def _paged_attention(q, k, v, cfg: ModelConfig, ctx: AttnContext,
@@ -220,19 +238,17 @@ def _paged_attention(q, k, v, cfg: ModelConfig, ctx: AttnContext,
     kp, vp = cache["k_pages"], cache["v_pages"]
     quantized = "k_scale" in cache
     k_new, v_new = k.reshape(b * s, hkv, hd), v.reshape(b * s, hkv, hd)
-    if not ctx.all_rows:
-        k_new, v_new = k_new[ctx.rows], v_new[ctx.rows]
     page, off = ctx.pos
     if quantized:
         qk, sk = quantize_kv(k_new)
         qv, sv = quantize_kv(v_new)
-        kp[page, off] = qk
-        vp[page, off] = qv
-        cache["k_scale"][page, off] = sk
-        cache["v_scale"][page, off] = sv
+        with_scratch(kp)[page, off] = qk
+        with_scratch(vp)[page, off] = qv
+        with_scratch(cache["k_scale"])[page, off] = sk
+        with_scratch(cache["v_scale"])[page, off] = sv
     else:
-        kp[page, off] = k_new.to(kp.dtype)
-        vp[page, off] = v_new.to(vp.dtype)
+        with_scratch(kp)[page, off] = k_new.to(kp.dtype)
+        with_scratch(vp)[page, off] = v_new.to(vp.dtype)
     if ctx.decode:
         if quantized:
             o = kernels.paged_decode_attention_quant(
@@ -277,11 +293,9 @@ def attention_fwd(params, h, q, cfg: ModelConfig, ctx: AttnContext,
         return _paged_attention(q, k, v, cfg, ctx, cache, scale) @ params["wo"]
     if ctx.decode:
         ck, cv = cache["k"], cache["v"]
-        k_new, v_new = k[:, 0], v[:, 0]
-        if not ctx.all_rows:
-            k_new, v_new = k_new[ctx.rows], v_new[ctx.rows]
-        ck[ctx.rows, ctx.pos] = k_new.to(ck.dtype)
-        cv[ctx.rows, ctx.pos] = v_new.to(cv.dtype)
+        rows, pos = ctx.pos
+        with_scratch(ck)[rows, pos] = k[:, 0].to(ck.dtype)
+        with_scratch(cv)[rows, pos] = v[:, 0].to(cv.dtype)
         o = kernels.decode_attention(q[:, 0], ck.transpose(1, 2),
                                      cv.transpose(1, 2), ctx.kv_lens,
                                      scale=scale)

@@ -149,12 +149,15 @@ def forward(params, tokens, cfg: ModelConfig, *, cache: Optional[list] = None,
     ``cache``: from ``make_cache`` or ``make_paged_cache``, updated in place
     (and returned).
     ``cache_index``: prefill write offset (no ``lengths``).
-    ``lengths``: (B,) per-row positions for continuous-batching decode,
-    best as a host array; row b's token is written at ``lengths[b]`` and
-    attends to positions ``<= lengths[b]``.  A write past the cache is
-    dropped, as in the reference.
-    ``block_tables``: (B,NB) page ids of a paged cache, best as a host
-    array; writes past the table or to the sentinel page drop.
+    ``lengths``: (B,) per-row positions for continuous-batching decode, a
+    device tensor or host values; row b's token is written at
+    ``lengths[b]`` and attends to positions ``<= lengths[b]``.  A write
+    past the cache is dropped, as in the reference.
+    ``block_tables``: (B,NB) page ids of a paged cache, a device tensor or
+    host values; writes past the table or to the sentinel page drop.
+    With ``tokens``, ``lengths`` and ``block_tables`` on the device the
+    forward derives every index there and issues the same kernels for any
+    values (``inference.backends.local`` captures it as a CUDA graph).
     """
     check_supported(cfg)
     embed = params["embed"]

@@ -181,7 +181,7 @@ def test_unported_messages_name_their_roadmap_item():
         "tensor parallel": lambda: make_backend(cfg, params, max_batch=1,
                                                 max_len=8, tp=2),
         "CUDA graph / launch plans": lambda: LocalBackend(
-            cfg, params, max_batch=1, max_len=8, plan="jit", device="cpu"),
+            cfg, params, max_batch=1, max_len=8, plan="chain", device="cpu"),
         "speculative decoding": lambda: backend.verify(None, None, None),
         "model features": lambda: check_supported(
             cfg.replace(family="encoder")),

@@ -68,7 +68,7 @@ def test_greedy_tokens_match_the_reference_engine(setup):
         assert getattr(st, field) == getattr(js, field), field
     assert st.slot_occupancy == js.slot_occupancy
     assert set(st.ttft_s) == set(js.ttft_s)
-    assert st.plan == "eager" and eng.backend.info.tp == 1
+    assert st.plan == "jit" and eng.backend.info.tp == 1
     snap = eng.registry.snapshot()      # EngineStats is a registry view
     assert snap["engine_tokens_out"]["series"][0]["value"] == st.tokens_out
     # reset keeps the engine; the same workload gives the same tokens
@@ -90,7 +90,7 @@ def test_engine_defaults_to_the_gpu(setup):
 @pytest.mark.parametrize("kw", [
     dict(cache="paged", speculative=True),
     dict(cache="paged", tracer=object()), dict(speculative=True),
-    dict(tp=2), dict(plan="jit"), dict(monitor=True), dict(tracer=object()),
+    dict(tp=2), dict(plan="chain"), dict(monitor=True), dict(tracer=object()),
     dict(plan_table={})])
 def test_unported_options_raise(setup, kw):
     _, cfg, _, params = setup
@@ -106,7 +106,7 @@ def test_serve_cli_reports_the_engine_fields():
                                 "3", "--max-batch", "2", "--max-new", "4"])
     rep = json.loads(out.getvalue().strip().splitlines()[-1])
     assert rep["requests"] == 3 and rep["tokens_out"] == 12
-    assert rep["device"] == "cpu" and rep["plan"] == "eager"
+    assert rep["device"] == "cpu" and rep["plan"] == "jit"
     assert rep["decode_steps"] == eng.stats.decode_steps > 0
     assert set(rep["kernel_launches_per_decode_step"]) == {
         "decode_attention", "flash_attention", "paged_decode_attention",
