@@ -53,15 +53,47 @@ Phases (any failure exits non-zero before a result is printed):
  10. a trace of the RWKV-6 decode step and prefill, as in phase 5;
  11. the four main paths again under ``--plan jit`` (the serve default:
      each step one CUDA graph replay), each beside its ``--plan eager`` run
-     above: the same tokens request for request (under pool pressure, a
-     token may differ only where the plain int8 logits of the two lie
-     within LOGIT_TOL_BF16), one dispatch per decode step and eager's
+     above: the same tokens request for request except where the plain
+     versions' logits of the two tokens lie within LOGIT_TOL_BF16 (eager
+     runs the norms as their plain bf16 versions, other arithmetic; each
+     such tie is printed), one dispatch per decode step, the path's
      launches per decode step and per prefill; then per cell and plan the
      decode step's wall, host and device-busy time, idle share, tok/s,
      TTFT, ITL and the graphs captured (count, seconds, pool memory).
+     The launch counts of these runs (reset just before each, read just
+     after) are the main paths' launches in the ``kernels`` line;
+ 12. the launch-plan runtime: SmolLM contiguous under ``whole_graph``,
+     ``chain``, ``auto`` and ``fused``, and SmolLM paged bf16, int8 under
+     pool pressure and RWKV-6 3B under ``auto`` and ``fused`` (8 requests,
+     16 new tokens): per row the dispatches and hand-written launches per
+     decode step and per prefill, the fused rule hits per call, the
+     modeled TKLQT (``Intel+H100``), the decode step traced as in phase 5,
+     tok/s, TTFT, ITL, the graphs and the trace (nodes, seconds).  Checks:
+     ``fused`` tokens equal ``jit``'s request for request in every cell;
+     rule hits per SmolLM call rmsnorm_matmul 32, residual_rmsnorm 32,
+     rmsnorm 1 (RWKV-6: 2L+1 windows); launches per decode step equal
+     under whole_graph, chain and auto; dispatches per decode step eager >
+     chain >= auto >= whole_graph = 1, with chain = auto only where auto
+     chose a chain.  Then the measured Eq. 1 timeline
+     of one SmolLM contiguous decode step at batch 1, 2 and 4 under
+     ``eager`` and ``fused``: ``KernelEvent``s from ``torch.profiler``,
+     each kernel joined to the runtime call that launched it by its
+     correlation id (a kernel of a graph replay takes the
+     ``cudaGraphLaunch``; a profile whose clocks put a kernel before its
+     call is discarded and taken again, up to 12 profiles; the median of
+     the (up to three) kept, or "not measured" if none is left), fed to
+     ``core.metrics.report`` (TKLQT, AKD, IL, GPU idle) beside the
+     modeled TKLQT of the same trace, and
+     ``core.boundedness.find_inflection`` over the measured eager curve.
 
-Phases 4, 6, 7 and 9 serve with ``--plan eager`` (``plan="eager"``), so
-their traces (5, 6, 7, 10) stay those of the eager step.
+Phases 4, 6, 7 and 9 serve with ``--plan eager`` (``plan="eager"``): one
+dispatch a node of the traced step, whose norms are their plain versions,
+so only the attention kernels (or ``wkv6``) launch there; their traces (5,
+6, 7, 10) are those of the eager step.
+
+Phase 2 ends with the host time of one ``decode_attention`` call through
+its wrapper, its op overload and its CUDA implementation called directly:
+what the ``torch.library`` dispatcher adds to a launch.
 
 Phase 2 also holds the RWKV-6 path's two kernels at its shapes: the norm
 at (4, 1, 2560) and (1, 12, 2560) with and without a residual in f32 and
@@ -83,6 +115,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -142,9 +175,14 @@ import torch.nn.functional as F                            # noqa: E402
 
 from repro_torch import kernels                            # noqa: E402
 from repro_torch.configs import get_config                 # noqa: E402
+from repro_torch.core.boundedness import find_inflection   # noqa: E402
+from repro_torch.core.device_model import KernelEvent      # noqa: E402
+from repro_torch.core.metrics import report as skip_report  # noqa: E402
+from repro_torch.runtime import Planner                    # noqa: E402
 from repro_torch.kernels import build                      # noqa: E402
 from repro_torch.inference.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.inference.kv_quant import quantize_kv     # noqa: E402
+from repro_torch.kernels.decode_attention.ops import _decode_launch  # noqa: E402,E501
 from repro_torch.kernels.decode_attention.ref import (     # noqa: E402
     decode_attention_ref, paged_decode_attention_quant_ref,
     paged_decode_attention_ref)
@@ -613,6 +651,42 @@ def phase_kernels(cfg, rcfg) -> dict:
     return rows
 
 
+def phase_dispatch_cost(cfg) -> dict:
+    """What a wrapper's host time holds since the wrappers became
+    ``torch.library`` custom ops: ``decode_attention`` at the decode step's
+    shapes (bf16, B 4, lengths 28/21/17/13) through its wrapper, through
+    its op overload (the dispatcher, no wrapper checks) and through its
+    CUDA implementation called directly (no dispatcher); host µs a call,
+    back to back, as phase 2 times them."""
+    b, hq, hkv, hd = MAX_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    dt = torch.bfloat16
+    q = randn((b, hq, hd), dt, 3)
+    k = randn((b, MAX_LEN, hkv, hd), dt, 1).transpose(1, 2)
+    v = randn((b, MAX_LEN, hkv, hd), dt, 2).transpose(1, 2)
+    lens = torch.tensor([28, 21, 17, 13], dtype=torch.int32, device=DEV)
+    scale = hd ** -0.5
+    calls = {
+        "wrapper": lambda: kernels.decode_attention(q, k, v, lens,
+                                                    scale=scale),
+        "op_overload": lambda: kernels.decode_attention.op(
+            q, k, v, lens, -1, scale),
+        "cuda_implementation": lambda: _decode_launch(q, k, v, lens, -1,
+                                                      scale),
+    }
+    ref = calls["cuda_implementation"]()
+    for name, fn in calls.items():
+        if not torch.equal(fn(), ref):
+            fail(f"dispatch cost: decode_attention by {name} differs from "
+                 "its CUDA implementation called directly")
+    host = {name: time_ms(fn)[1] * 1e3 for name, fn in calls.items()}
+    dispatcher = host["op_overload"] - host["cuda_implementation"]
+    print("phase 2: decode_attention host us a call: "
+          + ", ".join(f"{n} {t:.2f}" for n, t in host.items())
+          + f"; the dispatcher's share {dispatcher:.2f} us, the wrapper's "
+          f"own {host['wrapper'] - host['op_overload']:.2f} us")
+    return host
+
+
 # ------------------------------------------------------------------ phase 3
 def compare_logits(a, b, tol, what):
     """max |a - b| <= tol, and argmax agrees except where b's top-2 gap is
@@ -695,18 +769,24 @@ def phase_logits_f32(cfg) -> None:
 
 
 # ------------------------------------------------------------------ phase 4
-def want_launches(cfg, attention: str = "") -> tuple:
+def want_launches(cfg, attention: str = "", plan: str = "jit") -> tuple:
     """Hand-written kernel launches per decode step (``attention`` is the
-    decode attention kernel of the path) and per prefill call.  RWKV-6:
-    ``wkv6`` L and the legacy ``rmsnorm`` 2L+1 in both."""
+    decode attention kernel of the path) and per prefill call under
+    ``plan``.  ``jit`` launches the norms where the model calls them;
+    ``fused`` too, its rules lowering RWKV-6's legacy-norm windows to
+    ``residual_rmsnorm``; the other plans run the norms as their plain
+    versions.  RWKV-6: ``wkv6`` L and 2L+1 norms in both."""
     L = cfg.n_layers
     zero = {name: 0 for name in kernels.WRAPPERS}
+    norms = plan in ("jit", "fused")
     if is_recurrent(cfg):
-        per = {**zero, "wkv6": L, "rmsnorm": 2 * L + 1}
+        name = "rmsnorm" if plan == "jit" else "residual_rmsnorm"
+        per = {**zero, "wkv6": L, **({name: 2 * L + 1} if norms else {})}
         return per, dict(per)
-    norms = {"residual_rmsnorm": L + 1, "rmsnorm_matmul": L}
-    return ({**zero, **norms, attention: L},
-            {**zero, **norms, "flash_attention": L})
+    fused = ({"residual_rmsnorm": L + 1, "rmsnorm_matmul": L} if norms
+             else {})
+    return ({**zero, **fused, attention: L},
+            {**zero, **fused, "flash_attention": L})
 
 
 def check_first_tokens(eng, done, cfg) -> int:
@@ -764,7 +844,8 @@ def phase_serve(cfg, phase: int, extra=()) -> tuple:
             fail(f"request {r.rid} generated {r.generated}")
     paged = eng.kv is not None
     want_step, want_pre = want_launches(
-        cfg, "paged_decode_attention" if paged else "decode_attention")
+        cfg, "paged_decode_attention" if paged else "decode_attention",
+        "eager")
     if st.kernel_launches_per_decode_step != want_step:
         fail(f"launches per decode step {st.kernel_launches_per_decode_step}"
              f" != {want_step}")
@@ -956,15 +1037,22 @@ def plain_int8_logits(params, cfg, toks) -> torch.Tensor:
     return logits[0, -1]
 
 
-def check_near_ties(done, ref_done, params, cfg, names) -> int:
-    """One int8 run's tokens against another's of the same requests (the
-    pressured run against an unpressured one; jit against eager).  Both
-    runs compute every row alike (decode always steps all MAX_BATCH rows;
-    prefill chunks have the same boundaries), so they should agree token
-    for token.  A request may diverge only where the plain versions over
-    int8 pages put the two tokens within LOGIT_TOL_BF16 of each other; its
-    later tokens are then not compared.  ``names`` label the two runs.
-    Returns how many requests agree entirely."""
+def plain_logits(params, cfg, toks) -> torch.Tensor:
+    """Next-token logits after ``toks`` through the plain versions, the
+    whole sequence in one forward (bf16, no cache)."""
+    with plain_kernels():
+        logits, _ = forward(params, torch.tensor([toks]), cfg)
+    return logits[0, -1]
+
+
+def check_near_ties(done, ref_done, params, cfg, names,
+                    plain=plain_int8_logits) -> int:
+    """One run's tokens against another's of the same requests (the
+    pressured int8 run against an unpressured one; jit against eager).  A
+    request may diverge only where the plain versions (``plain``: over
+    int8 pages by default) put the two tokens within LOGIT_TOL_BF16 of
+    each other; its later tokens are then not compared.  ``names`` label
+    the two runs.  Returns how many requests agree entirely."""
     ref = {r.rid: r for r in ref_done}
     same = 0
     for r in done:
@@ -974,15 +1062,15 @@ def check_near_ties(done, ref_done, params, cfg, names) -> int:
         if i is None:
             same += 1
             continue
-        logits = plain_int8_logits(params, cfg, r.prompt + want[:i])
+        logits = plain(params, cfg, r.prompt + want[:i])
         gap = (logits[want[i]] - logits[r.generated[i]]).abs().item()
         if not gap < LOGIT_TOL_BF16:
-            fail(f"pool pressure: request {r.rid} token {i} is "
+            fail(f"{names}: request {r.rid} token {i} is "
                  f"{r.generated[i]} {names[0]} and {want[i]} {names[1]}; "
                  f"their plain int8 logits differ by {gap:.3g} >= "
                  f"{LOGIT_TOL_BF16}")
         print(f"  near tie: request {r.rid} token {i} is {r.generated[i]} "
-              f"{names[0]} and {want[i]} {names[1]}; their plain int8 "
+              f"{names[0]} and {want[i]} {names[1]}; their plain "
               f"logits differ by {gap:.3g} < {LOGIT_TOL_BF16}")
     return same
 
@@ -1035,14 +1123,15 @@ def phase_pool_pressure(cfg, params) -> tuple:
     preempted or offloaded."""
     eng, done, counts, rep = serve_pressured(cfg, params, "eager", 7)
     st, tier = eng.stats, eng.offload_tier
-    L = cfg.n_layers
-    want_step, want_pre = want_launches(cfg, "paged_decode_attention_quant")
+    want_step, want_pre = want_launches(cfg, "paged_decode_attention_quant",
+                                        "eager")
     if st.kernel_launches_per_decode_step != want_step:
         fail(f"launches per decode step {st.kernel_launches_per_decode_step}"
              f" != {want_step}")
-    if st.prefill_kernel_launches != st.prefill_chunks * (3 * L + 1):
+    if st.prefill_kernel_launches != st.prefill_chunks * sum(
+            want_pre.values()):
         fail(f"prefill launches {st.prefill_kernel_launches} != "
-             f"{st.prefill_chunks} x {3 * L + 1}")
+             f"{st.prefill_chunks} x {sum(want_pre.values())}")
     want = {name: st.decode_steps * want_step[name]
             + st.prefill_chunks * want_pre[name] for name in want_step}
     if counts != want:
@@ -1268,81 +1357,406 @@ def cell_row(rep, trace) -> dict:
         graph_mb=rep["graph_memory_bytes"] / 2 ** 20)
 
 
+def attention_of(eng) -> str:
+    if eng.kv is None:
+        return "decode_attention"
+    return ("paged_decode_attention_quant" if eng.kv_dtype == "int8"
+            else "paged_decode_attention")
+
+
+def check_launches(cell, plan, eng, rep) -> None:
+    """The path's hand-written launches per decode step and per prefill
+    call (a prefill chunk when paged) under ``plan``."""
+    want_step, want_pre = want_launches(eng.cfg, attention_of(eng), plan)
+    got = {k: v for k, v in rep["kernel_launches_per_decode_step"].items()
+           if v}
+    if got != {k: v for k, v in want_step.items() if v}:
+        fail(f"{cell} {plan}: launches per decode step {got} != "
+             f"{want_step}")
+    n_pre = rep["prefill_chunks"] if eng.kv is not None else rep["prefills"]
+    if rep["prefill_kernel_launches"] != n_pre * sum(want_pre.values()):
+        fail(f"{cell} {plan}: prefill launches "
+             f"{rep['prefill_kernel_launches']} != {n_pre} x "
+             f"{sum(want_pre.values())}")
+
+
 def check_jit(cell, rep, erep, done, edone, params, cfg) -> None:
     """The jit run against the eager run of the same cell: the same
-    requests finished with the same tokens, one dispatch per decode step,
-    and eager's hand-written launches per decode step and per prefill."""
+    requests finished, one dispatch per decode step, the jit path's
+    launches; tokens equal eager's except at a near tie (eager runs the
+    norms as their plain bf16 versions: other arithmetic)."""
     if len(done) != len(edone) or any(r.status != "done" for r in done):
         fail(f"{cell} jit: finished {len(done)} of {len(edone)} requests")
     if rep["dispatches_per_decode_step"] != 1.0:
         fail(f"{cell} jit: {rep['dispatches_per_decode_step']} dispatches "
              "per decode step, not 1")
-    for key in ("kernel_launches_per_decode_step", "prefill_kernel_launches",
-                "decode_steps"):
-        if rep[key] != erep[key]:
-            fail(f"{cell} jit: {key} {rep[key]} != eager's {erep[key]}")
-    if cell == "paged_int8_pressure":
-        same = check_near_ties(done, edone, params, cfg,
-                               ("under jit", "under eager"))
-    else:
-        want = {r.rid: r.generated for r in edone}
-        bad = [r.rid for r in done if r.generated != want[r.rid]]
-        if bad:
-            fail(f"{cell} jit: requests {bad} served other tokens than "
-                 "under eager")
-        same = len(done)
+    if rep["decode_steps"] != erep["decode_steps"]:
+        fail(f"{cell} jit: {rep['decode_steps']} decode steps, eager "
+             f"{erep['decode_steps']}")
+    plain = (plain_int8_logits if cell == "paged_int8_pressure"
+             else plain_logits)
+    same = check_near_ties(done, edone, params, cfg,
+                           ("under jit", "under eager"), plain)
     print(f"  {cell}: jit tokens equal eager's in {same}/{len(done)} "
-          f"requests; 1 dispatch per decode step (eager "
-          f"{erep['dispatches_per_decode_step']:.0f}); launches per decode "
-          "step and per prefill as eager's")
+          f"requests (the rest part at a printed near tie); 1 dispatch per "
+          f"decode step (eager {erep['dispatches_per_decode_step']:.0f}); "
+          "launches per decode step and per prefill as the jit path's")
 
 
-def phase_jit(cfg, rcfg, eager: dict) -> dict:
+def serve_cell(cell, c, params, plan: str, phase: int) -> tuple:
+    """Serve ``cell`` under ``plan`` (warmup + measured run) with the
+    launch counts reset just before and read just after.  Returns
+    (engine, finished requests, report, counts)."""
+    extra = JIT_CELLS[cell][1]
+    if extra is None:
+        eng, done, counts, rep = serve_pressured(c, params, plan, phase)
+        return eng, done, rep, counts
+    argv = serve_argv(c, extra, plan)
+    buf = io.StringIO()
+    kernels.reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        eng, done = serve.main(argv)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    rep = json.loads(buf.getvalue().strip().splitlines()[-1])
+    print(f"phase {phase}: serve {' '.join(argv)}")
+    print(f"  report {json.dumps(rep)}")
+    return eng, done, rep, counts
+
+
+def print_row(phase: int, cell: str, plan: str, r: dict) -> None:
+    pre = ("" if r["prefill_busy_ms"] is None else
+           f", prefill busy {r['prefill_busy_ms']:.3f} ms")
+    print(f"phase {phase}: {cell} {plan}: decode step {r['step_ms']:.3f}"
+          f" ms wall, {r['host_ms']:.3f} ms host (serve); trace: "
+          f"{r['trace_wall_ms']:.3f} ms wall, {r['trace_host_ms']:.3f}"
+          f" ms host, {r['busy_ms']:.3f} ms device busy "
+          f"({r['busy_by']}), idle {r['idle']:.1%}{pre}; "
+          f"{r['tok_per_s']:.1f} tok/s, mean TTFT "
+          f"{r['mean_ttft_ms']:.2f} ms, ITL p50 {r['p50_itl_ms']:.3f}"
+          f" / p99 {r['p99_itl_ms']:.3f} ms; {r['dispatches']:.0f} "
+          f"dispatches/step; {r['graphs']} graphs, "
+          f"{r['capture_s']:.3f} s capture, {r['graph_mb']:.1f} MiB")
+
+
+def phase_jit(cfg, rcfg, eager: dict) -> tuple:
     """Phase 11: each cell served again under ``--plan jit`` (the int8
     pool-pressure engine under ``plan="jit"``, with the paged run's
     weights), checked against its eager run (``eager[cell]``: report,
     finished requests, trace) and traced as in phases 5-10.  Returns
-    {cell: {plan: numbers}}."""
-    rows, params = {}, None
+    ({cell: {plan: numbers}}, {cell: finished jit requests}, {cell: launch
+    counts of the jit run})."""
+    rows, jit_done, counts, params = {}, {}, {}, None
     for cell, (arch, extra, prefill) in JIT_CELLS.items():
         c = cfg if arch == "smollm" else rcfg
         erep, edone, etrace = eager[cell]
-        if extra is None:
-            eng, done, _, rep = serve_pressured(c, params, "jit", 11)
-        else:
-            argv = serve_argv(c, extra, "jit")
-            buf = io.StringIO()
-            with contextlib.redirect_stdout(buf):
-                eng, done = serve.main(argv)
-            rep = json.loads(buf.getvalue().strip().splitlines()[-1])
-            print(f"phase 11: serve {' '.join(argv)}")
-            print(f"  report {json.dumps(rep)}")
+        eng, done, rep, counts[cell] = serve_cell(cell, c, params, "jit", 11)
         check_jit(cell, rep, erep, done, edone, eng.params, c)
+        check_launches(cell, "jit", eng, rep)
         trace = phase_trace(eng, f"phase 11 {cell} jit trace", prefill)
         rows[cell] = {"eager": cell_row(erep, etrace),
                       "jit": cell_row(rep, trace)}
+        jit_done[cell] = done
         for plan, r in rows[cell].items():
-            pre = ("" if r["prefill_busy_ms"] is None else
-                   f", prefill busy {r['prefill_busy_ms']:.3f} ms")
-            print(f"phase 11: {cell} {plan}: decode step {r['step_ms']:.3f}"
-                  f" ms wall, {r['host_ms']:.3f} ms host (serve); trace: "
-                  f"{r['trace_wall_ms']:.3f} ms wall, {r['trace_host_ms']:.3f}"
-                  f" ms host, {r['busy_ms']:.3f} ms device busy "
-                  f"({r['busy_by']}), idle {r['idle']:.1%}{pre}; "
-                  f"{r['tok_per_s']:.1f} tok/s, mean TTFT "
-                  f"{r['mean_ttft_ms']:.2f} ms, ITL p50 {r['p50_itl_ms']:.3f}"
-                  f" / p99 {r['p99_itl_ms']:.3f} ms; {r['dispatches']:.0f} "
-                  f"dispatches/step; {r['graphs']} graphs, "
-                  f"{r['capture_s']:.3f} s capture, {r['graph_mb']:.1f} MiB")
+            print_row(11, cell, plan, r)
         params = eng.params if cell == "paged_bf16" else None
         del eng
         torch.cuda.empty_cache()
     print("phase 11: " + json.dumps(rows))
+    return rows, jit_done, counts
+
+
+# ------------------------------------------------------------------ phase 12
+# cell -> the launch plans phase 12 serves it under
+PLAN_CELLS = {"contiguous": ("whole_graph", "chain", "auto", "fused"),
+              "paged_bf16": ("auto", "fused"),
+              "paged_int8_pressure": ("auto", "fused"),
+              "rwkv": ("auto", "fused")}
+EQ1_BATCHES = (1, 2, 4)
+# profiles per point of the Eq. 1 timeline (the median is kept), and
+# profiles tried: the profiler's host and device clocks sometimes disagree
+# by microseconds to milliseconds (kernels then seem to start before their
+# launch call), and such a profile is discarded.  How often varies from
+# process to process on an H100, from a few profiles to nearly all; a
+# point with no profile left is printed as not measured
+EQ1_PROFILES, EQ1_ATTEMPTS = 3, 12
+
+
+def planned(eng, decode: bool) -> list:
+    """The engine's planned bodies: its decode step(s) or its prefills."""
+    kinds = ("decode", "paged_decode") if decode else ("prefill",
+                                                       "paged_prefill")
+    return [pf for key, pf in eng.backend._planned_fns.items()
+            if key[0] in kinds]
+
+
+def rule_hits_per_call(pfs) -> list:
+    """Each planned body's fused rule hits, one call's worth."""
+    return [{n: pf.rule_names.count(n) for n in sorted(set(pf.rule_names))}
+            for pf in pfs]
+
+
+def plan_row(rep, trace, eng) -> dict:
+    dec, pre = planned(eng, True), planned(eng, False)
+    pf = eng.backend.planned_decode
+    n_pre = rep["prefill_chunks"] if eng.kv is not None else rep["prefills"]
+    return dict(
+        cell_row(rep, trace),
+        prefill_dispatches=sorted({p.n_launches for p in pre}),
+        launches_per_step={k: v for k, v in
+                           rep["kernel_launches_per_decode_step"].items()
+                           if v},
+        launches_per_prefill=rep["prefill_kernel_launches"] / max(n_pre, 1),
+        rule_hits_per_call=rule_hits_per_call(dec + pre),
+        modeled_tklqt_us=pf.modeled_tklqt_s * 1e6,
+        trace_nodes=len(pf.trace.kernels), trace_s=pf.trace.seconds,
+        plan_s=rep["trace_s"])
+
+
+def auto_candidates(eng) -> list:
+    """The plans ``auto`` chose from for the decode step (the cost-aware
+    partition and each chain length), with their modeled TKLQT and IL on
+    the ``Intel+H100`` row; printed, the chosen one first."""
+    choice = Planner(eng.backend.planned_decode.trace, "Intel+H100").auto()
+    out = [dict(strategy=e.plan.strategy, length=e.plan.length,
+                dispatches=e.plan.n_launches, tklqt_us=e.tklqt * 1e6,
+                il_us=e.il * 1e6) for e in choice.evaluated]
+    print("  auto's candidates for the decode step (modeled, Intel+H100): "
+          + "; ".join(f"{c['strategy']}"
+                      + (f" L={c['length']}" if c["length"] else "")
+                      + f" {c['dispatches']} dispatches, TKLQT "
+                      f"{c['tklqt_us']:.1f} us, IL {c['il_us']:.1f} us"
+                      for c in out))
+    return out
+
+
+def check_fused(cell, eng, done, jit_done) -> None:
+    """fused serves jit's tokens (the same kernels on the same inputs) and
+    finds the model's norm windows in every call."""
+    want = {r.rid: r.generated for r in jit_done}
+    bad = [r.rid for r in done if r.generated != want[r.rid]]
+    if bad or len(done) != len(jit_done):
+        fail(f"{cell} fused: requests {bad} served other tokens than "
+             f"under jit ({len(done)} of {len(jit_done)} finished)")
+    L = eng.cfg.n_layers
+    for hits in rule_hits_per_call(planned(eng, True) + planned(eng, False)):
+        ok = (sum(hits.values()) == 2 * L + 1 if is_recurrent(eng.cfg) else
+              hits == {"residual_rmsnorm": L, "rmsnorm": 1,
+                       "rmsnorm_matmul": L})
+        if not ok:
+            fail(f"{cell} fused: rule hits per call {hits}")
+
+
+def measured_events(run) -> list:
+    """The Eq. 1 timeline of ``run`` from torch.profiler: each device
+    kernel joined by its correlation id to the runtime call that launched
+    it (a kernel of a CUDA graph replay carries the ``cudaGraphLaunch``'s)
+    as ``KernelEvent``s, in seconds from the first launch; an event's
+    ``operator`` names its launch call.  Returns (events, how many kernels
+    start before the call joined to them began)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    calls, kern = {}, []
+    for e in events:
+        corr = (e.get("args") or {}).get("correlation")
+        if e.get("ph") != "X" or corr is None:
+            continue
+        if e.get("cat") in ("cuda_runtime", "cuda_driver"):
+            calls.setdefault(corr, []).append(e)
+        elif e.get("cat") == "kernel":
+            kern.append(e)
+    if not kern:
+        fail("Eq. 1 timeline: the profiler recorded no device kernels")
+    out = []
+    for k in kern:
+        # the call that launched it: of the calls carrying its correlation
+        # id (should an id recur in one trace), the nearest in time
+        c = min(calls.get(k["args"]["correlation"], ()),
+                key=lambda c: abs(k["ts"] - c["ts"]), default=None)
+        if c is None:
+            fail(f"Eq. 1 timeline: kernel {k['name'][:60]} has no launch "
+                 "call in the trace")
+        out.append(KernelEvent(k["name"], c["ts"] * 1e-6,
+                               (c["ts"] + c["dur"]) * 1e-6, k["ts"] * 1e-6,
+                               (k["ts"] + k["dur"]) * 1e-6,
+                               operator=c["name"]))
+    out.sort(key=lambda e: (e.kernel_start, e.launch_begin))
+    t0 = min(e.launch_begin for e in out)
+    for e in out:
+        e.launch_begin -= t0
+        e.launch_end -= t0
+        e.kernel_start -= t0
+        e.kernel_end -= t0
+    return out, sum(e.kernel_start < e.launch_begin for e in out)
+
+
+def phase_eq1(cfg, params) -> dict:
+    """One SmolLM contiguous decode step (kv len 20) at batch 1, 2 and 4
+    under eager and fused: the measured Eq. 1 timeline's TKLQT, AKD, IL
+    and GPU idle (of the median kept profile by TKLQT) beside
+    the modeled TKLQT of the same trace, then the boundedness inflection
+    of the measured eager curve."""
+    rows = {}
+    for plan in ("eager", "fused"):
+        for b in EQ1_BATCHES:
+            eng = ServeEngine(cfg, params, max_batch=b, max_len=MAX_LEN,
+                              plan=plan, device=DEV)
+            rng = np.random.default_rng(2)
+            toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, 1)))
+            lens = np.full(b, 20)
+
+            def step():
+                eng.backend.decode(eng.cache, toks, lens)[0].cpu()
+
+            for _ in range(3):
+                step()
+            torch.cuda.synchronize()
+            reps, tried = [], 0
+            while len(reps) < EQ1_PROFILES and tried < EQ1_ATTEMPTS:
+                tried += 1
+                ev, early = measured_events(step)
+                if early:
+                    print(f"phase 12: Eq. 1 timeline, {plan} batch {b}: "
+                          f"{early} of {len(ev)} kernels start before "
+                          "their launch call in this profile (its device "
+                          "clock is off); discarded")
+                    continue
+                reps.append((skip_report(ev, "H100 (measured)", 0.0), ev))
+            pf = eng.backend.planned_decode
+            if not reps:
+                # the profiler's clocks, not the step: nothing to measure
+                rows.setdefault(plan, {})[b] = dict(
+                    tklqt_us=None, discarded=tried,
+                    dispatches=pf.n_launches,
+                    modeled_tklqt_us=pf.modeled_tklqt_s * 1e6)
+                print(f"phase 12: Eq. 1 timeline, {plan} decode step, batch "
+                      f"{b}: not measured, every one of {tried} profiles has "
+                      "a kernel before its launch call; modeled TKLQT "
+                      f"{pf.modeled_tklqt_s * 1e6:.1f} us (Intel+H100 row)")
+                del eng
+                continue
+            reps.sort(key=lambda re: re[0].tklqt)
+            rep, ev = reps[len(reps) // 2]       # the median profile
+            by_call = {}
+            for e in ev:
+                by_call[e.operator] = by_call.get(e.operator, 0) + 1
+            r = dict(kernels=rep.n_kernels, tklqt_us=rep.tklqt * 1e6,
+                     akd_us=rep.akd * 1e6, il_us=rep.il * 1e6,
+                     gpu_idle_us=rep.gpu_idle * 1e6,
+                     queue_share=rep.queue_share,
+                     dispatches=pf.n_launches, launched_by=by_call,
+                     profiles_tklqt_us=[x.tklqt * 1e6 for x, _ in reps],
+                     discarded=tried - len(reps),
+                     modeled_tklqt_us=pf.modeled_tklqt_s * 1e6)
+            rows.setdefault(plan, {})[b] = r
+            print(f"phase 12: Eq. 1 timeline, {plan} decode step, batch {b}"
+                  f": {r['kernels']} kernels from {r['dispatches']} "
+                  f"dispatches (kernels by launch call {by_call}); "
+                  f"measured TKLQT over filtered profiles, the median of "
+                  f"the {len(reps)} kept "
+                  f"{[round(t, 1) for t in r['profiles_tklqt_us']]} "
+                  f"({r['discarded']} of {tried} discarded with a kernel "
+                  f"before its launch call): "
+                  f"{r['tklqt_us']:.1f} us (queue share "
+                  f"{r['queue_share']:.1%}), AKD "
+                  f"{r['akd_us']:.2f} us, IL {r['il_us']:.1f} us, GPU idle "
+                  f"{r['gpu_idle_us']:.1f} us; modeled TKLQT "
+                  f"{r['modeled_tklqt_us']:.1f} us (Intel+H100 row)")
+            del eng
+    curve = [rows["eager"][b]["tklqt_us"] for b in EQ1_BATCHES]
+    if None in curve:
+        print("phase 12: find_inflection not run: an eager point of the Eq. "
+              "1 timeline was not measured")
+        rows["inflection"] = None
+        return rows
+    infl = find_inflection(list(EQ1_BATCHES), curve)
+    print(f"phase 12: find_inflection over the measured eager TKLQT of the "
+          f"filtered profiles "
+          f"{[round(t, 1) for t in curve]} us at batch "
+          f"{list(EQ1_BATCHES)}: {infl}"
+          + (" (no GPU-bound batch up to 4: every step is CPU-bound)"
+             if infl is None else ""))
+    rows["inflection"] = infl
     return rows
 
 
+def phase_plans(cfg, rcfg, eager: dict, jit_done: dict) -> tuple:
+    """Phase 12: the cells under the launch plans of ``PLAN_CELLS``,
+    checked and traced; then the measured Eq. 1 timeline.  Returns
+    ({cell: {plan: numbers}}, {"cell:plan": launch counts})."""
+    t0 = time.perf_counter()
+    rows, counts, params, keep = {}, {}, None, None
+    for cell, plans in PLAN_CELLS.items():
+        arch, _, prefill = JIT_CELLS[cell]
+        c = cfg if arch == "smollm" else rcfg
+        rows[cell] = {}
+        for plan in plans:
+            eng, done, rep, counts[f"{cell}:{plan}"] = serve_cell(
+                cell, c, params, plan, 12)
+            check_launches(cell, plan, eng, rep)
+            if plan == "fused":
+                check_fused(cell, eng, done, jit_done[cell])
+            trace = phase_trace(eng, f"phase 12 {cell} {plan} trace",
+                                prefill)
+            r = rows[cell][plan] = plan_row(rep, trace, eng)
+            if plan == "auto":
+                r["auto_candidates"] = auto_candidates(eng)
+            print_row(12, cell, plan, r)
+            print(f"  {cell} {plan}: dispatches per prefill "
+                  f"{r['prefill_dispatches']}; launches per decode step "
+                  f"{r['launches_per_step']}, per prefill "
+                  f"{r['launches_per_prefill']:.0f}; rule hits per call "
+                  f"{(r['rule_hits_per_call'] or [{}])[0]}; modeled TKLQT "
+                  f"{r['modeled_tklqt_us']:.1f} us a decode step "
+                  f"(Intel+H100); the decode step's trace "
+                  f"{r['trace_nodes']} nodes in {r['trace_s']:.2f} s; "
+                  f"planning {r['plan_s']:.2f} s")
+            nxt = eng.params if cell == "paged_bf16" else None
+            if cell == "contiguous":
+                keep = eng.params
+            del eng
+            torch.cuda.empty_cache()
+        params = nxt
+    disp = {p: rows["contiguous"][p]["dispatches"]
+            for p in PLAN_CELLS["contiguous"]}
+    disp["eager"] = eager["contiguous"][0]["dispatches_per_decode_step"]
+    # auto takes the lowest modeled TKLQT of the cost-aware partition and
+    # every chain(L).  At full width a chain wins, as it does for the
+    # reference's planner over its own trace (tests/test_torch_runtime.py,
+    # test_auto_picks_the_plan_kind_the_reference_picks_at_full_width),
+    # and then auto is that chain: equal dispatches, from a chain only
+    chosen = rows["contiguous"]["auto"]["auto_candidates"][0]
+    if not (disp["eager"] > disp["chain"] >= disp["auto"]
+            >= disp["whole_graph"] == 1) or (
+            disp["chain"] == disp["auto"] and chosen["strategy"] != "chain"):
+        fail(f"dispatches per decode step out of order: {disp}, auto chose "
+             f"{chosen}")
+    steps = {p: rows["contiguous"][p]["launches_per_step"]
+             for p in ("whole_graph", "chain", "auto")}
+    if len({json.dumps(v, sort_keys=True) for v in steps.values()}) != 1:
+        fail(f"launches per decode step differ across plans: {steps}")
+    print(f"phase 12: contiguous dispatches per decode step {disp} (chain "
+          f"{'>' if disp['chain'] > disp['auto'] else '=='} auto); launches"
+          f" per decode step equal under whole_graph, chain and auto")
+    eq1 = phase_eq1(cfg, keep)
+    del keep
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    print(f"phase 12: {secs:.1f} s")
+    print("phase 12: " + json.dumps({"rows": rows, "eq1": eq1,
+                                     "seconds": secs}))
+    return rows, counts
+
+
 # ------------------------------------------------------------------ main
-# which main path each kernel's ``launches`` is read from
+# which main path (its jit run, phase 11) each kernel's ``launches`` is
+# read from
 MAIN_PATH = {"decode_attention": "contiguous",
              "flash_attention": "contiguous",
              "residual_rmsnorm": "contiguous",
@@ -1358,29 +1772,31 @@ def main() -> None:
     cfg, rcfg = get_config(ARCH), get_config(RWKV_ARCH)
     phase_build()
     rows = phase_kernels(cfg, rcfg)
+    phase_dispatch_cost(cfg)
     phase_logits_f32(cfg)
-    path_counts, eager = {}, {}
-    path_counts["contiguous"], rep, eng, done = phase_serve(cfg, 4)
+    eager_counts, eager = {}, {}
+    eager_counts["contiguous"], rep, eng, done = phase_serve(cfg, 4)
     eager["contiguous"] = (rep, done, phase_trace(eng, "phase 5",
                                                   prefill=True))
     del eng
     torch.cuda.empty_cache()
-    path_counts["paged_bf16"], rep, eng, done = phase_serve(cfg, 6, PAGED)
+    eager_counts["paged_bf16"], rep, eng, done = phase_serve(cfg, 6, PAGED)
     eager["paged_bf16"] = (rep, done, phase_trace(eng, "phase 6 trace"))
-    path_counts["paged_int8_pressure"], rep, eng, done = phase_pool_pressure(
+    eager_counts["paged_int8_pressure"], rep, eng, done = phase_pool_pressure(
         cfg, eng.params)
     eager["paged_int8_pressure"] = (rep, done,
                                     phase_trace(eng, "phase 7 trace"))
     del eng
     torch.cuda.empty_cache()
     phase_logits_rwkv(rcfg)
-    path_counts["rwkv"], rep, eng, done = phase_serve(rcfg, 9)
+    eager_counts["rwkv"], rep, eng, done = phase_serve(rcfg, 9)
     check_rwkv_streams(rcfg)
     eager["rwkv"] = (rep, done, phase_trace(eng, "phase 10", prefill=True))
     del eng
     torch.cuda.empty_cache()
-    phase_jit(cfg, rcfg, eager)
-    print(f"chip_smoke: phases 1-11 in {time.perf_counter() - t0:.1f} s")
+    _, jit_done, path_counts = phase_jit(cfg, rcfg, eager)
+    _, plan_counts = phase_plans(cfg, rcfg, eager, jit_done)
+    print(f"chip_smoke: phases 1-12 in {time.perf_counter() - t0:.1f} s")
 
     entries = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -1392,11 +1808,13 @@ def main() -> None:
         if launches <= 0:
             fail(f"{name} was not launched on its main path "
                  f"({MAIN_PATH[name]})")
+        by_path = {f"{p}:jit": c[name] for p, c in path_counts.items()}
+        by_path.update({f"{p}:eager": c[name]
+                        for p, c in eager_counts.items()})
+        by_path.update({p: c[name] for p, c in plan_counts.items()})
         entries.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
-                        "launches_by_path": {p: c[name] for p, c in
-                                             path_counts.items()},
-                        **row})
+                        "launches_by_path": by_path, **row})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -1,8 +1,9 @@
-"""Single-device execution backend: the step bodies as CUDA graphs, or eager.
+"""Single-device execution backend: the step bodies as CUDA graphs, or
+through the launch-plan runtime.
 
 Counterpart of ``repro/inference/backends/local.py`` for the contiguous
 and the paged cache (speculative verify is not ported yet, ROADMAP Queue A,
-"speculative decoding").  Two plans:
+"speculative decoding").  Plans:
 
   * ``"jit"``, the default as in the reference, is the counterpart of its
     ``jax.jit`` of the four bodies.  On a CUDA device each body call is
@@ -24,49 +25,71 @@ and the paged cache (speculative verify is not ported yet, ROADMAP Queue A,
     time includes its warm-up and capture, as the reference's first jit
     call includes its compile.  On the CPU (the tests) ``"jit"`` runs the
     same fixed-shape body without capture.
-  * ``"eager"`` runs the body op by op.
+  * ``"eager"``, ``"whole_graph"``, ``"chain"``, ``"auto"`` and
+    ``"fused"`` route through the launch-plan runtime, as the reference's
+    ``_PlannedFn`` does: on its first call with a signature (the jit key
+    without addresses) the body is traced (``core.tracing.trace_fn``, the
+    norms expanded into their plain versions), a ``LaunchPlan`` is chosen
+    for the strategy and priced on the ``platform`` row
+    (``runtime.Planner``: modeled TKLQT and its attribution to operators),
+    and every call runs the plan (a signature is traced once per process
+    and its trace shared by every engine).  ``"eager"`` dispatches one
+    node at a time; the others, on a CUDA device, capture the plan's
+    segments once per signature with addresses (warm-up and state restore
+    as under jit, the inputs staged by the same pinned copy) and replay
+    them, one dispatch a segment; on the CPU they run each segment's
+    nodes directly.  Under ``"fused"`` the rule windows launch the hand-written
+    ``rmsnorm_matmul`` and ``residual_rmsnorm`` kernels; under the other
+    planned strategies the norms run as their plain versions.
 
-Every other reference strategy (chain, auto, whole_graph, fused,
-autotuned) raises ``ValueError`` (ROADMAP Queue A, "CUDA graph / launch
-plans").  Both plans run the same bodies (``bodies.py``) on the same device
-tensors, so they give the same numbers.
+``"autotuned"`` raises ``ValueError`` (ROADMAP Queue A, "measured
+characterization and autotune").  Every plan runs the same bodies
+(``bodies.py``) on the same device tensors.
 
 Accounting, per call: the host time around it without a device sync, as
 the reference measures its jit dispatch; the launches of the hand-written
-kernels (eager: read from the wrappers' counts; jit: recorded at capture
-and charged, and credited to the wrappers' counts, on every replay); and
-the dispatches.  A jit call is one dispatch, as ``_jit_account`` charges
-one.  An eager call's dispatches are its hand-written launches plus the
-aten ops it issues that are neither views nor bare allocations, counted
-under a ``TorchDispatchMode`` on the first call of each signature.
+kernels (direct runs: read from the wrappers' counts; graphs: recorded at
+capture and charged, and credited to the wrappers' counts, on every
+replay); and the dispatches: 1 for a jit call, the plan's segments for a
+planned one, beside its modeled TKLQT, the fused rules that fired, the
+per-segment host times and the attribution.
 
 A graph's output is its own static buffer: it holds the call's logits
 until the next call with the same signature, so the caller reads (or
 copies) it before then, as the engine does (its host argmax follows each
-call).  Each graph owns its memory pool, so no other graph's replay can
-overwrite it.
+call).  Each jit graph owns its memory pool, so no other graph's replay
+can overwrite it; a plan's segments share one pool of their own.
 """
 from __future__ import annotations
 
-import contextlib
 import time
+from collections import OrderedDict
 from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils import _pytree as pytree
 
 from repro_torch import kernels
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.tracing import trace_fn
 from repro_torch.device import resolve_device
 from repro_torch.inference.backends.base import (AccountingMixin,
                                                  BackendInfo, CallAccount)
 from repro_torch.inference.backends.bodies import make_step_bodies
 from repro_torch.models import make_cache
+from repro_torch.runtime import (LaunchPlan, PlanExecutor, Planner,
+                                 simulate_plan)
+from repro_torch.runtime.plan import segment_label
+from repro_torch.telemetry.attribution import attribute_events
 
 NOT_PORTED = "not ported yet, see ROADMAP Queue A"
-PLANS = ("jit", "eager")
-_ALLOCATIONS = ("aten.empty", "aten.empty_strided", "aten.empty_like")
+# process-wide traces of the planned bodies, by signature (the trace of a
+# signature is the same for every engine; its plan is the engine's own)
+_TRACES: OrderedDict = OrderedDict()
+_TRACES_MAX = 64
+PLANS = ("jit", "eager", "whole_graph", "chain", "auto", "fused")
+AUTOTUNE_ITEM = "measured characterization and autotune"
 
 
 def _host_ints(x, shape) -> np.ndarray:
@@ -82,19 +105,6 @@ def _views(buf: torch.Tensor, shapes) -> list:
     return [t.view(s) for t, s in zip(buf.split(sizes), shapes)]
 
 
-class _OpCount(TorchDispatchMode):
-    """Counts the aten ops that are neither views nor bare allocations."""
-
-    def __init__(self):
-        super().__init__()
-        self.n = 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if not func.is_view and str(func.overloadpacket) not in _ALLOCATIONS:
-            self.n += 1
-        return func(*args, **(kwargs or {}))
-
-
 @dataclass
 class GraphStats:
     """What the captured graphs cost: how many, the seconds spent warming
@@ -104,10 +114,18 @@ class GraphStats:
     memory_bytes: int = 0
 
 
-class _Graph:
-    """One captured body: the graph, its static int32 input buffer and the
-    pinned staging buffer that refreshes it, its output, and the launches
-    of the hand-written kernels one replay runs."""
+@dataclass
+class TraceStats:
+    """What tracing the planned bodies cost: traces, their nodes (kernels),
+    and the seconds spent tracing and planning."""
+    traces: int = 0
+    kernels: int = 0
+    seconds: float = 0.0
+
+
+class _Staging:
+    """A static int32 input buffer on the device and the pinned staging
+    buffer that refreshes it: the inputs of a captured graph (or plan)."""
 
     def __init__(self, shapes, device):
         n = sum(int(np.prod(s)) for s in shapes)
@@ -115,9 +133,6 @@ class _Graph:
         self.host = torch.empty(n, dtype=torch.int32, pin_memory=True)
         self.dev = torch.empty(n, dtype=torch.int32, device=device)
         self.copied = torch.cuda.Event()
-        self.graph = torch.cuda.CUDAGraph()
-        self.out = None
-        self.launches: dict = {}
 
     def load(self, arrays) -> None:
         """Copy this call's inputs into the static buffer (one copy, on
@@ -132,14 +147,94 @@ class _Graph:
         return _views(self.dev, self.shapes)
 
 
+class _Graph(_Staging):
+    """One captured body: its staged inputs, the graph, its output, and
+    the launches of the hand-written kernels one replay runs."""
+
+    def __init__(self, shapes, device):
+        super().__init__(shapes, device)
+        self.graph = torch.cuda.CUDAGraph()
+        self.out = None
+        self.launches: dict = {}
+
+
+class _PlannedFn:
+    """One body signature routed through the launch-plan runtime.
+
+    Traced and planned on its first call (shapes are only known then);
+    afterwards every call runs the chosen plan (``LocalBackend._planned``).
+    """
+
+    def __init__(self, strategy: str, platform: str,
+                 lengths=(2, 4, 8, 16, 32)):
+        self.strategy = strategy
+        self.platform = platform
+        self.lengths = lengths
+        self.trace = None
+        self.executor = None
+        self.plan = None                # chosen LaunchPlan (after build)
+        self.modeled_tklqt_s = 0.0      # modeled TKLQT of ONE invocation
+        self.modeled_events = []        # simulated device timeline, one call
+        self.last_host_times = []       # measured per-segment dispatch
+        self.segment_names = []
+        self.segment_ops = ()           # per-segment {op -> kernel count}
+        self.attribution = None         # AttributionReport, one invocation
+        self.trace_s = 0.0              # seconds to plan (and trace)
+
+    def build(self, trace) -> None:
+        """Choose the LaunchPlan for this strategy over ``trace``, and
+        price it."""
+        t0 = time.perf_counter()
+        planner = Planner(trace, self.platform)
+        n = len(trace.kernels)
+        if self.strategy == "eager":
+            plan = LaunchPlan.eager(n)
+        elif self.strategy == "whole_graph":
+            plan = LaunchPlan.whole_graph(n)
+        elif self.strategy == "chain":
+            plan = planner.compare(
+                [planner.chain(L) for L in self.lengths])[0].plan
+        elif self.strategy == "auto":
+            plan = planner.auto(lengths=self.lengths).plan
+        elif self.strategy == "fused":
+            plan = planner.fused_rules(lengths=self.lengths)
+        else:
+            raise ValueError(f"unknown plan strategy {self.strategy!r}")
+        self.trace, self.plan = trace, plan
+        self.executor = PlanExecutor(trace, plan)
+        self.modeled_tklqt_s = planner.evaluate(plan).tklqt
+        self.modeled_events = simulate_plan(trace.kernels, plan, planner.spec)
+        self.segment_names = [segment_label(trace.kernels, s)
+                              for s in plan.segments]
+        # operator->kernel attribution of ONE call, constant afterwards
+        self.segment_ops = tuple(self.executor.segment_operators())
+        self.attribution = attribute_events(trace.kernels, plan,
+                                            self.modeled_events)
+        self.trace_s += time.perf_counter() - t0
+
+    @property
+    def n_launches(self) -> int:
+        """Host dispatches per invocation (0 before the first build)."""
+        return self.executor.n_launches if self.executor else 0
+
+    @property
+    def rule_names(self) -> list:
+        """Fusion-rule names overlaid on the chosen plan."""
+        return self.plan.rule_names() if self.plan is not None else []
+
+
 class LocalBackend(AccountingMixin):
-    """One device; CUDA graphs (``plan="jit"``) or eager execution."""
+    """One device; CUDA graphs (``plan="jit"``) or a launch plan."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int,
-                 max_len: int, plan: str = "jit", device="cuda"):
+                 max_len: int, plan: str = "jit", device="cuda",
+                 platform: str = "Intel+H100"):
+        if plan == "autotuned":
+            raise ValueError(f"plan {plan!r} {NOT_PORTED}, "
+                             f"\"{AUTOTUNE_ITEM}\" (runtime/autotune.py)")
         if plan not in PLANS:
-            raise ValueError(f"plan {plan!r} {NOT_PORTED}, \"CUDA graph / "
-                             f"launch plans\" (the port runs {PLANS})")
+            raise ValueError(f"unknown plan {plan!r}; expected one of "
+                             f"{PLANS}")
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, "
@@ -149,18 +244,25 @@ class LocalBackend(AccountingMixin):
         self.B = max_batch
         self.T = max_len
         self.plan = plan
+        self.platform = platform
         self.info = BackendInfo(kind="local", tp=1,
                                 devices=(str(self.device),))
         self._init_accounting()
         self._bodies = make_step_bodies(cfg)
-        self._capturing = plan == "jit" and self.device.type == "cuda"
+        cuda = self.device.type == "cuda"
+        self._capturing = plan == "jit" and cuda
+        self._captured_plan = plan not in ("jit", "eager") and cuda
         self._graphs: dict = {}       # signature -> _Graph
-        self._op_counts: dict = {}    # eager signature -> aten dispatches
+        self._planned_fns: dict = {}  # signature without addresses ->
+        self._programs: dict = {}     # _PlannedFn; with them -> (staging,
+        self._planned_decode = None   # captured program)
+        self._param_leaves = pytree.tree_leaves(params)
         self._stream = None           # the capture stream, made at need
         self._leaves: list = []       # the last cache's leaves, and
         self._leaf_ids: tuple = ()    # their ids and layout key
         self._leaf_key: tuple = ()
         self.graph_stats = GraphStats()
+        self.trace_stats = TraceStats()
 
     def init_contiguous_cache(self):
         """Fresh per-slot contiguous KV cache on this device."""
@@ -177,26 +279,135 @@ class LocalBackend(AccountingMixin):
         as its tensor inputs) and the Python ints ``static``."""
         body = getattr(self._bodies, kind)
         shapes = tuple(a.shape for a in arrays)
+        if self.plan != "jit":
+            return self._planned(kind, body, cache, arrays, shapes, static)
         if self._capturing:
             return self._replay(kind, body, cache, arrays, shapes, static)
-        key = (kind, shapes, static)
-        probe = self.plan == "eager" and key not in self._op_counts
         before = kernels.launch_counts()
         t0 = time.perf_counter()
-        with _OpCount() if probe else contextlib.nullcontext() as ops:
-            flat = np.concatenate([a.ravel() for a in arrays])
-            inputs = _views(torch.from_numpy(flat).to(self.device), shapes)
-            out, cache = body(self.params, cache, *inputs, *static)
+        out, cache = body(self.params, cache,
+                          *self._device_inputs(arrays, shapes), *static)
         host = time.perf_counter() - t0
         after = kernels.launch_counts()
-        launches = {k: after[k] - before[k] for k in after}
-        if probe:
-            self._op_counts[key] = ops.n
-        dispatches = (1 if self.plan == "jit" else
-                      self._op_counts[key] + sum(launches.values()))
-        self._charge(CallAccount(dispatches=dispatches, host_time_s=host,
-                                 kernel_launches=launches))
+        self._charge(CallAccount(dispatches=1, host_time_s=host,
+                                 kernel_launches={k: after[k] - before[k]
+                                                  for k in after}))
         return out, cache
+
+    def _device_inputs(self, arrays, shapes) -> list:
+        flat = np.concatenate([a.ravel() for a in arrays])
+        return _views(torch.from_numpy(flat).to(self.device), shapes)
+
+    def _planned(self, kind, body, cache, arrays, shapes, static):
+        """One call under a launch plan: traced and planned on the first
+        call of its signature, then run (eager, or on the CPU) or captured
+        once per cache address and replayed."""
+        t0 = time.perf_counter()
+        layout = self._cache_key(cache)
+        key = (kind, shapes, static, tuple(k[1:] for k in layout))
+        pf = self._planned_fns.get(key)
+        host_times: list = []
+        if self._captured_plan:
+            hit = self._programs.get((key, layout))
+            if hit is None:
+                hit = self._capture_plan(key, kind, body, cache, arrays,
+                                         shapes, static, pf)
+                pf = self._planned_fns[key]
+                self._programs[(key, layout)] = hit
+            staging, prog = hit
+            staging.load(arrays)
+            outs = prog.replay(host_times)
+            launches = dict(prog.launches)
+        else:
+            inputs = self._device_inputs(arrays, shapes)
+            if pf is None:
+                pf = self._plan_body(key, kind, body, cache, inputs, static)
+            before = kernels.launch_counts()
+            outs, host_times = pf.executor.run_flat(
+                self._param_leaves + self._leaves + inputs)
+            after = kernels.launch_counts()
+            launches = {k: after[k] - before[k] for k in after}
+        host = time.perf_counter() - t0
+        pf.last_host_times = host_times
+        if kind in ("decode", "paged_decode"):
+            self._planned_decode = pf
+        self._charge(CallAccount(
+            dispatches=pf.n_launches, host_time_s=host,
+            modeled_tklqt_s=pf.modeled_tklqt_s,
+            rule_names=tuple(pf.rule_names),
+            segment_names=tuple(pf.segment_names),
+            segment_host_times=tuple(host_times),
+            segment_ops=pf.segment_ops, attribution=pf.attribution,
+            kernel_launches=launches))
+        return pf.trace.unflatten(outs), cache
+
+    def _plan_body(self, key, kind, body, cache, inputs, static):
+        """Plan ``body`` for one signature over its trace, traced on the
+        first call of the signature in this process (the trace returns the
+        logits only: the cache is written in place)."""
+        pf = _PlannedFn(self.plan, self.platform)
+        tkey = (self.cfg, str(self.device), key,
+                tuple((tuple(t.shape), t.dtype, t.stride())
+                      for t in self._param_leaves))
+        trace = _TRACES.get(tkey)
+        if trace is None:
+            trace = trace_fn(lambda p, c, *a: body(p, c, *a, *static)[0],
+                             self.params, cache, *inputs)
+            if len(trace.placeholders) != (len(self._param_leaves)
+                                           + len(self._leaves)
+                                           + len(inputs)):
+                raise ValueError("the params and the cache must hold "
+                                 "tensors only to be traced")
+            trace.example_args = ()   # hold no engine's tensors
+            pf.trace_s = trace.seconds
+            _TRACES[tkey] = trace
+            while len(_TRACES) > _TRACES_MAX:
+                _TRACES.popitem(last=False)
+            st = self.trace_stats
+            st.traces += 1
+            st.kernels += len(trace.kernels)
+        pf.build(trace)
+        self.trace_stats.seconds += pf.trace_s
+        self._planned_fns[key] = pf
+        return pf
+
+    def _capture_plan(self, key, kind, body, cache, arrays, shapes, static,
+                      pf):
+        """Trace and plan the body (once per signature), warm its plan up
+        on the capture stream (the state restored where the body advances
+        it, as under jit), then capture its segments into one pool."""
+        t0 = time.perf_counter()
+        dev = self.device
+        staging = _Staging(shapes, dev)
+        staging.load(arrays)
+        inputs = staging.inputs()
+        if pf is None:
+            pf = self._plan_body(key, kind, body, cache, inputs, static)
+        flat = self._param_leaves + self._leaves + inputs
+        stream = self._capture_stream()
+        with torch.cuda.stream(stream):
+            saved = ([t.clone() for t in self._leaves]
+                     if kind in self._bodies.advance_state else [])
+            pf.executor.run_flat(flat)
+            for t, s in zip(self._leaves, saved):
+                t.copy_(s)
+        del saved
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        prog = pf.executor.capture(flat, stream)
+        torch.cuda.synchronize(dev)
+        st = self.graph_stats
+        st.memory_bytes += torch.cuda.memory_reserved(dev) - reserved
+        st.captured += sum(s.graph is not None for s in prog.segments)
+        st.capture_s += time.perf_counter() - t0
+        return staging, prog
+
+    def _capture_stream(self):
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        return self._stream
 
     def _cache_key(self, cache) -> tuple:
         """The address, shape, dtype and strides of every cache leaf.  Read
@@ -238,10 +449,7 @@ class LocalBackend(AccountingMixin):
         g = _Graph(shapes, dev)
         g.load(arrays)
         args = (self.params, cache, *g.inputs(), *static)
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(dev)
-        stream = self._stream
-        stream.wait_stream(torch.cuda.current_stream(dev))
+        stream = self._capture_stream()
         with torch.cuda.stream(stream):
             saved = ([t.clone() for t in self._leaves]
                      if kind in self._bodies.advance_state else [])
@@ -305,6 +513,7 @@ class LocalBackend(AccountingMixin):
 
     @property
     def planned_decode(self):
-        """No launch-plan mode runs here."""
-        return None
+        """The decode ``_PlannedFn`` last run in a launch-plan mode (None
+        under jit and before the first decode step)."""
+        return self._planned_decode
 

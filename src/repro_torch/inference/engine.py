@@ -25,10 +25,12 @@ sharing (``share_prefix=True``).
 
 Device work goes through an ``ExecutionBackend`` (``backends.local``):
 ``plan="jit"`` (the default, as in the reference) replays each step as
-one CUDA graph, ``plan="eager"`` runs it op by op.  Speculative decoding,
-tensor parallelism, the launch-plan strategies, the request tracer and the
-boundedness monitor are not ported yet: asking for any of them raises
-``ValueError`` rather than being ignored.
+one CUDA graph; ``"eager"``, ``"whole_graph"``, ``"chain"``, ``"auto"``
+and ``"fused"`` run it through the launch-plan runtime (``runtime/``),
+whose dispatches, modeled TKLQT and fused rule hits the stats count.
+``plan="autotuned"``, speculative decoding, tensor parallelism, the
+request tracer and the boundedness monitor are not ported yet: asking for
+any of them raises ``ValueError`` rather than being ignored.
 """
 from __future__ import annotations
 
@@ -103,6 +105,11 @@ class EngineStats:
                                    "measured launch tax, decode only"),
         "decode_dispatches": ("engine_decode_dispatches", int,
                               "host dispatches issued by decode steps"),
+        "fused_dispatches": ("engine_fused_dispatches", int,
+                             "decode dispatches that ran fused kernels"),
+        "modeled_tklqt_s": ("engine_modeled_tklqt_seconds", float,
+                            "device-model TKLQT summed over steps "
+                            "(0 under plan=jit: nothing modeled)"),
         "rejected": ("engine_rejected", int,
                      "admissions refused: plen + budget > max_len"),
         "prefill_kernel_launches": ("engine_prefill_kernel_launches", int,
@@ -145,6 +152,7 @@ class EngineStats:
         self.slot_occupancy = []
         self.step_times_s = []         # decode step durations
         self.decode_launches_by_kernel = {}   # wrapper name -> launches
+        self.rule_hits = {}            # fusion rule name -> launches
         self.block_pool_utilization = []  # per paged decode step
         self.timings = {}              # rid -> RequestTiming
 
@@ -222,6 +230,12 @@ class EngineStats:
                 if self.decode_steps else 0.0)
 
     @property
+    def fused_dispatches_per_decode_step(self) -> float:
+        """Mean fused-kernel launches per decode step."""
+        return (self.fused_dispatches / self.decode_steps
+                if self.decode_steps else 0.0)
+
+    @property
     def kernel_launches_per_decode_step(self) -> dict:
         """Mean hand-written kernel launches per decode step, by kernel."""
         n = self.decode_steps
@@ -293,7 +307,7 @@ class ServeEngine:
         self.platform = platform
         self.backend = make_backend(cfg, params, max_batch=max_batch,
                                     max_len=max_len, tp=tp, plan=plan,
-                                    device=device)
+                                    device=device, platform=platform)
         self.plan = self.plan_label = self.backend.plan
         self.tp = self.backend.info.tp
         self.kv_dtype = kv_dtype
@@ -360,6 +374,7 @@ class ServeEngine:
         if decode:
             self.stats.decode_dispatch_time_s += acct.host_time_s
             self.stats.decode_dispatches += acct.dispatches
+            self.stats.fused_dispatches += len(acct.rule_names)
             by = self.stats.decode_launches_by_kernel
             for name, c in acct.kernel_launches.items():
                 by[name] = by.get(name, 0) + c
@@ -367,6 +382,9 @@ class ServeEngine:
             self.stats.prefill_kernel_launches += sum(
                 acct.kernel_launches.values())
         self.stats.measured_dispatch_s += acct.host_time_s
+        self.stats.modeled_tklqt_s += acct.modeled_tklqt_s
+        for nm in acct.rule_names:
+            self.stats.rule_hits[nm] = self.stats.rule_hits.get(nm, 0) + 1
 
     def _bind_telemetry(self) -> None:
         reg = self.registry

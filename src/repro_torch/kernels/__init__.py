@@ -1,11 +1,15 @@
 """Hand-written Hopper kernels of the port, one wrapper each.
 
-Each wrapper has a plain PyTorch version beside it (``ref.py``) that it runs
-for CPU tensors, and a launch count (``wrapper.launches``) that grows by one
-per kernel launch and nowhere else; a CUDA graph replay, which launches the
-kernels it captured without calling the wrappers, credits them
-(``credit_launches``).  The model calls the wrappers through
-this module, so a test can substitute a spy for any of them.
+Each wrapper calls a ``torch.library`` custom op (``wrapper.op``) whose CPU
+implementation is the plain PyTorch version beside it (``ref.py``), whose
+CUDA implementation launches the kernel, and whose fake implementation
+gives a tracer its outputs, so a traced step holds each launch as one
+node; ``wrapper.costs`` gives a launch's FLOPs and bytes.  A launch count
+(``wrapper.launches``) grows by one per kernel launch and nowhere else; a
+CUDA graph replay, which launches the kernels it captured without calling
+the wrappers, credits them (``credit_launches``).  The model calls the
+wrappers through this module, so a test can substitute a spy for any of
+them.
 """
 from repro_torch.kernels.decode_attention.ops import (
     decode_attention, paged_decode_attention, paged_decode_attention_quant)

@@ -167,3 +167,16 @@ def require_cuda(name: str, *tensors) -> None:
                          f"device, got {sorted(map(str, devs))}")
 
 
+def nbytes(*tensors) -> int:
+    """Bytes of the given tensors' elements (None counts nothing): what a
+    kernel moves reading each once, for its cost (``core/costs.py``)."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def require_placed(name: str, t: torch.Tensor) -> None:
+    """Raise unless ``t`` lies on the CPU (the plain version) or a CUDA
+    device (the kernel): a wrapper has no third route."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: runs the plain version on the CPU or the "
+                         f"CUDA kernel, got a tensor on {t.device}")

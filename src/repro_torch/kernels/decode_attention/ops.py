@@ -2,12 +2,17 @@
 (``csrc/decode_attention.cu``) and the block-table paged pool in bf16/f32
 or int8 (``csrc/paged_decode_attention.cu``).
 
-A CPU tensor runs the plain version (``ref.py``); a CUDA tensor launches
-the kernel or raises.  ``decode_attention.launches``,
+Each wrapper calls a ``torch.library`` custom op: its CPU implementation
+is the plain version (``ref.py``), its CUDA implementation launches the
+kernel or raises, and its fake implementation gives a tracer the output's
+shape, so a trace of the step (``core/tracing.py``) holds each launch as
+one node.  ``decode_attention.launches``,
 ``paged_decode_attention.launches`` and
 ``paged_decode_attention_quant.launches`` count kernel launches.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -108,9 +113,26 @@ def decode_attention(q, k, v, kv_len=None, *, scale: float):
     with unit stride on hd: the engine passes ``cache.transpose(1, 2)`` of
     its (B,T,HKV,hd) cache, and the kernel reads it in place.
     """
-    if q.device.type == "cpu":
-        return decode_attention_ref(q, k, v, kv_len, scale=scale)
+    build.require_placed("decode_attention", q)
     per_row = isinstance(kv_len, torch.Tensor)
+    return _decode_op._opoverload(q, k, v, kv_len if per_row else None,
+                      -1 if kv_len is None or per_row else int(kv_len),
+                      float(scale))
+
+
+@torch.library.custom_op("repro_torch::decode_attention", mutates_args=(),
+                         device_types="cpu")
+def _decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               kv_len: Optional[torch.Tensor], kv_len_int: int,
+               scale: float) -> torch.Tensor:
+    lens = kv_len if kv_len is not None else (
+        None if kv_len_int < 0 else kv_len_int)
+    return decode_attention_ref(q, k, v, lens, scale=scale).contiguous()
+
+
+@_decode_op.register_kernel("cuda")
+def _decode_launch(q, k, v, kv_len, kv_len_int, scale):
+    per_row = kv_len is not None
     build.require_cuda("decode_attention", q, k, v,
                        *([kv_len] if per_row else []))
     b, hq, hd = q.shape
@@ -131,7 +153,7 @@ def decode_attention(q, k, v, kv_len=None, *, scale: float):
         raise ValueError("decode_attention: per-row kv_len must be a "
                          "contiguous (B,) int32 tensor")
     out = torch.empty((b, hq, hd), dtype=q.dtype, device=q.device)
-    scalar = t if kv_len is None or per_row else int(kv_len)
+    scalar = t if kv_len_int < 0 or per_row else kv_len_int
     split = _split_buffers("decode_attention", q, b, hkv, hq // hkv, hd, t)
     fn = build.function("decode_attention_launch", _ARGS)
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -146,7 +168,23 @@ def decode_attention(q, k, v, kv_len=None, *, scale: float):
     return out
 
 
+@_decode_op.register_fake
+def _decode_fake(q, k, v, kv_len, kv_len_int, scale):
+    return q.new_empty(q.shape)
+
+
+def _decode_costs(q, k, v, kv_len, kv_len_int, scale) -> tuple:
+    """(flops, bytes): two products over every cached position of each
+    query head, and q, K, V and the output moved once."""
+    b, hq, hd = q.shape
+    t = k.shape[2]
+    return 4.0 * b * hq * t * hd, float(build.nbytes(q, k, v, kv_len)
+                                        + build.nbytes(q))
+
+
 decode_attention.launches = 0
+decode_attention.op = _decode_op._opoverload
+decode_attention.costs = _decode_costs
 
 
 def _check_paged(name, q, k_pages, v_pages, block_tables, kv_lens,
@@ -199,9 +237,22 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_lens, *,
         return paged_decode_attention_quant(q, k_pages, v_pages, k_scale,
                                             v_scale, block_tables, kv_lens,
                                             scale=scale)
-    if q.device.type == "cpu":
-        return paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
-                                          kv_lens, scale=scale)
+    build.require_placed("paged_decode_attention", q)
+    return _paged_op._opoverload(q, k_pages, v_pages, block_tables,
+                                 kv_lens, float(scale))
+
+
+@torch.library.custom_op("repro_torch::paged_decode_attention",
+                         mutates_args=(), device_types="cpu")
+def _paged_op(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+              block_tables: torch.Tensor, kv_lens: torch.Tensor,
+              scale: float) -> torch.Tensor:
+    return paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
+                                      kv_lens, scale=scale).contiguous()
+
+
+@_paged_op.register_kernel("cuda")
+def _paged_launch(q, k_pages, v_pages, block_tables, kv_lens, scale):
     _check_paged("paged_decode_attention", q, k_pages, v_pages,
                  block_tables, kv_lens)
     if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
@@ -226,18 +277,57 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_lens, *,
     return out
 
 
+@_paged_op.register_fake
+def _paged_fake(q, k_pages, v_pages, block_tables, kv_lens, scale):
+    return q.new_empty(q.shape)
+
+
+def _paged_bytes(q, pages, block_tables, kv_lens, per_position) -> float:
+    """Bytes a paged call moves: q, the table, the lengths, the output and
+    each row's positions (a full table's worth) of every page operand."""
+    b, nb = block_tables.shape
+    bs = pages[0].shape[1]
+    return float(2 * build.nbytes(q) + build.nbytes(block_tables, kv_lens)
+                 + b * nb * bs * per_position)
+
+
+def _paged_costs(q, k_pages, v_pages, block_tables, kv_lens, scale):
+    b, hq, hd = q.shape
+    nb, bs = block_tables.shape[1], k_pages.shape[1]
+    per = (k_pages[0, 0].numel() * k_pages.element_size()
+           + v_pages[0, 0].numel() * v_pages.element_size())
+    return (4.0 * b * hq * nb * bs * hd,
+            _paged_bytes(q, (k_pages,), block_tables, kv_lens, per))
+
+
 def paged_decode_attention_quant(q, k_pages, v_pages, k_scale, v_scale,
                                  block_tables, kv_lens, *, scale: float):
     """``paged_decode_attention`` over an int8 pool: k_pages/v_pages
     (P,bs,HKV,hd) int8 and k_scale/v_scale (P,bs,HKV) f32, dequantized in
     registers inside the kernel.  q: f32 or bf16."""
-    if q.device.type == "cpu":
-        return paged_decode_attention_quant_ref(
-            q, k_pages, v_pages, k_scale, v_scale, block_tables, kv_lens,
-            scale=scale)
-    name = "paged_decode_attention_quant"
     if k_scale is None or v_scale is None:
-        raise ValueError(f"{name}: needs both k_scale and v_scale")
+        raise ValueError("paged_decode_attention_quant: needs both k_scale "
+                         "and v_scale")
+    build.require_placed("paged_decode_attention_quant", q)
+    return _quant_op._opoverload(q, k_pages, v_pages, k_scale, v_scale,
+                                 block_tables, kv_lens, float(scale))
+
+
+@torch.library.custom_op("repro_torch::paged_decode_attention_quant",
+                         mutates_args=(), device_types="cpu")
+def _quant_op(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+              k_scale: torch.Tensor, v_scale: torch.Tensor,
+              block_tables: torch.Tensor, kv_lens: torch.Tensor,
+              scale: float) -> torch.Tensor:
+    return paged_decode_attention_quant_ref(
+        q, k_pages, v_pages, k_scale, v_scale, block_tables, kv_lens,
+        scale=scale).contiguous()
+
+
+@_quant_op.register_kernel("cuda")
+def _quant_launch(q, k_pages, v_pages, k_scale, v_scale, block_tables,
+                  kv_lens, scale):
+    name = "paged_decode_attention_quant"
     _check_paged(name, q, k_pages, v_pages, block_tables, kv_lens,
                  (k_scale, v_scale))
     if k_pages.dtype != torch.int8 or v_pages.dtype != torch.int8:
@@ -262,5 +352,25 @@ def paged_decode_attention_quant(q, k_pages, v_pages, k_scale, v_scale,
     return out
 
 
+@_quant_op.register_fake
+def _quant_fake(q, k_pages, v_pages, k_scale, v_scale, block_tables,
+                kv_lens, scale):
+    return q.new_empty(q.shape)
+
+
+def _quant_costs(q, k_pages, v_pages, k_scale, v_scale, block_tables,
+                 kv_lens, scale):
+    b, hq, hd = q.shape
+    nb, bs = block_tables.shape[1], k_pages.shape[1]
+    per = sum(t[0, 0].numel() * t.element_size()
+              for t in (k_pages, v_pages, k_scale, v_scale))
+    return (4.0 * b * hq * nb * bs * hd,
+            _paged_bytes(q, (k_pages,), block_tables, kv_lens, per))
+
+
 paged_decode_attention.launches = 0
+paged_decode_attention.op = _paged_op._opoverload
+paged_decode_attention.costs = _paged_costs
 paged_decode_attention_quant.launches = 0
+paged_decode_attention_quant.op = _quant_op._opoverload
+paged_decode_attention_quant.costs = _quant_costs

@@ -1,7 +1,10 @@
 """Wrapper of the flash-attention CUDA kernel (``csrc/flash_attention.cu``).
 
-A CPU tensor runs the plain version (``ref.py``); a CUDA tensor launches
-the kernel or raises.  ``flash_attention.launches`` counts kernel launches.
+The wrapper calls a ``torch.library`` custom op: its CPU implementation is
+the plain version (``ref.py``), its CUDA implementation launches the kernel
+or raises, and its fake implementation gives a tracer the output's shape
+and strides, so a trace of the step holds each launch as one node.
+``flash_attention.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -25,9 +28,24 @@ def flash_attention(q, k, v, kv_len=None, *, scale: float, causal=True,
     result is a (B,HQ,S,hd) view of a token-major (B,S,HQ,hd) buffer, so
     ``out.transpose(1, 2)`` is contiguous for the output projection.
     """
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, kv_len, scale=scale, causal=causal,
-                             window=window, softcap=softcap)
+    build.require_placed("flash_attention", q)
+    return _flash_op._opoverload(
+        q, k, v, -1 if kv_len is None else int(kv_len), float(scale),
+        bool(causal), int(window), float(softcap))
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cpu")
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              kv_len: int, scale: float, causal: bool, window: int,
+              softcap: float) -> torch.Tensor:
+    return attention_ref(q, k, v, None if kv_len < 0 else kv_len,
+                         scale=scale, causal=causal, window=window,
+                         softcap=softcap).contiguous()
+
+
+@_flash_op.register_kernel("cuda")
+def _flash_launch(q, k, v, kv_len, scale, causal, window, softcap):
     build.require_cuda("flash_attention", q, k, v)
     b, hq, s, hd = q.shape
     _, hkv, t, _ = k.shape
@@ -41,12 +59,11 @@ def flash_attention(q, k, v, kv_len=None, *, scale: float, causal=True,
         raise ValueError("flash_attention: q, k, v must share one dtype")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_attention: head_dim must have unit stride")
-    out = torch.empty((b, s, hq, hd), dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
+    out = _flash_fake(q, k, v, kv_len, scale, causal, window, softcap)
     fn = build.function("flash_attention_launch", _ARGS)
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-              b, hq, hkv, s, t, hd, scale, int(bool(causal)), int(window),
-              float(softcap), t if kv_len is None else int(kv_len), t - s,
+              b, hq, hkv, s, t, hd, scale, int(causal), window,
+              softcap, t if kv_len < 0 else kv_len, t - s,
               q.stride(0), q.stride(1), q.stride(2),
               k.stride(0), k.stride(1), k.stride(2),
               v.stride(0), v.stride(1), v.stride(2),
@@ -57,4 +74,24 @@ def flash_attention(q, k, v, kv_len=None, *, scale: float, causal=True,
     return out
 
 
+@_flash_op.register_fake
+def _flash_fake(q, k, v, kv_len, scale, causal, window, softcap):
+    """The output's layout: token-major on the card, as the kernel writes
+    it; the plain version's (B,HQ,S,hd) on the CPU."""
+    b, hq, s, hd = q.shape
+    if q.device.type == "cpu":
+        return q.new_empty((b, hq, s, hd))
+    return q.new_empty((b, s, hq, hd)).transpose(1, 2)
+
+
+def _flash_costs(q, k, v, kv_len, scale, causal, window, softcap) -> tuple:
+    """(flops, bytes): the two products over every (query, key) pair, and
+    Q, K, V and the output moved once."""
+    b, hq, s, hd = q.shape
+    t = k.shape[2]
+    return 4.0 * b * hq * s * t * hd, float(build.nbytes(q, k, v, q))
+
+
 flash_attention.launches = 0
+flash_attention.op = _flash_op._opoverload
+flash_attention.costs = _flash_costs

@@ -1,8 +1,12 @@
 """Wrapper of the fused RMSNorm + projection CUDA kernel
 (``csrc/rmsnorm_matmul.cu``).
 
-A CPU tensor runs the plain version (``ref.py``); a CUDA tensor launches
-the kernel or raises.  ``rmsnorm_matmul.launches`` counts kernel launches.
+The wrapper calls a ``torch.library`` custom op: its CPU implementation is
+the plain version (``ref.py``), its CUDA implementation launches the kernel
+or raises, and its fake implementation gives a tracer the outputs' shapes.
+A trace expands the op into its plain version (``core/tracing.py``), as the
+reference traces the unfused norm. ``rmsnorm_matmul.launches`` counts
+kernel launches.
 """
 from __future__ import annotations
 
@@ -62,8 +66,20 @@ def plan_cover(n: int, d: int, f: int, mma: bool = False):
 def rmsnorm_matmul(x, weight, w_proj, *, eps: float = 1e-5):
     """x: (..., D), weight: (D,), w_proj: (D, F) ->
     (proj (..., F) in w_proj's dtype, normed (..., D) in x's dtype)."""
-    if x.device.type == "cpu":
-        return rmsnorm_matmul_ref(x, weight, w_proj, eps)
+    build.require_placed("rmsnorm_matmul", x)
+    proj, normed = _op._opoverload(x, weight, w_proj, float(eps))
+    return proj, normed
+
+
+@torch.library.custom_op("repro_torch::rmsnorm_matmul", mutates_args=(),
+                         device_types="cpu")
+def _op(x: torch.Tensor, weight: torch.Tensor, w_proj: torch.Tensor,
+        eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    return rmsnorm_matmul_ref(x, weight, w_proj, eps)
+
+
+@_op.register_kernel("cuda")
+def _launch(x, weight, w_proj, eps):
     build.require_cuda("rmsnorm_matmul", x, weight, w_proj)
     d = x.shape[-1]
     if weight.shape != (d,) or w_proj.dim() != 2 or w_proj.shape[0] != d:
@@ -81,9 +97,7 @@ def rmsnorm_matmul(x, weight, w_proj, *, eps: float = 1e-5):
     if plan["grid"][1] > MAX_GRID_Y:
         raise ValueError(f"rmsnorm_matmul: {n} rows exceed the kernel's "
                          f"grid ({ROWS * MAX_GRID_Y} rows)")
-    proj = torch.empty(x.shape[:-1] + (f,), dtype=w_proj.dtype,
-                       device=x.device)
-    normed = torch.empty_like(x)
+    proj, normed = _fake(x, weight, w_proj, eps)
     fn = build.function("rmsnorm_matmul_launch", _ARGS)
     code = fn(x.data_ptr(), weight.data_ptr(), w_proj.data_ptr(),
               proj.data_ptr(), normed.data_ptr(), n, d, f, *plan["grid"], eps,
@@ -93,4 +107,21 @@ def rmsnorm_matmul(x, weight, w_proj, *, eps: float = 1e-5):
     return proj, normed
 
 
+@_op.register_fake
+def _fake(x, weight, w_proj, eps):
+    return (x.new_empty(x.shape[:-1] + (w_proj.shape[1],),
+                        dtype=w_proj.dtype), torch.empty_like(x))
+
+
+def _costs(x, weight, w_proj, eps) -> tuple:
+    """(flops, bytes): the product's 2 N D F, and x, the scale, W and both
+    outputs moved once."""
+    d, f = w_proj.shape
+    n = x.numel() // d
+    return 2.0 * n * d * f, float(build.nbytes(x, weight, w_proj, x)
+                                  + n * f * w_proj.element_size())
+
+
 rmsnorm_matmul.launches = 0
+rmsnorm_matmul.op = _op._opoverload
+rmsnorm_matmul.costs = _costs

@@ -1,7 +1,10 @@
 """Wrapper of the WKV6 CUDA kernel (``csrc/wkv6.cu``).
 
-A CPU tensor runs the plain version (``ref.py``); a CUDA tensor launches
-the kernel or raises.  ``wkv6.launches`` counts kernel launches.
+The wrapper calls the custom op ``repro_torch::wkv6``, which writes the
+final state into ``s_out`` in place: its CPU implementation is the plain
+version (``ref.py``), its CUDA implementation launches the kernel or
+raises, and its fake implementation gives a tracer the output's shape.
+``wkv6.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -23,10 +26,24 @@ def wkv6(r, k, v, logw, u, s0, *, s_out=None):
     ``s_out`` the final state is written there and returned; it may be
     ``s0`` itself, so the cache's state is updated in place.
     """
-    if r.device.type == "cpu":
-        return wkv6_ref(r, k, v, logw, u, s0, s_out=s_out)
+    build.require_placed("wkv6", r)
+    if s_out is None:
+        s_out = torch.empty_like(s0)
+    return _op._opoverload(r, k, v, logw, u, s0, s_out), s_out
+
+
+@torch.library.custom_op("repro_torch::wkv6", mutates_args=("s_out",),
+                         device_types="cpu")
+def _op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        logw: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
+        s_out: torch.Tensor) -> torch.Tensor:
+    return wkv6_ref(r, k, v, logw, u, s0, s_out=s_out)[0].contiguous()
+
+
+@_op.register_kernel("cuda")
+def _launch(r, k, v, logw, u, s0, s_out):
     seq = (r, k, v, logw)
-    states = (s0,) if s_out is None else (s0, s_out)
+    states = (s0, s_out)
     build.require_cuda("wkv6", *seq, u, *states)
     if r.dim() != 4 or any(a.shape != r.shape for a in seq):
         raise ValueError("wkv6: r, k, v, logw must share one (B,T,H,hd) "
@@ -47,15 +64,30 @@ def wkv6(r, k, v, logw, u, s0, *, s_out=None):
     if not all(a.is_contiguous() for a in (u, *states)):
         raise ValueError("wkv6: u and the states must be contiguous")
     o = torch.empty((b, t, h, hd), dtype=torch.float32, device=r.device)
-    s_t = torch.empty_like(s0) if s_out is None else s_out
     fn = build.function("wkv6_launch", _ARGS)
     code = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
-              u.data_ptr(), s0.data_ptr(), o.data_ptr(), s_t.data_ptr(),
+              u.data_ptr(), s0.data_ptr(), o.data_ptr(), s_out.data_ptr(),
               b, t, h, hd, r.stride(0), r.stride(1), r.stride(2),
               build.stream_ptr(r))
     build.check(code, "wkv6")
     wkv6.launches += 1
-    return o, s_t
+    return o
+
+
+@_op.register_fake
+def _fake(r, k, v, logw, u, s0, s_out):
+    return r.new_empty(r.shape)
+
+
+def _costs(r, k, v, logw, u, s0, s_out) -> tuple:
+    """(flops, bytes): per token and head about 8 hd^2 operations (the
+    state's decay and update and the read-out), r, k, v, logw, u, both
+    states and the output moved once."""
+    b, t, h, hd = r.shape
+    return 8.0 * b * t * h * hd * hd, float(
+        build.nbytes(r, k, v, logw, u, s0, s_out, r))
 
 
 wkv6.launches = 0
+wkv6.op = _op._opoverload
+wkv6.costs = _costs

@@ -6,18 +6,24 @@
         --kv-dtype int8 --num-blocks 12 --prefill-chunk 8 --offload host
 
 Counterpart of ``repro.launch.serve`` for the flags the port supports
-(``--plan jit|eager``, ``--cache paged`` with its block, dtype, sharing,
-offload and chunking flags, and ``--platform``, which prices the offload
-tier).  ``--plan jit``, the default as in the reference, replays each
-step as one CUDA graph (``inference.backends.local``); ``--plan eager``
-runs it op by op.
+(``--plan``, ``--cache paged`` with its block, dtype, sharing, offload and
+chunking flags, and ``--platform``, which prices the offload tier and the
+launch plans).  ``--plan jit``, the default as in the reference, replays
+each step as one CUDA graph (``inference.backends.local``); ``eager``,
+``whole_graph``, ``chain``, ``auto`` and ``fused`` run it through the
+launch-plan runtime (``eager`` op by op; the others one CUDA graph per
+segment, ``fused`` with the norm windows on the hand-written kernels);
+``autotuned`` raises (ROADMAP Queue A, "measured characterization and
+autotune").
 Weights are random, drawn on the device from a generator seeded 0; prompts
 are 12 tokens from numpy's generator seeded 0, as in the reference.  Runs
 on the GPU by default and raises without one; ``--device cpu`` runs the
 plain PyTorch path.  Prints one JSON line: the fields ``EngineStats``
-fills (``dispatches_per_decode_step`` among them), the device,
-``kernel_launches_per_decode_step`` of the hand-written kernels, and the
-CUDA graphs captured (count, seconds, device memory); under ``--cache
+fills (``dispatches_per_decode_step``, ``modeled_tklqt_us`` and
+``fused_dispatches_per_decode_step`` among them), the device,
+``kernel_launches_per_decode_step`` of the hand-written kernels, the CUDA
+graphs captured (count, seconds, device memory) and the traces of the
+planned bodies (count, nodes, seconds); under ``--cache
 paged`` also the reference's paged fields and the measured device time of
 the offload copies.
 """
@@ -60,6 +66,7 @@ def report(eng: ServeEngine, done: list, wall_s: float) -> dict:
     paged = eng.kv is not None
     tier = eng.offload_tier
     graphs = eng.backend.graph_stats
+    traces = eng.backend.trace_stats
     return {
         "arch": eng.cfg.name,
         "device": device_name(eng.backend.device),
@@ -105,6 +112,13 @@ def report(eng: ServeEngine, done: list, wall_s: float) -> dict:
             st.launch_tax_per_decode_step_s * 1e6,
         "decode_dispatches": st.decode_dispatches,
         "dispatches_per_decode_step": st.dispatches_per_decode_step,
+        "fused_dispatches_per_decode_step":
+            st.fused_dispatches_per_decode_step,
+        "rule_hits": dict(st.rule_hits),
+        "modeled_tklqt_us": st.modeled_tklqt_s * 1e6,
+        "traces": traces.traces,
+        "trace_kernels": traces.kernels,
+        "trace_s": traces.seconds,
         "graphs_captured": graphs.captured,
         "graph_capture_s": graphs.capture_s,
         "graph_memory_bytes": graphs.memory_bytes,
@@ -121,14 +135,18 @@ def main(argv=None):
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--max-new", type=int, default=16)
-    ap.add_argument("--plan", default="jit", choices=PLANS,
+    ap.add_argument("--plan", default="jit",
+                    choices=PLANS + ("autotuned",),
                     help="jit: each step one CUDA graph replay (captured "
-                         "once per signature); eager: op by op")
+                         "once per signature); eager: op by op; "
+                         "whole_graph, chain, auto, fused: a launch plan "
+                         "over the step's trace, one CUDA graph a segment")
     ap.add_argument("--platform", default="Intel+H100",
                     choices=sorted(PLATFORMS),
                     help="the paper's platform row whose host link prices "
-                         "the offload tier (the H100's host link is PCIe: "
-                         "an LC part)")
+                         "the offload tier and whose launch and device "
+                         "rates price the plans (the H100's host link is "
+                         "PCIe: an LC part)")
     ap.add_argument("--cache", default="contiguous", choices=CACHE_MODES)
     ap.add_argument("--block-size", type=int, default=16,
                     help="tokens per KV block (paged cache)")

@@ -28,12 +28,21 @@ output, and the final norm; plus ``wkv6`` L times.
 
 The large plain products (wk, wv, wo, the MLP, the unembed) stay
 ``torch.matmul``, as the reference leaves them to XLA.
+
+Each operator runs inside a ``torch.profiler.record_function`` scope named
+as the reference's ``jax.named_scope`` (``layer{i}``, ``norm1``, ``attn``,
+``rwkv``, ``norm2``, ``mlp``, ``rwkv_channel``, ``resid``, ``embed``,
+``final_norm``, ``unembed``): a trace of the step (``core/tracing.py``)
+reads them as each kernel's operator path, and the profiler tags the
+device kernels with them.  The residual add the fused norm takes in
+(``norm2``) is counted with the norm.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.profiler import record_function as scope
 
 from repro_torch import kernels
 from repro_torch.configs.base import ModelConfig
@@ -185,17 +194,29 @@ def forward(params, tokens, cfg: ModelConfig, *, cache: Optional[list] = None,
         ctx = attn.attention_context(cfg, b, s, dev, cache_index=cache_index,
                                      lengths=lengths, max_len=max_len)
     eps = cfg.norm_eps
-    x = embed_tokens(embed, tokens, cfg).to(cfg.cdtype)
+    with scope("embed"):
+        x = embed_tokens(embed, tokens, cfg).to(cfg.cdtype)
     for i, bp in enumerate(params["blocks"]):
-        q, h = kernels.rmsnorm_matmul(x, bp["norm1"]["scale"],
-                                      bp["mixer"]["wq"], eps=eps)
-        o = attn.attention_fwd(bp["mixer"], h, q, cfg, ctx,
-                               cache=None if cache is None else cache[i])
-        h, x = kernels.residual_rmsnorm(x, bp["norm2"]["scale"], residual=o,
+        with scope(f"layer{i}"):
+            with scope("norm1"):
+                q, h = kernels.rmsnorm_matmul(x, bp["norm1"]["scale"],
+                                              bp["mixer"]["wq"], eps=eps)
+            with scope("attn"):
+                o = attn.attention_fwd(
+                    bp["mixer"], h, q, cfg, ctx,
+                    cache=None if cache is None else cache[i])
+            with scope("norm2"):
+                h, x = kernels.residual_rmsnorm(x, bp["norm2"]["scale"],
+                                                residual=o, eps=eps)
+            with scope("mlp"):
+                m = mlp_fwd(bp["mlp"], h, cfg)
+            with scope("resid"):
+                x = x + m
+    with scope("final_norm"):
+        x, _ = kernels.residual_rmsnorm(x, params["final_norm"]["scale"],
                                         eps=eps)
-        x = x + mlp_fwd(bp["mlp"], h, cfg)
-    x, _ = kernels.residual_rmsnorm(x, params["final_norm"]["scale"], eps=eps)
-    return unembed(x, embed, params.get("lm_head"), cfg), cache
+    with scope("unembed"):
+        return unembed(x, embed, params.get("lm_head"), cfg), cache
 
 
 def _forward_rwkv(params, tokens, cfg: ModelConfig, cache):
@@ -204,15 +225,24 @@ def _forward_rwkv(params, tokens, cfg: ModelConfig, cache):
     ``lengths`` have nothing to select (free slots step too, as in the
     reference).  The norms fuse each residual add into the next norm."""
     eps = cfg.norm_eps
-    x = embed_tokens(params["embed"], tokens, cfg).to(cfg.cdtype)
+    with scope("embed"):
+        x = embed_tokens(params["embed"], tokens, cfg).to(cfg.cdtype)
     res = None
     for i, bp in enumerate(params["blocks"]):
         state = None if cache is None else cache[i]
-        h, x = kernels.rmsnorm(x, bp["norm1"]["scale"], residual=res,
-                               eps=eps)
-        o = rwkv.rwkv_time_fwd(bp["mixer"], h, cfg, state)
-        h, x = kernels.rmsnorm(x, bp["norm2"]["scale"], residual=o, eps=eps)
-        res = rwkv.rwkv_channel_fwd(bp["mlp"], h, cfg, state)
-    x, _ = kernels.rmsnorm(x, params["final_norm"]["scale"], residual=res,
-                           eps=eps)
-    return unembed(x, params["embed"], params.get("lm_head"), cfg)
+        with scope(f"layer{i}"):
+            with scope("norm1"):
+                h, x = kernels.rmsnorm(x, bp["norm1"]["scale"], residual=res,
+                                       eps=eps)
+            with scope("rwkv"):
+                o = rwkv.rwkv_time_fwd(bp["mixer"], h, cfg, state)
+            with scope("norm2"):
+                h, x = kernels.rmsnorm(x, bp["norm2"]["scale"], residual=o,
+                                       eps=eps)
+            with scope("rwkv_channel"):
+                res = rwkv.rwkv_channel_fwd(bp["mlp"], h, cfg, state)
+    with scope("final_norm"):
+        x, _ = kernels.rmsnorm(x, params["final_norm"]["scale"],
+                               residual=res, eps=eps)
+    with scope("unembed"):
+        return unembed(x, params["embed"], params.get("lm_head"), cfg)

@@ -15,8 +15,11 @@ RWKV-6 (2 layers, f32) with the reference's weights bridged bit for bit:
     whose row past its table drop their writes leaves every visible page
     as it was, also where a write clamped onto the last page of its row
     would land on the (page, offset) another row writes;
-  * one dispatch per decode step under jit, and the same hand-written
-    launches per step under both plans.
+  * one dispatch per decode step under jit, and under eager one a node
+    of the traced step, whose hand-written kernel nodes are the jit step's
+    attention (or wkv6) launches: eager runs the norms as their plain
+    versions, as the reference's planned modes do;
+  * every launch-plan strategy but ``autotuned`` serves the jit tokens.
 """
 import contextlib
 import io
@@ -185,14 +188,24 @@ def test_dispatch_and_launch_accounting_under_both_plans(smollm, rwkv, arch,
                           plan=plan, device="cpu")
         eng.run(_requests(Request, cfg.vocab_size)[:3])
         st = eng.stats
-        per_step[plan] = {k: v for k, v in
-                          st.kernel_launches_per_decode_step.items() if v}
         if plan == "jit":
+            per_step[plan] = {k: v for k, v in
+                              st.kernel_launches_per_decode_step.items()
+                              if v}
             assert st.decode_dispatches == st.decode_steps > 0
             assert st.dispatches_per_decode_step == 1.0
-        else:   # every aten op and hand-written launch of the step
+        else:   # one dispatch a node of the traced step, whose norms are
+            # expanded into their plain versions: its hand-written kernel
+            # nodes are the attention (or wkv6) launches alone
+            pf = eng.backend.planned_decode
+            names = [k.name for k in pf.trace.kernels]
+            per_step[plan] = {k: names.count(k) for k in kernels.WRAPPERS
+                              if k in names}
+            assert st.dispatches_per_decode_step == len(names)
             assert st.dispatches_per_decode_step > 4 * sum(want.values())
-    assert per_step["jit"] == per_step["eager"] == want
+    assert per_step["jit"] == want
+    assert per_step["eager"] == {k: v for k, v in want.items()
+                                 if k in ("wkv6", "decode_attention")}
 
 
 @pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
@@ -254,30 +267,62 @@ def test_dropped_paged_writes_leave_the_visible_pool_alone(smollm, kv_dtype):
             assert not np.array_equal(got[written], before[written]), name
 
 
-@pytest.mark.parametrize("plan", ["chain", "auto", "whole_graph", "fused",
-                                  "autotuned"])
+@pytest.mark.parametrize("plan", ["autotuned"])
 def test_launch_plan_strategies_stay_unported(smollm, plan):
     _, cfg, _, params = smollm
-    with pytest.raises(ValueError, match="CUDA graph / launch plans"):
+    with pytest.raises(ValueError, match="autotune"):
         ServeEngine(cfg, params, max_batch=2, max_len=MAX_LEN, plan=plan,
                     device="cpu")
 
 
+@pytest.fixture(scope="module")
+def paged_reference(smollm):
+    """The reference engine's tokens on the paged bf16 pool."""
+    jcfg, cfg, jparams, _ = smollm
+    jeng = JxServeEngine(jcfg, jparams, plan="jit", platform="Intel+H100",
+                         max_batch=2, max_len=MAX_LEN, **CASES["paged_bf16"])
+    return jeng.run(_requests(JxRequest, cfg.vocab_size))
+
+
+@pytest.mark.parametrize("plan", ["chain", "auto", "whole_graph", "fused"])
+def test_launch_plan_strategies_match_jit_and_the_reference(
+        smollm, paged_reference, plan):
+    """Each launch-plan strategy serves the jit plan's tokens, which are
+    the reference engine's, on the paged bf16 pool; its dispatches per
+    decode step are its plan's segments (``tests/test_torch_runtime.py``
+    holds every plan in every cache mode)."""
+    _, cfg, _, params = smollm
+    kw = dict(max_batch=2, max_len=MAX_LEN, **CASES["paged_bf16"])
+    want = paged_reference
+    eng = ServeEngine(cfg, params, plan=plan, device="cpu", **kw)
+    done = eng.run(_requests(Request, cfg.vocab_size))
+    assert [(r.rid, r.generated) for r in done] == \
+        [(r.rid, r.generated) for r in want]
+    pf = eng.backend.planned_decode
+    assert eng.stats.dispatches_per_decode_step == pf.n_launches
+    assert (eng.stats.rule_hits != {}) == (plan == "fused")
+
+
 def test_serve_cli_plans_agree():
     reps = {}
-    for plan in ("jit", "eager"):
+    for plan in ("jit", "eager", "whole_graph", "chain", "auto", "fused"):
         out = io.StringIO()
         argv = ["--reduced", "--device", "cpu", "--requests", "3",
                 "--max-batch", "2", "--max-new", "4", "--no-warmup"]
-        if plan == "eager":
-            argv += ["--plan", "eager"]
+        if plan != "jit":
+            argv += ["--plan", plan]
         with contextlib.redirect_stdout(out):
             _, done = serve.main(argv)
         reps[plan] = (json.loads(out.getvalue().strip().splitlines()[-1]),
                       [r.generated for r in done])
-    (jit, jtoks), (eager, etoks) = reps["jit"], reps["eager"]
-    assert jit["plan"] == "jit" and eager["plan"] == "eager"
-    assert jtoks == etoks
-    assert jit["dispatches_per_decode_step"] == 1.0
-    assert eager["dispatches_per_decode_step"] > 1.0
+    jit, jtoks = reps["jit"]
+    for plan, (rep, toks) in reps.items():
+        assert rep["plan"] == plan and toks == jtoks, plan
+        assert (rep["modeled_tklqt_us"] > 0) == (plan != "jit"), plan
+        assert ((rep["fused_dispatches_per_decode_step"] > 0)
+                == (plan == "fused")), plan
+    per_step = {p: r["dispatches_per_decode_step"]
+                for p, (r, _) in reps.items()}
+    assert (per_step["eager"] > per_step["chain"] > per_step["auto"]
+            >= per_step["whole_graph"] == per_step["jit"] == 1.0), per_step
     assert jit["graphs_captured"] == 0 and jit["graph_memory_bytes"] == 0

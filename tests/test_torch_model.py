@@ -180,8 +180,9 @@ def test_unported_messages_name_their_roadmap_item():
     calls = {
         "tensor parallel": lambda: make_backend(cfg, params, max_batch=1,
                                                 max_len=8, tp=2),
-        "CUDA graph / launch plans": lambda: LocalBackend(
-            cfg, params, max_batch=1, max_len=8, plan="chain", device="cpu"),
+        "measured characterization and autotune": lambda: LocalBackend(
+            cfg, params, max_batch=1, max_len=8, plan="autotuned",
+            device="cpu"),
         "speculative decoding": lambda: backend.verify(None, None, None),
         "model features": lambda: check_supported(
             cfg.replace(family="encoder")),

@@ -220,7 +220,7 @@ def test_pool_sizing_and_offload_pricing_match_the_reference():
             assert default_num_blocks(*args, **kw) == \
                 jx_default_num_blocks(*args, **kw)
     assert default_num_blocks(4, 128, 16, kv_dtype="int8", hd=64) == 60
-    assert set(dm.PLATFORMS) == set(jx_dm.PLATFORMS) - {"TPU-v5e"}
+    assert set(dm.PLATFORMS) == set(jx_dm.PLATFORMS)
     for name, spec in dm.PLATFORMS.items():
         assert vars(spec) == vars(jx_dm.PLATFORMS[name])
         for nbytes, n in [(0, 2), (1 << 20, 1), (123457, 9)]:

@@ -123,7 +123,7 @@ def test_pool_too_small_raises(setup):
     (dict(cache="paged", prefill_chunk=0), "prefill_chunk"),
     (dict(prefill_chunk=8), "paged"), (dict(kv_dtype="int8"), "paged"),
     (dict(cache="paged", kv_dtype="fp8"), "kv_dtype"),
-    (dict(cache="paged", platform="TPU-v5e"), "platform")])
+    (dict(cache="paged", platform="A100-PCIe"), "platform")])
 def test_engine_rejects_bad_paged_config(setup, kw, match):
     _, cfg, _, params = setup
     with pytest.raises(ValueError, match=match):

@@ -90,7 +90,7 @@ def test_engine_defaults_to_the_gpu(setup):
 @pytest.mark.parametrize("kw", [
     dict(cache="paged", speculative=True),
     dict(cache="paged", tracer=object()), dict(speculative=True),
-    dict(tp=2), dict(plan="chain"), dict(monitor=True), dict(tracer=object()),
+    dict(tp=2), dict(plan="autotuned"), dict(monitor=True), dict(tracer=object()),
     dict(plan_table={})])
 def test_unported_options_raise(setup, kw):
     _, cfg, _, params = setup
