@@ -21,7 +21,14 @@ Phases (any failure exits non-zero before a result is printed):
      ``paged_decode_attention`` also over a 1024-position cache
      (``[t1024]``: lengths 1024/768/512/256, block 16, 64 blocks a row, the
      contiguous one beside SDPA with a mask); ``rmsnorm_matmul`` beside the
-     unfused pair it replaces (``F.rms_norm`` then ``torch.matmul``);
+     unfused pair it replaces (``F.rms_norm`` then ``torch.matmul``).  At
+     the new configs' shapes too (``dense_cases``): the three decode
+     entries at Gemma-2's (32/16 heads of 128, window 16, softcap 50),
+     Llama-3.2-1B's, InternLM2's and CodeQwen's decode shapes, and at
+     ``[gemma2_t1024]`` (window 256) beside SDPA with the windowed mask;
+     ``flash_attention`` non-causal at BERT's prefill (B 4, 12 heads of
+     64, S = T = 512) beside SDPA; the norms at D 2048, 4096, 4608 and
+     6144;
   3. full-width SmolLM-360M logits in f32, kernels against plain
      versions, for a prefill and batched decode steps; then the paged
      path (a chunked prefill in chunks of 8 and the same decode steps)
@@ -84,7 +91,23 @@ Phases (any failure exits non-zero before a result is printed):
      the (up to three) kept, or "not measured" if none is left), fed to
      ``core.metrics.report`` (TKLQT, AKD, IL, GPU idle) beside the
      modeled TKLQT of the same trace, and
-     ``core.boundedness.find_inflection`` over the measured eager curve.
+     ``core.boundedness.find_inflection`` over the measured eager curve;
+ 13. Llama-3.2-1B, the paper's headline model, at full width and depth
+     (16 layers, random bf16 weights): f32 logits kernels against plain
+     versions (a prefill and 3 decode steps); ``serve --arch llama-3.2-1b``
+     under eager and jit on the contiguous cache and with ``--cache paged
+     --block-size 16``, checked and traced as in phase 11 (launches per
+     decode step 16 / 16 / 17, one dispatch under jit, jit's tokens
+     against eager's); then ``--plan fused`` on the contiguous cache (its
+     tokens equal jit's, rule hits 16 / 16 / 1 per call);
+ 14. the other six: InternLM2-20B, CodeQwen1.5-7B (qkv biases drawn
+     non-zero) and Gemma-2-27B (one local, one global layer) at full
+     width and 2 layers, GPT-2 at full depth: f32 logits kernels against
+     plain versions (Gemma-2 also with its window cut to 8, so that it
+     bites), then an engine under eager and jit, jit's tokens against
+     eager's; BERT and XLM-R at full depth: one f32 non-causal forward of
+     4 x 512 tokens, kernels against plain versions.  Each model is freed
+     before the next is built.
 
 Phases 4, 6, 7 and 9 serve with ``--plan eager`` (``plan="eager"``): one
 dispatch a node of the traced step, whose norms are their plain versions,
@@ -525,6 +548,130 @@ def decode_long_cases(cfg, dtype):
     }
 
 
+# the new configs' decode shapes: (HQ, HKV, hd, window, softcap, scale)
+DENSE_DECODE = {"gemma2": (32, 16, 128, 16, 50.0, 0.0625),
+                "llama": (32, 8, 64, 0, 0.0, 64 ** -0.5),
+                "internlm2": (48, 8, 128, 0, 0.0, 128 ** -0.5),
+                "codeqwen": (32, 32, 128, 0, 0.0, 128 ** -0.5)}
+# the new configs' norm widths (D, F = HQ * hd): Llama, CodeQwen, Gemma-2,
+# InternLM2
+DENSE_WIDTHS = ((2048, 2048), (4096, 4096), (4608, 4096), (6144, 6144))
+BERT_SEQ = 512                     # the paper's PAPER_SEQ
+
+
+def decode_entry_cases(tag, hq, hkv, hd, window, cap, scale, dtype, lens,
+                       t_len, seed):
+    """The three decode entries at one config's decode shape (B 4, a
+    ``t_len``-position cache, block 16, the pools holding each row's valid
+    pages), keyed ``name[tag]``; without a softcap the contiguous one beside
+    SDPA with the (windowed) length mask, which then computes the same
+    function (no single library call caps the scores)."""
+    b = len(lens)
+    es = torch.tensor([], dtype=dtype).element_size()
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=DEV)
+    # the keys a row attends: its last ``window`` of ``len`` positions
+    n_kv = sum(min(n, window) if window else n for n in lens)
+    q = randn((b, hq, hd), dtype, seed)
+    kt = randn((b, t_len, hkv, hd), dtype, seed + 1).transpose(1, 2)
+    vt = randn((b, t_len, hkv, hd), dtype, seed + 2).transpose(1, 2)
+    pos = torch.arange(t_len, device=DEV)[None, :]
+    mask = pos < lens_t[:, None]
+    if window:
+        mask &= pos > lens_t[:, None] - 1 - window
+    mask = mask[:, None, None, :]
+    nb = t_len // BLOCK
+    n_pages = sum(-(-n // BLOCK) for n in lens) + 3
+    bt = paged_table(lens, n_pages, seed + 3, nb)
+    kp = randn((n_pages, BLOCK, hkv, hd), dtype, seed + 4)
+    vp = randn((n_pages, BLOCK, hkv, hd), dtype, seed + 5)
+    kq, ks = quantize_kv(randn((n_pages, BLOCK, hkv, hd), torch.float32,
+                               seed + 6))
+    vq, vs = quantize_kv(randn((n_pages, BLOCK, hkv, hd), torch.float32,
+                               seed + 7))
+    opts = dict(scale=scale, window=window, softcap=cap)
+    io_bytes = 2 * b * hq * hd * es
+    table_bytes = 4 * b * nb + 4 * b
+    flops = 4 * n_kv * hq * hd
+    return {
+        f"decode_attention[{tag}]": dict(
+            call=lambda: kernels.decode_attention(q, kt, vt, lens_t, **opts),
+            plain=lambda: decode_attention_ref(q, kt, vt, lens_t, **opts),
+            library=(lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kt, vt, attn_mask=mask, scale=scale,
+                enable_gqa=True)) if not cap else None,
+            bytes=io_bytes + 2 * n_kv * hkv * hd * es + 4 * b, flops=flops),
+        f"paged_decode_attention[{tag}]": dict(
+            call=lambda: kernels.paged_decode_attention(q, kp, vp, bt, lens_t,
+                                                        **opts),
+            plain=lambda: paged_decode_attention_ref(q, kp, vp, bt, lens_t,
+                                                     **opts),
+            library=None,
+            bytes=io_bytes + 2 * n_kv * hkv * hd * es + table_bytes,
+            flops=flops),
+        f"paged_decode_attention_quant[{tag}]": dict(
+            call=lambda: kernels.paged_decode_attention_quant(
+                q, kq, vq, ks, vs, bt, lens_t, **opts),
+            plain=lambda: paged_decode_attention_quant_ref(
+                q, kq, vq, ks, vs, bt, lens_t, **opts),
+            library=None,
+            bytes=io_bytes + 2 * n_kv * hkv * (hd + 4) + table_bytes,
+            flops=flops),
+    }
+
+
+def dense_cases(dtype):
+    """The kernels at the new configs' shapes (keys ``name[tag]``): the
+    decode entries at Gemma-2's (window 16, softcap 50, lengths
+    28/21/17/13; and ``[gemma2_t1024]``: window 256, no softcap, lengths
+    1024/768/512/256, beside SDPA with the windowed mask), Llama's,
+    InternLM2's and CodeQwen's decode shapes (the contiguous entry beside
+    SDPA with the length mask where there is no softcap); ``flash_attention``
+    non-causal at BERT's prefill (B 4, 12 heads of 64, S = T = 512) beside
+    SDPA; ``rmsnorm_matmul`` and ``residual_rmsnorm`` at the decode rows (4
+    x 1) of D 2048, 4096, 4608 and 6144."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    cases = {}
+    for i, (tag, (hq, hkv, hd, window, cap, scale)) in enumerate(
+            DENSE_DECODE.items()):
+        cases.update(decode_entry_cases(tag, hq, hkv, hd, window, cap, scale,
+                                        dtype, [28, 21, 17, 13], MAX_LEN,
+                                        70 + 10 * i))
+    hq, hkv, hd, _, _, scale = DENSE_DECODE["gemma2"]
+    cases.update(decode_entry_cases("gemma2_t1024", hq, hkv, hd, 256, 0.0,
+                                    scale, dtype, LONG_LENS, T_LONG, 120))
+    b, h, hd, n = MAX_BATCH, 12, 64, BERT_SEQ
+    q, k, v = (randn((b, n, h, hd), dtype, seed).transpose(1, 2)
+               for seed in (130, 131, 132))
+    cases["flash_attention[bert_s512]"] = dict(
+        call=lambda: kernels.flash_attention(q, k, v, scale=hd ** -0.5,
+                                             causal=False),
+        plain=lambda: attention_ref(q, k, v, scale=hd ** -0.5,
+                                    causal=False),
+        library=lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=hd ** -0.5),
+        bytes=4 * b * n * h * hd * es, flops=4 * b * n * n * h * hd)
+    for d, f in DENSE_WIDTHS:
+        x = randn((MAX_BATCH, 1, d), dtype, 140)
+        r = randn((MAX_BATCH, 1, d), dtype, 141)
+        w = randn((d,), dtype, 142) + 1.0
+        wq = randn((d, f), dtype, 143, scale=0.02)
+        rows = MAX_BATCH
+        cases[f"rmsnorm_matmul[d{d}]"] = dict(
+            call=lambda x=x, w=w, wq=wq: kernels.rmsnorm_matmul(x, w, wq),
+            plain=lambda x=x, w=w, wq=wq: rmsnorm_matmul_ref(x, w, wq),
+            library=None,
+            unfused=lambda x=x, w=w, wq=wq, d=d: torch.matmul(
+                F.rms_norm(x, (d,), w, eps=1e-5), wq),
+            bytes=(2 * rows * d + d + d * f + rows * f) * es,
+            flops=2 * rows * d * f + 4 * rows * d)
+        cases[f"residual_rmsnorm[d{d}]"] = dict(
+            call=lambda x=x, w=w, r=r: kernels.residual_rmsnorm(x, w, r),
+            plain=lambda x=x, w=w, r=r: residual_rmsnorm_ref(x, w, r),
+            library=None,
+            bytes=(4 * rows * d + d) * es, flops=5 * rows * d)
+    return cases
+
+
 def wkv_inputs(b, t, h, hd, seed) -> tuple:
     """r, k, v, logw (B,T,H,hd), u, s0 in f32 at the scales of the
     reference's WKV6 test (``tests/test_kernels.py::test_wkv6``)."""
@@ -601,7 +748,8 @@ def phase_kernels(cfg, rcfg) -> dict:
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
         cases = {**main_path_cases(cfg, dtype), **flash_cases(cfg, dtype),
-                 **decode_long_cases(cfg, dtype), **rwkv_cases(rcfg, dtype)}
+                 **decode_long_cases(cfg, dtype), **rwkv_cases(rcfg, dtype),
+                 **dense_cases(dtype)}
         for name, c in cases.items():
             out, ref = c["call"](), c["plain"]()
             err = max_err(out, ref)
@@ -669,9 +817,9 @@ def phase_dispatch_cost(cfg) -> dict:
         "wrapper": lambda: kernels.decode_attention(q, k, v, lens,
                                                     scale=scale),
         "op_overload": lambda: kernels.decode_attention.op(
-            q, k, v, lens, -1, scale),
+            q, k, v, lens, -1, scale, 0, 0.0),
         "cuda_implementation": lambda: _decode_launch(q, k, v, lens, -1,
-                                                      scale),
+                                                      scale, 0, 0.0),
     }
     ref = calls["cuda_implementation"]()
     for name, fn in calls.items():
@@ -704,6 +852,41 @@ def compare_logits(a, b, tol, what):
     return err
 
 
+def kernel_vs_plain_logits(cfg, params, prompt, steps, label,
+                           lens0=None) -> tuple:
+    """f32 logits of ``prompt`` (B x S: a prefill into a fresh cache, then
+    one batched decode step per entry of ``steps``, step i at the rows'
+    lengths ``lens0 + i``, S by default; with ``steps`` None one forward
+    without cache) through the kernels and through their plain versions;
+    fails unless each call agrees within LOGIT_TOL_F32 (argmax too,
+    outside near ties).  Returns (the largest difference, the kernels'
+    logits of each call)."""
+    b, n = prompt.shape
+    lens0 = np.full(b, n) if lens0 is None else lens0
+    out = {}
+    for mode in ("kernel", "plain"):
+        ctx = plain_kernels() if mode == "plain" else contextlib.nullcontext()
+        with ctx:
+            if steps is None:
+                out[mode] = [forward(params, prompt, cfg)[0]]
+                continue
+            cache = make_cache(cfg, b, MAX_LEN, device=DEV)
+            logits, cache = forward(params, prompt, cfg, cache=cache)
+            got = [logits]
+            for i, tok in enumerate(steps):
+                lg, cache = forward(params, tok, cfg, cache=cache,
+                                    lengths=lens0 + i)
+                got.append(lg)
+            out[mode] = got
+            del cache
+    errs = [compare_logits(a, b_, LOGIT_TOL_F32, f"{label} call {i}")
+            for i, (a, b_) in enumerate(zip(out["kernel"], out["plain"]))]
+    got = out["kernel"]
+    del out
+    torch.cuda.empty_cache()
+    return max(errs), got
+
+
 def phase_logits_f32(cfg) -> None:
     cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
     gen = torch.Generator(device=DEV).manual_seed(1)
@@ -711,25 +894,14 @@ def phase_logits_f32(cfg) -> None:
     rng = np.random.default_rng(1)
     prompt = torch.from_numpy(
         rng.integers(0, cfg.vocab_size, (MAX_BATCH, BUCKET)).astype(np.int64))
-    steps = [rng.integers(0, cfg.vocab_size, (MAX_BATCH, 1)) for _ in range(3)]
+    steps = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (MAX_BATCH, 1)))
+             for _ in range(3)]
     lens0 = np.array([16, 9, 12, 5])       # ragged rows, as after prefills
-    out = {}
-    for mode in ("kernel", "plain"):
-        ctx = plain_kernels() if mode == "plain" else contextlib.nullcontext()
-        with ctx:
-            cache = make_cache(cfg32, MAX_BATCH, MAX_LEN, device=DEV)
-            logits, cache = forward(params, prompt, cfg32, cache=cache)
-            got = [logits]
-            for i, tok in enumerate(steps):
-                lg, cache = forward(params, torch.from_numpy(tok), cfg32,
-                                    cache=cache, lengths=lens0 + i)
-                got.append(lg)
-            out[mode] = got
-    errs = [compare_logits(a, b, LOGIT_TOL_F32, f"f32 logits call {i}")
-            for i, (a, b) in enumerate(zip(out["kernel"], out["plain"]))]
+    err, kernel_logits = kernel_vs_plain_logits(cfg32, params, prompt, steps,
+                                                "f32 logits", lens0)
     print(f"phase 3: full-width {cfg.name} f32 ({cfg.n_layers} layers), "
           f"prefill (4 x {BUCKET}) + 3 decode steps: max |kernel - plain| "
-          f"logits {max(errs):.3g} (<= {LOGIT_TOL_F32}), argmax agrees")
+          f"logits {err:.3g} (<= {LOGIT_TOL_F32}), argmax agrees")
 
     # the paged path through its kernels against the contiguous one: each
     # row's prompt in chunks of CHUNK, then the same ragged decode steps
@@ -739,7 +911,7 @@ def phase_logits_f32(cfg) -> None:
     tables[:, :2] = np.random.default_rng(1).permutation(n_pages)[
         :2 * MAX_BATCH].reshape(MAX_BATCH, 2)          # 32 positions a row
     n0 = kernels.launch_counts()
-    pre = torch.empty_like(out["kernel"][0])
+    pre = torch.empty_like(kernel_logits[0])
     for r in range(MAX_BATCH):
         for t0 in range(0, BUCKET, CHUNK):
             lg, cache = forward(params, prompt[r:r + 1, t0:t0 + CHUNK], cfg32,
@@ -748,7 +920,7 @@ def phase_logits_f32(cfg) -> None:
             pre[r, t0:t0 + CHUNK] = lg[0]
     got = [pre]
     for i, tok in enumerate(steps):
-        lg, cache = forward(params, torch.from_numpy(tok), cfg32, cache=cache,
+        lg, cache = forward(params, tok, cfg32, cache=cache,
                             lengths=lens0 + i, block_tables=tables)
         got.append(lg)
     n1 = kernels.launch_counts()
@@ -759,7 +931,7 @@ def phase_logits_f32(cfg) -> None:
         fail(f"phase 3 paged path launches {n0} -> {n1}")
     errs = [compare_logits(a, b, LOGIT_TOL_F32,
                            f"f32 paged vs contiguous logits call {i}")
-            for i, (a, b) in enumerate(zip(got, out["kernel"]))]
+            for i, (a, b) in enumerate(zip(got, kernel_logits))]
     print(f"phase 3: paged path (block {BLOCK}, chunks of {CHUNK}, then the "
           f"same 3 decode steps) vs the contiguous path, both with kernels: "
           f"max |paged - contiguous| logits {max(errs):.3g} "
@@ -1411,6 +1583,12 @@ def serve_cell(cell, c, params, plan: str, phase: int) -> tuple:
     if extra is None:
         eng, done, counts, rep = serve_pressured(c, params, plan, phase)
         return eng, done, rep, counts
+    return serve_flags(c, extra, plan, phase)
+
+
+def serve_flags(c, extra, plan: str, phase: int) -> tuple:
+    """``repro_torch.launch.serve`` of ``c`` with the cache flags ``extra``
+    under ``plan``, counted as ``serve_cell`` does."""
     argv = serve_argv(c, extra, plan)
     buf = io.StringIO()
     kernels.reset_launch_counts()
@@ -1553,7 +1731,9 @@ def measured_events(run) -> list:
     it (a kernel of a CUDA graph replay carries the ``cudaGraphLaunch``'s)
     as ``KernelEvent``s, in seconds from the first launch; an event's
     ``operator`` names its launch call.  Returns (events, how many kernels
-    start before the call joined to them began)."""
+    start before the call joined to them began); no events where the
+    profiler recorded no device kernel (it loses the device activity of
+    some profiles, as it misplaces the device clock of others)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1572,7 +1752,7 @@ def measured_events(run) -> list:
         elif e.get("cat") == "kernel":
             kern.append(e)
     if not kern:
-        fail("Eq. 1 timeline: the profiler recorded no device kernels")
+        return [], 0
     out = []
     for k in kern:
         # the call that launched it: of the calls carrying its correlation
@@ -1621,6 +1801,11 @@ def phase_eq1(cfg, params) -> dict:
             while len(reps) < EQ1_PROFILES and tried < EQ1_ATTEMPTS:
                 tried += 1
                 ev, early = measured_events(step)
+                if not ev:
+                    print(f"phase 12: Eq. 1 timeline, {plan} batch {b}: "
+                          "the profiler recorded no device kernel in this "
+                          "profile; discarded")
+                    continue
                 if early:
                     print(f"phase 12: Eq. 1 timeline, {plan} batch {b}: "
                           f"{early} of {len(ev)} kernels start before "
@@ -1630,15 +1815,16 @@ def phase_eq1(cfg, params) -> dict:
                 reps.append((skip_report(ev, "H100 (measured)", 0.0), ev))
             pf = eng.backend.planned_decode
             if not reps:
-                # the profiler's clocks, not the step: nothing to measure
+                # the profiler, not the step: nothing to measure
                 rows.setdefault(plan, {})[b] = dict(
                     tklqt_us=None, discarded=tried,
                     dispatches=pf.n_launches,
                     modeled_tklqt_us=pf.modeled_tklqt_s * 1e6)
                 print(f"phase 12: Eq. 1 timeline, {plan} decode step, batch "
                       f"{b}: not measured, every one of {tried} profiles has "
-                      "a kernel before its launch call; modeled TKLQT "
-                      f"{pf.modeled_tklqt_s * 1e6:.1f} us (Intel+H100 row)")
+                      "a kernel before its launch call or none; modeled "
+                      f"TKLQT {pf.modeled_tklqt_s * 1e6:.1f} us (Intel+H100 "
+                      "row)")
                 del eng
                 continue
             reps.sort(key=lambda re: re[0].tklqt)
@@ -1662,7 +1848,7 @@ def phase_eq1(cfg, params) -> dict:
                   f"the {len(reps)} kept "
                   f"{[round(t, 1) for t in r['profiles_tklqt_us']]} "
                   f"({r['discarded']} of {tried} discarded with a kernel "
-                  f"before its launch call): "
+                  f"before its launch call or none): "
                   f"{r['tklqt_us']:.1f} us (queue share "
                   f"{r['queue_share']:.1%}), AKD "
                   f"{r['akd_us']:.2f} us, IL {r['il_us']:.1f} us, GPU idle "
@@ -1754,6 +1940,272 @@ def phase_plans(cfg, rcfg, eager: dict, jit_done: dict) -> tuple:
     return rows, counts
 
 
+# ------------------------------------------------------------------ phase 13
+LLAMA = "llama-3.2-1b"
+# cell -> serve flags; the contiguous cell's prefill is traced too
+LLAMA_CELLS = {"llama_contiguous": [], "llama_paged_bf16": PAGED}
+
+
+def f32_logits_check(cfg, phase: int, seed: int, biases=False,
+                     steps: int = 3) -> list:
+    """``kernel_vs_plain_logits`` of ``cfg`` in f32 with random weights:
+    a MAX_BATCH x BUCKET prefill and ``steps`` decode steps.  Returns the
+    kernels' logits of each call."""
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    params = model_params(cfg32, seed, biases)
+    rng = np.random.default_rng(seed)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (MAX_BATCH, BUCKET)))
+    toks = [torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                          (MAX_BATCH, 1)))
+            for _ in range(steps)]
+    label = f"phase {phase} {cfg.name} f32 logits"
+    err, got = kernel_vs_plain_logits(cfg32, params, prompt, toks, label)
+    print(f"phase {phase}: {cfg.name} f32 at full width, {cfg.n_layers} "
+          f"layers, window {cfg.sliding_window}: prefill ({MAX_BATCH} x "
+          f"{BUCKET}) + {steps} decode steps: max |kernel - plain| logits "
+          f"{err:.3g} (<= {LOGIT_TOL_F32}), argmax agrees")
+    del params
+    torch.cuda.empty_cache()
+    return got
+
+
+def model_params(cfg, seed: int, biases: bool = False) -> dict:
+    """Random weights drawn on the card; with ``biases`` a qkv bias drawn
+    non-zero (the init's zeros would hide a dropped one)."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    params = init_params(cfg, gen, device=DEV)
+    if biases:
+        for blk in params["blocks"]:
+            for b in ("bq", "bk", "bv"):
+                t = blk["mixer"][b]
+                t.copy_(torch.randn(t.shape, generator=gen, device=DEV)
+                        * 0.5)
+    return params
+
+
+def serve_eager_then_jit(cell, cfg, extra, phase, prefill, params=None):
+    """A cell under eager, then jit (``serve_flags``, or with ``params`` an
+    engine on them over ``serve.make_requests``), each checked (launches,
+    jit: one dispatch and eager's tokens up to near ties) and its decode
+    step traced.  Returns ({plan: row}, jit's finished requests, jit's
+    launch counts, eager's)."""
+    runs = {}
+    for plan in ("eager", "jit"):
+        if params is None:
+            eng, done, rep, counts = serve_flags(cfg, extra, plan, phase)
+        else:
+            eng, done, rep, counts = serve_engine(cfg, params, plan, phase)
+        check_launches(cell, plan, eng, rep)
+        if plan == "jit":
+            erep, edone = runs["eager"][1:3]
+            check_jit(cell, rep, erep, done, edone, eng.params, cfg)
+        trace = phase_trace(eng, f"phase {phase} {cell} {plan} trace",
+                            prefill)
+        runs[plan] = (cell_row(rep, trace), rep, done, counts)
+        print_row(phase, cell, plan, runs[plan][0])
+        del eng
+        torch.cuda.empty_cache()
+    return ({p: r[0] for p, r in runs.items()}, runs["jit"][2],
+            runs["jit"][3], runs["eager"][3])
+
+
+def serve_engine(cfg, params, plan: str, phase: int) -> tuple:
+    """``ServeEngine`` on ``params`` under ``plan`` over the serve CLI's
+    requests (warmup + measured run), counted as ``serve_cell`` does."""
+    eng = ServeEngine(cfg, params, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                      plan=plan, device=DEV)
+    eng.run(serve.make_requests(N_REQ, cfg.vocab_size, 16))
+    eng.reset()
+    reqs = serve.make_requests(N_REQ, cfg.vocab_size, 16)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    rep = serve.report(eng, done, wall)
+    print(f"phase {phase}: ServeEngine({cfg.name}, {cfg.n_layers} layers, "
+          f"plan {plan}) over the serve CLI's {N_REQ} requests")
+    print(f"  report {json.dumps(rep)}")
+    if len(done) != N_REQ or any(r.status != "done" or len(r.generated)
+                                 != 16 for r in done):
+        fail(f"phase {phase} {cfg.name} {plan}: finished {len(done)} of "
+             f"{N_REQ} requests")
+    return eng, done, rep, counts
+
+
+def phase_llama() -> tuple:
+    """Phase 13: Llama-3.2-1B, the paper's headline model, at full width
+    and depth: f32 logits kernels against plain versions, then bf16
+    serving under eager and jit on the contiguous cache and the paged
+    pool, then fused on the contiguous cache.  Returns ({cell: {plan:
+    numbers}}, {cell:plan: launch counts})."""
+    t0 = time.perf_counter()
+    cfg = get_config(LLAMA)
+    f32_logits_check(cfg, 13, 13)
+    rows, counts, jit_done = {}, {}, {}
+    for cell, extra in LLAMA_CELLS.items():
+        rows[cell], jit_done[cell], counts[f"{cell}:jit"], \
+            counts[f"{cell}:eager"] = serve_eager_then_jit(
+                cell, cfg, extra, 13, prefill=cell == "llama_contiguous")
+    cell = "llama_contiguous"
+    eng, done, rep, counts[f"{cell}:fused"] = serve_flags(cfg, [], "fused",
+                                                          13)
+    check_launches(cell, "fused", eng, rep)
+    check_fused(cell, eng, done, jit_done[cell])
+    trace = phase_trace(eng, f"phase 13 {cell} fused trace")
+    r = rows[cell]["fused"] = plan_row(rep, trace, eng)
+    print_row(13, cell, "fused", r)
+    print(f"  {cell} fused: tokens equal jit's in {N_REQ}/{N_REQ} requests; "
+          f"rule hits per call {r['rule_hits_per_call']}; modeled TKLQT "
+          f"{r['modeled_tklqt_us']:.1f} us a decode step (Intel+H100)")
+    del eng
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    print(f"phase 13: {secs:.1f} s")
+    print("phase 13: " + json.dumps({"rows": rows, "seconds": secs}))
+    return rows, counts
+
+
+# ------------------------------------------------------------------ phase 14
+# decoder -> layers served (None: full depth); Gemma-2's two are one local
+# and one global layer
+PHASE14_DECODERS = {"internlm2-20b": 2, "codeqwen1.5-7b": 2,
+                    "gemma2-27b": 2, "gpt2": None}
+PHASE14_ENCODERS = ("bert-base-uncased", "xlm-roberta-base")
+GEMMA_CUT_WINDOW = 8       # the f32 check's window, so it bites in 19 tokens
+
+
+def window_in_graphs(cfg, seed: int) -> None:
+    """``cfg`` in f32 with its window cut to GEMMA_CUT_WINDOW under
+    ``plan="jit"``: a BUCKET-token prefill into each slot and one batched
+    decode step, each a CUDA graph replay, give the plain forward's logits
+    with the cut window within LOGIT_TOL_F32; the plain forward with the
+    full window parts from them by more (with random tied embeddings the
+    greedy tokens barely depend on attention, so the logits are held)."""
+    cut = cfg.replace(sliding_window=GEMMA_CUT_WINDOW,
+                      param_dtype="float32", compute_dtype="float32")
+    params = model_params(cut, seed, cfg.qkv_bias)
+    eng = ServeEngine(cut, params, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                      plan="jit", device=DEV)
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(0, cfg.vocab_size, (MAX_BATCH, BUCKET),
+                           dtype=np.int32)
+    nxt = rng.integers(0, cfg.vocab_size, (MAX_BATCH, 1), dtype=np.int32)
+    got = []
+    for slot in range(MAX_BATCH):
+        logits, eng.cache = eng.backend.prefill(
+            eng.cache, torch.from_numpy(prompts[slot:slot + 1]), slot,
+            BUCKET)
+        got.append(logits[0].clone())      # the graph's output buffer
+    logits, eng.cache = eng.backend.decode(eng.cache, torch.from_numpy(nxt),
+                                           np.full(MAX_BATCH, BUCKET))
+    if eng.backend.last.dispatches != 1 or not eng.backend.graph_stats \
+            .captured:
+        fail(f"phase 14 {cfg.name} window {GEMMA_CUT_WINDOW}: the decode "
+             f"step took {eng.backend.last.dispatches} dispatches, "
+             f"{eng.backend.graph_stats.captured} graphs captured")
+    got += list(logits.clone())
+    seqs = [[int(t) for t in p] for p in prompts]
+    seqs += [p + [int(t[0])] for p, t in zip(seqs, nxt)]
+    err = bite = 0.0
+    for i, (g, toks) in enumerate(zip(got, seqs)):
+        err = max(err, compare_logits(
+            g, plain_logits(params, cut, toks), LOGIT_TOL_F32,
+            f"phase 14 {cfg.name} window {GEMMA_CUT_WINDOW} jit call {i}"))
+        full = plain_logits(params, cut.replace(
+            sliding_window=cfg.sliding_window), toks)
+        bite = max(bite, (g - full).abs().max().item())
+    if not bite > LOGIT_TOL_F32:
+        fail(f"phase 14 {cfg.name}: the jit logits with the window of "
+             f"{GEMMA_CUT_WINDOW} are within {bite:.3g} of the full "
+             "window's: it did not bite inside the graphs")
+    print(f"phase 14: {cfg.name} f32 under jit, window "
+          f"{GEMMA_CUT_WINDOW}: {MAX_BATCH} prefills ({BUCKET} tokens) and "
+          f"one decode step, graph replays ({eng.backend.graph_stats.captured}"
+          f" graphs): max |jit - plain| logits {err:.3g} (<= "
+          f"{LOGIT_TOL_F32}); the full window's plain logits part by "
+          f"{bite:.3g}")
+    del eng, params
+    torch.cuda.empty_cache()
+
+
+def phase_others() -> tuple:
+    """Phase 14: InternLM2-20B, CodeQwen1.5-7B (qkv biases drawn non-zero)
+    and Gemma-2-27B at full width and 2 layers, GPT-2 at full depth: f32
+    logits kernels against plain versions (Gemma-2 also with its window cut
+    to GEMMA_CUT_WINDOW, so that it bites), then a bf16 engine under eager
+    and jit, jit's tokens against eager's (Gemma-2 again with the cut
+    window, then ``window_in_graphs``); BERT and XLM-R at full depth:
+    one f32 non-causal forward of MAX_BATCH x BERT_SEQ tokens, kernels
+    against plain versions.  Each model is freed before the next is
+    built.  Returns ({cell: {plan: numbers}}, {cell:plan: launch
+    counts})."""
+    t0 = time.perf_counter()
+    rows, counts = {}, {}
+    for i, (name, layers) in enumerate(PHASE14_DECODERS.items()):
+        base = get_config(name)
+        cfg = base.replace(n_layers=layers) if layers else base
+        biases = cfg.qkv_bias
+        full = f32_logits_check(cfg, 14, 20 + i, biases)
+        if cfg.sliding_window:
+            cut = f32_logits_check(
+                cfg.replace(sliding_window=GEMMA_CUT_WINDOW), 14, 20 + i,
+                biases)
+            bite = max((a - b).abs().max().item() for a, b in zip(cut, full))
+            if not bite > LOGIT_TOL_F32:
+                fail(f"phase 14 {name}: the window of {GEMMA_CUT_WINDOW} "
+                     f"moved the logits by {bite:.3g} only")
+            print(f"  the window of {GEMMA_CUT_WINDOW} bites: max |logits "
+                  f"(window {GEMMA_CUT_WINDOW}) - logits (window "
+                  f"{cfg.sliding_window})| {bite:.3g}")
+        del full
+        params = model_params(cfg, 30 + i, biases)
+        rows[name], done, counts[f"{name}:jit"], counts[f"{name}:eager"] = \
+            serve_eager_then_jit(name, cfg, None, 14, prefill=True,
+                                 params=params)
+        if cfg.sliding_window:
+            # the full window never bites under MAX_LEN: serve the cut one
+            # too, so a biting window runs inside the captured graphs
+            cell = f"{name}_window{GEMMA_CUT_WINDOW}"
+            rows[cell], _, counts[f"{cell}:jit"], \
+                counts[f"{cell}:eager"] = serve_eager_then_jit(
+                    cell, cfg.replace(sliding_window=GEMMA_CUT_WINDOW),
+                    None, 14, prefill=False, params=params)
+        del params, done
+        torch.cuda.empty_cache()
+        if cfg.sliding_window:
+            window_in_graphs(cfg, 50 + i)
+        torch.cuda.empty_cache()
+    for i, name in enumerate(PHASE14_ENCODERS):
+        cfg = get_config(name)
+        cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+        params = model_params(cfg32, 40 + i)
+        prompt = torch.from_numpy(np.random.default_rng(40 + i).integers(
+            0, cfg.vocab_size, (MAX_BATCH, BERT_SEQ)))
+        kernels.reset_launch_counts()
+        err, _ = kernel_vs_plain_logits(cfg32, params, prompt, None,
+                                        f"phase 14 {name} f32 logits")
+        counts[f"{name}:forward"] = kernels.launch_counts()
+        want = {"flash_attention": cfg.n_layers,
+                "rmsnorm_matmul": cfg.n_layers,
+                "residual_rmsnorm": cfg.n_layers + 1}
+        got = {k: v for k, v in counts[f"{name}:forward"].items() if v}
+        if got != want:
+            fail(f"phase 14 {name}: launches {got} != {want}")
+        print(f"phase 14: {name} f32 at full width and depth ("
+              f"{cfg.n_layers} layers), one non-causal forward of "
+              f"{MAX_BATCH} x {BERT_SEQ} tokens: max |kernel - plain| logits "
+              f"{err:.3g} (<= {LOGIT_TOL_F32}), argmax agrees; launches {got}")
+        del params
+        torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    print(f"phase 14: {secs:.1f} s")
+    print("phase 14: " + json.dumps({"rows": rows, "seconds": secs}))
+    return rows, counts
+
+
 # ------------------------------------------------------------------ main
 # which main path (its jit run, phase 11) each kernel's ``launches`` is
 # read from
@@ -1796,7 +2248,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     _, jit_done, path_counts = phase_jit(cfg, rcfg, eager)
     _, plan_counts = phase_plans(cfg, rcfg, eager, jit_done)
-    print(f"chip_smoke: phases 1-12 in {time.perf_counter() - t0:.1f} s")
+    _, llama_counts = phase_llama()
+    _, other_counts = phase_others()
+    print(f"chip_smoke: phases 1-14 in {time.perf_counter() - t0:.1f} s")
 
     entries = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -1812,6 +2266,8 @@ def main() -> None:
         by_path.update({f"{p}:eager": c[name]
                         for p, c in eager_counts.items()})
         by_path.update({p: c[name] for p, c in plan_counts.items()})
+        by_path.update({p: c[name] for p, c in llama_counts.items()})
+        by_path.update({p: c[name] for p, c in other_counts.items()})
         entries.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "launches_by_path": by_path, **row})

@@ -4,8 +4,10 @@ The reference keeps parameters as a nested dict whose block leaves are
 stacked on a leading superblock axis.  ``params_from_jax`` takes that tree
 as numpy arrays (``jax.tree.map(np.asarray, params)``, done by the caller:
 this module never imports JAX) and returns the port's layout: the same
-keys, with ``"blocks"`` unstacked into one dict per layer, in execution
-order (superblock-major, then pattern slot).
+keys (a layer's q/k/v biases ``bq``/``bk``/``bv`` among them), with
+``"blocks"`` unstacked into one dict per layer, in execution order
+(superblock-major, then pattern slot: Gemma-2's local slot 0, then its
+global slot 1, of each superblock).
 
 bf16 arrays arrive with the ``ml_dtypes`` bfloat16 dtype, which
 ``torch.from_numpy`` rejects; they are reinterpreted through a ``uint16``

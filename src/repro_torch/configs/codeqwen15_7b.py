@@ -1,0 +1,16 @@
+"""CodeQwen1.5-7B — qwen1.5-arch dense GQA (kv=heads => effectively MHA),
+attention QKV bias [hf:Qwen/CodeQwen1.5-7B]."""
+from repro_torch.configs.base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="codeqwen1.5-7b",
+    family="dense",
+    n_layers=32,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=32,
+    d_ff=13440,
+    vocab_size=92416,
+    rope_theta=1_000_000.0,
+    qkv_bias=True,
+))

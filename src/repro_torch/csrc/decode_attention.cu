@@ -24,18 +24,19 @@
 #include "decode_attention.cuh"
 
 // kv_lens: (B,) int32 device array, or null to use the scalar kv_len for
-// every row.  hd <= 128 and hq / hkv <= 8; the wrapper checks both.  The
-// split (n_split, split_len, workspace, counters) is the wrapper's plan.
+// every row.  hd <= 128 and hq / hkv <= 8; the wrapper checks both.
+// window >= 0 and softcap >= 0 (0: off).  The split (n_split, split_len,
+// workspace, counters) is the wrapper's plan.
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, void* out,
     const void* kv_lens, int kv_len, int b, int hq, int hkv, int t_len,
-    int hd, float scale, long long q_b, long long q_h, long long k_b,
-    long long k_h, long long k_t, long long v_b, long long v_h,
-    long long v_t, long long o_b, long long o_h, int n_split, int split_len,
-    void* ws, void* counters, int dtype, void* stream) {
+    int hd, float scale, int window, float softcap, long long q_b,
+    long long q_h, long long k_b, long long k_h, long long k_t, long long v_b,
+    long long v_h, long long v_t, long long o_b, long long o_h, int n_split,
+    int split_len, void* ws, void* counters, int dtype, void* stream) {
   const DecodeSplit sp{n_split, split_len, static_cast<float*>(ws),
                        static_cast<unsigned*>(counters)};
-  if (!da_shapes_ok(b, hq, hkv, hd, b, t_len, 1, sp))
+  if (!da_shapes_ok(b, hq, hkv, hd, b, t_len, 1, sp, window, softcap))
     return static_cast<int>(cudaErrorInvalidValue);
   // k (B, HKV, T, hd) read as B pages of T positions: page stride k_b
   const DecodeStrides st{q_b, q_h, k_b, k_t, k_h, v_b, v_t, v_h, 0,
@@ -49,7 +50,7 @@ extern "C" int decode_attention_launch(
                   static_cast<const T*>(v), nullptr, nullptr,
                   static_cast<T*>(out), nullptr,
                   static_cast<const int*>(kv_lens), kv_len, hq, hkv, hd, b,
-                  t_len, 1, scale, st, sp,
+                  t_len, 1, scale, window, softcap, st, sp,
                   da_vec_ok<T, T>(hd, q, k, v, st)));
   return static_cast<int>(cudaGetLastError());
 }

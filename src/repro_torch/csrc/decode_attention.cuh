@@ -3,9 +3,15 @@
 //
 // Per row b and query head h: softmax(q . K^T * scale) V over the
 // positions t < len of KV head h // g, online softmax in f32, the
-// reference's finite NEG_INF mask, and out = acc / max(l, 1e-30).  A row
-// with len <= 0 softmaxes NEG_INF uniformly over all nb * bs positions, as
-// the masked reference does.
+// reference's finite NEG_INF mask, and out = acc / max(l, 1e-30).  The
+// reference model's decode options, in its order
+// (repro/layers/attention.py::mha): softcap > 0 caps each scaled score to
+// softcap * tanh(s / softcap); window > 0 then keeps only the positions
+// t > len - 1 - window (a sliding-window layer, the query at len - 1; len
+// is the row's length as given, also where it exceeds nb * bs).  A row
+// that keeps no position (len <= 0, or a window wholly past nb * bs)
+// softmaxes NEG_INF uniformly over all nb * bs positions, as the masked
+// reference does.
 //
 // K and V are read as pages (P, bs, HKV, hd) through strides.  With TABLE,
 // position t of row b lives at page bt[b, t / bs] (clamped into [0, P - 1],
@@ -37,11 +43,14 @@
 //    kernels/decode_attention/ops.py::split_plan, one split at the main
 //    path's T = 128, enough CTAs to fill the card at T = 1024.  A split
 //    whose range starts at or past its row's length stores the neutral
-//    partial (NEG_INF, 0, 0).  Each split writes its (m, l, acc) to a
-//    workspace; the last CTA of each (row, KV head) to arrive (a counter
-//    after __threadfence, reset by that CTA) merges the splits in split
-//    order and writes out, so every call gives the same bits and an
-//    all-masked row stays uniform.  With one split there is no workspace.
+//    partial (NEG_INF, 0, 0), and so does a split whose range ends at or
+//    before the window's first position; a split that the window's start
+//    cuts begins at the batch holding that position.  Each split writes
+//    its (m, l, acc) to a workspace; the last CTA of each (row, KV head)
+//    to arrive (a counter after __threadfence, reset by that CTA) merges
+//    the splits in split order and writes out, so every call gives the
+//    same bits and an all-masked row stays uniform.  With one split there
+//    is no workspace.
 //  * Table entries and strides are read once per position from registers;
 //    no pointer is loaded from the constant bank inside the loop.
 // Where hd % 8 != 0 or a pointer or stride is not aligned to a lane's
@@ -149,8 +158,8 @@ decode_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
                         const int* __restrict__ bt,
                         const int* __restrict__ lens, int len_all, int hq,
                         int hkv, int hd, int n_pages, int bs, int nb,
-                        float scale, DecodeStrides st, DecodeSplit sp,
-                        int vec) {
+                        float scale, int window, float softcap,
+                        DecodeStrides st, DecodeSplit sp, int vec) {
   __shared__ float sm_m[DA_WARPS][DA_MAX_G];
   __shared__ float sm_l[DA_WARPS][DA_MAX_G];
   __shared__ float sm_acc[DA_WARPS][DA_MAX_G][DA_MAX_HD];
@@ -231,9 +240,23 @@ decode_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
   load_batch(first);
 
   const int len = min(len_in, t_len);
-  const bool all_masked = len <= 0;
+  // the window's first position, from the row's own length (not the
+  // clamped one), as the reference masks it
+  const int lo_w = window > 0 ? max(0, len_in - window) : 0;
+  const bool all_masked = len <= 0 || lo_w >= len;
   const int n = all_masked ? t_len : len;
   const int t1 = min(t0 + sp.split_len, n);
+  // the batches wholly below the window are skipped (the prefetched first
+  // batch is then reloaded at the first one kept), and a split with nothing
+  // at or above it keeps the neutral partial
+  const int lo = all_masked ? 0 : lo_w;
+  const int stride = DA_WARPS * DA_U * ppw;
+  int start = first;
+  if (lo > t0 && lo < t1) {
+    start += (lo - t0) / stride * stride;
+    if (start != first) load_batch(start);
+  }
+  const int t_hi = lo < t1 ? t1 : t0;
 
   float m[DA_MAX_G], l[DA_MAX_G], acc[DA_MAX_G][DA_EPL];
 #pragma unroll
@@ -244,13 +267,14 @@ decode_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
     for (int e = 0; e < DA_EPL; ++e) acc[h][e] = 0.f;
   }
 
-  for (int base = first; base < t1; base += DA_WARPS * DA_U * ppw) {
-    if (base != first) load_batch(base);
+  for (int base = start; base < t_hi; base += stride) {
+    if (base != start) load_batch(base);
     bool valid[DA_U];
     float kf[DA_U][DA_EPL], vf[DA_U][DA_EPL];
 #pragma unroll
     for (int u = 0; u < DA_U; ++u) {
-      valid[u] = base + u * ppw + grp < t1;
+      const int tp = base + u * ppw + grp;
+      valid[u] = tp < t1 && tp >= lo;
       if (vec) {
         DaLane<KV>::unpack(kr[u], kf[u]);
         DaLane<KV>::unpack(vr[u], vf[u]);
@@ -286,8 +310,9 @@ decode_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
           dot = fmaf(qr[h][e], kf[u][e], dot);
         for (int o = 1; o < lp; o <<= 1)
           dot += __shfl_xor_sync(0xffffffffu, dot, o);
-        s[u] = !valid[u] ? -INFINITY
-                         : (all_masked ? RT_NEG_INF : dot * scale);
+        float sc = dot * scale;
+        if (softcap > 0.f) sc = softcap * tanhf(sc / softcap);
+        s[u] = !valid[u] ? -INFINITY : (all_masked ? RT_NEG_INF : sc);
         mb = fmaxf(mb, s[u]);
       }
       for (int o = lp; o < 32; o <<= 1)
@@ -392,9 +417,11 @@ decode_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
 }
 
 static inline bool da_shapes_ok(int b, int hq, int hkv, int hd, int n_pages,
-                                int bs, int nb, const DecodeSplit& sp) {
+                                int bs, int nb, const DecodeSplit& sp,
+                                int window, float softcap) {
   const int t_len = nb * bs;
-  return b > 0 && b <= 65535 && hkv > 0 && hq % hkv == 0 &&
+  return window >= 0 && softcap >= 0.f && b > 0 && b <= 65535 && hkv > 0 &&
+         hq % hkv == 0 &&
          hq / hkv <= DA_MAX_G && hd > 0 && hd <= DA_MAX_HD && n_pages > 0 &&
          bs > 0 && nb > 0 && sp.n_split >= 1 &&
          sp.n_split <= DA_MAX_SPLITS && sp.split_len >= 1 &&

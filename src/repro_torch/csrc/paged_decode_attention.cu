@@ -35,17 +35,20 @@
 #include "decode_attention.cuh"
 
 // Pages in the dtype of q and out (f32 or bf16).  bt: (B, NB) int32 with
-// row stride bt_b; kv_lens: (B,) int32.  The wrapper checks every shape.
+// row stride bt_b; kv_lens: (B,) int32.  The wrapper checks every shape;
+// window >= 0 and softcap >= 0 (0: off) for both entries.
 extern "C" int paged_decode_attention_launch(
     const void* q, const void* kp, const void* vp, void* out, const void* bt,
     const void* kv_lens, int b, int hq, int hkv, int hd, int n_pages, int bs,
-    int nb, float scale, long long q_b, long long q_h, long long k_p,
-    long long k_t, long long k_h, long long v_p, long long v_t,
-    long long v_h, long long o_b, long long o_h, long long bt_b, int n_split,
-    int split_len, void* ws, void* counters, int dtype, void* stream) {
+    int nb, float scale, int window, float softcap, long long q_b,
+    long long q_h, long long k_p, long long k_t, long long k_h, long long v_p,
+    long long v_t, long long v_h, long long o_b, long long o_h,
+    long long bt_b, int n_split, int split_len, void* ws, void* counters,
+    int dtype, void* stream) {
   const DecodeSplit sp{n_split, split_len, static_cast<float*>(ws),
                        static_cast<unsigned*>(counters)};
-  if (!da_shapes_ok(b, hq, hkv, hd, n_pages, bs, nb, sp))
+  if (!da_shapes_ok(b, hq, hkv, hd, n_pages, bs, nb, sp, window,
+                    softcap))
     return static_cast<int>(cudaErrorInvalidValue);
   const DecodeStrides st{q_b, q_h, k_p, k_t, k_h, v_p, v_t, v_h, 0,
                          0,   0,   0,   0,   0,   o_b, o_h, bt_b};
@@ -58,7 +61,8 @@ extern "C" int paged_decode_attention_launch(
                   static_cast<const T*>(vp), nullptr, nullptr,
                   static_cast<T*>(out), static_cast<const int*>(bt),
                   static_cast<const int*>(kv_lens), 0, hq, hkv, hd, n_pages,
-                  bs, nb, scale, st, sp, da_vec_ok<T, T>(hd, q, kp, vp, st)));
+                  bs, nb, scale, window, softcap, st, sp,
+                  da_vec_ok<T, T>(hd, q, kp, vp, st)));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -67,15 +71,16 @@ extern "C" int paged_decode_attention_quant_launch(
     const void* q, const void* kp, const void* vp, const void* ks,
     const void* vs, void* out, const void* bt, const void* kv_lens, int b,
     int hq, int hkv, int hd, int n_pages, int bs, int nb, float scale,
-    long long q_b, long long q_h, long long k_p, long long k_t,
-    long long k_h, long long v_p, long long v_t, long long v_h,
+    int window, float softcap, long long q_b, long long q_h, long long k_p,
+    long long k_t, long long k_h, long long v_p, long long v_t, long long v_h,
     long long ks_p, long long ks_t, long long ks_h, long long vs_p,
     long long vs_t, long long vs_h, long long o_b, long long o_h,
     long long bt_b, int n_split, int split_len, void* ws, void* counters,
     int dtype, void* stream) {
   const DecodeSplit sp{n_split, split_len, static_cast<float*>(ws),
                        static_cast<unsigned*>(counters)};
-  if (!da_shapes_ok(b, hq, hkv, hd, n_pages, bs, nb, sp))
+  if (!da_shapes_ok(b, hq, hkv, hd, n_pages, bs, nb, sp, window,
+                    softcap))
     return static_cast<int>(cudaErrorInvalidValue);
   const DecodeStrides st{q_b,  q_h,  k_p,  k_t,  k_h, v_p, v_t, v_h, ks_p,
                          ks_t, ks_h, vs_p, vs_t, vs_h, o_b, o_h, bt_b};
@@ -90,7 +95,7 @@ extern "C" int paged_decode_attention_quant_launch(
                   static_cast<const float*>(vs), static_cast<T*>(out),
                   static_cast<const int*>(bt),
                   static_cast<const int*>(kv_lens), 0, hq, hkv, hd, n_pages,
-                  bs, nb, scale, st, sp,
+                  bs, nb, scale, window, softcap, st, sp,
                   da_vec_ok<T, int8_t>(hd, q, kp, vp, st)));
   return static_cast<int>(cudaGetLastError());
 }

@@ -59,11 +59,11 @@ def _zeroed_row(cache) -> list:
 def make_step_bodies(cfg: ModelConfig) -> StepBodies:
     def prefill_body(params, cache, tokens, slot, plen: int):
         # tokens: (1, bucket) padded, or exactly the plen prompt tokens for
-        # a recurrent stack (engine.py); slot: (1,) device index.  The
-        # prompt is written into a zeroed one-row cache, as the reference
-        # zeroes the slot's rows first, so nothing of a previous occupant
-        # (KV or recurrent state) survives; that row then replaces the
-        # slot's by a device index.
+        # a recurrent stack or an encoder (engine.py); slot: (1,) device
+        # index.  The prompt is written into a zeroed one-row cache, as the
+        # reference zeroes the slot's rows first, so nothing of a previous
+        # occupant (KV or recurrent state) survives; that row then replaces
+        # the slot's by a device index.
         row = _zeroed_row(cache)
         logits, _ = forward(params, tokens, cfg, cache=row, cache_index=0)
         index = slot.long()

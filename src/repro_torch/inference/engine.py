@@ -7,12 +7,13 @@ once and is refilled from the queue.  Greedy tokens are chosen by argmax
 on the host, as the reference does.
 
 ``cache="contiguous"`` prefills a whole prompt (padded to a power-of-two
-bucket, min 8) into the slot's rows.  A recurrent stack (RWKV-6) is
-prefilled with exactly the prompt's tokens: a pad token would run through
-its recurrence and token shift and change the state decode starts from
-(the reference pads there too, and its tokens then differ from an
-unpadded incremental forward; ROADMAP Queue C).  The paged cache refuses
-a recurrent stack, as the reference's does.
+bucket, min 8) into the slot's rows.  A recurrent stack (RWKV-6) and an
+encoder (BERT, XLM-R) are prefilled with exactly the prompt's tokens: a
+pad token would run through a recurrence and token shift and change the
+state decode starts from, and an encoder's non-causal prompt would attend
+to it.  The reference pads both and lets the pads in, and its tokens then
+differ from an unpadded incremental forward (ROADMAP Queue C).  The paged
+cache refuses a recurrent stack, as the reference's does.
 
 ``cache="paged"`` keeps KV in a pool
 of fixed-size pages reached through numpy block tables
@@ -303,6 +304,9 @@ class ServeEngine:
         self.T = max_len
         self.cache_mode = cache
         self.recurrent = is_recurrent(cfg)
+        # prefill exactly the prompt: no pad token may enter a recurrence or
+        # an encoder's non-causal attention
+        self.exact_prefill = self.recurrent or cfg.family == "encoder"
         self.prefill_chunk = prefill_chunk
         self.platform = platform
         self.backend = make_backend(cfg, params, max_batch=max_batch,
@@ -435,7 +439,7 @@ class ServeEngine:
         slot = self._free_slot()
         if slot is None:
             return False
-        width = plen if self.recurrent else self._bucket(plen)
+        width = plen if self.exact_prefill else self._bucket(plen)
         toks = np.zeros((1, width), np.int32)
         toks[0, :plen] = req.prompt
         t0 = time.perf_counter()

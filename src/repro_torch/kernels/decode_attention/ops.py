@@ -21,12 +21,14 @@ from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref, paged_decode_attention_quant_ref,
     paged_decode_attention_ref)
 
-_ARGS = ([build.P] * 5 + [build.I] * 6 + [build.F] + [build.L] * 10
+_ARGS = ([build.P] * 5 + [build.I] * 6 + [build.F, build.I, build.F]
+         + [build.L] * 10
          + [build.I, build.I, build.P, build.P, build.I, build.P])
-_PAGED_ARGS = ([build.P] * 6 + [build.I] * 7 + [build.F] + [build.L] * 11
+_PAGED_ARGS = ([build.P] * 6 + [build.I] * 7 + [build.F, build.I, build.F]
+               + [build.L] * 11
                + [build.I, build.I, build.P, build.P, build.I, build.P])
-_PAGED_QUANT_ARGS = ([build.P] * 8 + [build.I] * 7 + [build.F]
-                     + [build.L] * 17
+_PAGED_QUANT_ARGS = ([build.P] * 8 + [build.I] * 7
+                     + [build.F, build.I, build.F] + [build.L] * 17
                      + [build.I, build.I, build.P, build.P, build.I, build.P])
 MAX_GROUP = 8       # query heads per KV head one CTA serves
 MAX_HEAD_DIM = 128
@@ -105,33 +107,48 @@ def _split_args(split):
             None if cnt is None else cnt.data_ptr())
 
 
-def decode_attention(q, k, v, kv_len=None, *, scale: float):
+def decode_attention(q, k, v, kv_len=None, *, scale: float, window: int = 0,
+                     softcap: float = 0.0):
     """q: (B,HQ,hd); k/v: (B,HKV,T,hd); returns (B,HQ,hd).
 
     ``kv_len``: None (all T positions valid), an int for every row, or a
     (B,) int32 tensor of per-row lengths.  K and V may be any strided views
     with unit stride on hd: the engine passes ``cache.transpose(1, 2)`` of
     its (B,T,HKV,hd) cache, and the kernel reads it in place.
+    ``softcap`` > 0 caps the scaled scores (``cap * tanh(s / cap)``);
+    ``window`` > 0 attends only the positions > kv_len - 1 - window of each
+    row (a sliding-window layer: the query sits at kv_len - 1, also where
+    kv_len exceeds T; a row left with no position softmaxes uniformly, as
+    one with kv_len 0 does).
     """
     build.require_placed("decode_attention", q)
     per_row = isinstance(kv_len, torch.Tensor)
     return _decode_op._opoverload(q, k, v, kv_len if per_row else None,
                       -1 if kv_len is None or per_row else int(kv_len),
-                      float(scale))
+                      float(scale), _window(window), float(softcap))
+
+
+def _window(window) -> int:
+    window = int(window)
+    if window < 0:
+        raise ValueError(f"decode attention: window must be >= 0, got "
+                         f"{window}")
+    return window
 
 
 @torch.library.custom_op("repro_torch::decode_attention", mutates_args=(),
                          device_types="cpu")
 def _decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                kv_len: Optional[torch.Tensor], kv_len_int: int,
-               scale: float) -> torch.Tensor:
+               scale: float, window: int, softcap: float) -> torch.Tensor:
     lens = kv_len if kv_len is not None else (
         None if kv_len_int < 0 else kv_len_int)
-    return decode_attention_ref(q, k, v, lens, scale=scale).contiguous()
+    return decode_attention_ref(q, k, v, lens, scale=scale, window=window,
+                                softcap=softcap).contiguous()
 
 
 @_decode_op.register_kernel("cuda")
-def _decode_launch(q, k, v, kv_len, kv_len_int, scale):
+def _decode_launch(q, k, v, kv_len, kv_len_int, scale, window, softcap):
     per_row = kv_len is not None
     build.require_cuda("decode_attention", q, k, v,
                        *([kv_len] if per_row else []))
@@ -158,7 +175,7 @@ def _decode_launch(q, k, v, kv_len, kv_len_int, scale):
     fn = build.function("decode_attention_launch", _ARGS)
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
               kv_len.data_ptr() if per_row else None, scalar,
-              b, hq, hkv, t, hd, scale,
+              b, hq, hkv, t, hd, scale, window, softcap,
               q.stride(0), q.stride(1), k.stride(0), k.stride(1),
               k.stride(2), v.stride(0), v.stride(1), v.stride(2),
               out.stride(0), out.stride(1), *_split_args(split),
@@ -169,11 +186,12 @@ def _decode_launch(q, k, v, kv_len, kv_len_int, scale):
 
 
 @_decode_op.register_fake
-def _decode_fake(q, k, v, kv_len, kv_len_int, scale):
+def _decode_fake(q, k, v, kv_len, kv_len_int, scale, window, softcap):
     return q.new_empty(q.shape)
 
 
-def _decode_costs(q, k, v, kv_len, kv_len_int, scale) -> tuple:
+def _decode_costs(q, k, v, kv_len, kv_len_int, scale, window,
+                  softcap) -> tuple:
     """(flops, bytes): two products over every cached position of each
     query head, and q, K, V and the output moved once."""
     b, hq, hd = q.shape
@@ -221,7 +239,8 @@ def _check_paged(name, q, k_pages, v_pages, block_tables, kv_lens,
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_lens, *,
-                           scale: float, k_scale=None, v_scale=None):
+                           scale: float, k_scale=None, v_scale=None,
+                           window: int = 0, softcap: float = 0.0):
     """Decode attention through a block-table paged KV pool.
 
     q: (B,HQ,hd); k_pages/v_pages: (P,bs,HKV,hd), read in place through
@@ -232,27 +251,32 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_lens, *,
 
     With ``k_scale``/``v_scale`` ((P,bs,HKV) f32) the pages are int8
     payloads and the call goes to ``paged_decode_attention_quant``.
+    ``window`` and ``softcap`` as in ``decode_attention``.
     """
     if k_scale is not None or v_scale is not None:
         return paged_decode_attention_quant(q, k_pages, v_pages, k_scale,
                                             v_scale, block_tables, kv_lens,
-                                            scale=scale)
+                                            scale=scale, window=window,
+                                            softcap=softcap)
     build.require_placed("paged_decode_attention", q)
     return _paged_op._opoverload(q, k_pages, v_pages, block_tables,
-                                 kv_lens, float(scale))
+                                 kv_lens, float(scale), _window(window),
+                                 float(softcap))
 
 
 @torch.library.custom_op("repro_torch::paged_decode_attention",
                          mutates_args=(), device_types="cpu")
 def _paged_op(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
               block_tables: torch.Tensor, kv_lens: torch.Tensor,
-              scale: float) -> torch.Tensor:
+              scale: float, window: int, softcap: float) -> torch.Tensor:
     return paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
-                                      kv_lens, scale=scale).contiguous()
+                                      kv_lens, scale=scale, window=window,
+                                      softcap=softcap).contiguous()
 
 
 @_paged_op.register_kernel("cuda")
-def _paged_launch(q, k_pages, v_pages, block_tables, kv_lens, scale):
+def _paged_launch(q, k_pages, v_pages, block_tables, kv_lens, scale, window,
+                  softcap):
     _check_paged("paged_decode_attention", q, k_pages, v_pages,
                  block_tables, kv_lens)
     if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
@@ -267,7 +291,7 @@ def _paged_launch(q, k_pages, v_pages, block_tables, kv_lens, scale):
     fn = build.function("paged_decode_attention_launch", _PAGED_ARGS)
     code = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
               out.data_ptr(), block_tables.data_ptr(), kv_lens.data_ptr(),
-              b, hq, hkv, hd, n_pages, bs, nb, scale,
+              b, hq, hkv, hd, n_pages, bs, nb, scale, window, softcap,
               q.stride(0), q.stride(1), *k_pages.stride()[:3],
               *v_pages.stride()[:3], out.stride(0), out.stride(1),
               block_tables.stride(0), *_split_args(split),
@@ -278,7 +302,8 @@ def _paged_launch(q, k_pages, v_pages, block_tables, kv_lens, scale):
 
 
 @_paged_op.register_fake
-def _paged_fake(q, k_pages, v_pages, block_tables, kv_lens, scale):
+def _paged_fake(q, k_pages, v_pages, block_tables, kv_lens, scale, window,
+                softcap):
     return q.new_empty(q.shape)
 
 
@@ -291,7 +316,8 @@ def _paged_bytes(q, pages, block_tables, kv_lens, per_position) -> float:
                  + b * nb * bs * per_position)
 
 
-def _paged_costs(q, k_pages, v_pages, block_tables, kv_lens, scale):
+def _paged_costs(q, k_pages, v_pages, block_tables, kv_lens, scale, window,
+                 softcap):
     b, hq, hd = q.shape
     nb, bs = block_tables.shape[1], k_pages.shape[1]
     per = (k_pages[0, 0].numel() * k_pages.element_size()
@@ -301,16 +327,19 @@ def _paged_costs(q, k_pages, v_pages, block_tables, kv_lens, scale):
 
 
 def paged_decode_attention_quant(q, k_pages, v_pages, k_scale, v_scale,
-                                 block_tables, kv_lens, *, scale: float):
+                                 block_tables, kv_lens, *, scale: float,
+                                 window: int = 0, softcap: float = 0.0):
     """``paged_decode_attention`` over an int8 pool: k_pages/v_pages
     (P,bs,HKV,hd) int8 and k_scale/v_scale (P,bs,HKV) f32, dequantized in
-    registers inside the kernel.  q: f32 or bf16."""
+    registers inside the kernel.  q: f32 or bf16.  ``window`` and
+    ``softcap`` as in ``decode_attention``."""
     if k_scale is None or v_scale is None:
         raise ValueError("paged_decode_attention_quant: needs both k_scale "
                          "and v_scale")
     build.require_placed("paged_decode_attention_quant", q)
     return _quant_op._opoverload(q, k_pages, v_pages, k_scale, v_scale,
-                                 block_tables, kv_lens, float(scale))
+                                 block_tables, kv_lens, float(scale),
+                                 _window(window), float(softcap))
 
 
 @torch.library.custom_op("repro_torch::paged_decode_attention_quant",
@@ -318,15 +347,15 @@ def paged_decode_attention_quant(q, k_pages, v_pages, k_scale, v_scale,
 def _quant_op(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
               k_scale: torch.Tensor, v_scale: torch.Tensor,
               block_tables: torch.Tensor, kv_lens: torch.Tensor,
-              scale: float) -> torch.Tensor:
+              scale: float, window: int, softcap: float) -> torch.Tensor:
     return paged_decode_attention_quant_ref(
         q, k_pages, v_pages, k_scale, v_scale, block_tables, kv_lens,
-        scale=scale).contiguous()
+        scale=scale, window=window, softcap=softcap).contiguous()
 
 
 @_quant_op.register_kernel("cuda")
 def _quant_launch(q, k_pages, v_pages, k_scale, v_scale, block_tables,
-                  kv_lens, scale):
+                  kv_lens, scale, window, softcap):
     name = "paged_decode_attention_quant"
     _check_paged(name, q, k_pages, v_pages, block_tables, kv_lens,
                  (k_scale, v_scale))
@@ -342,7 +371,7 @@ def _quant_launch(q, k_pages, v_pages, k_scale, v_scale, block_tables,
     code = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
               k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(),
               block_tables.data_ptr(), kv_lens.data_ptr(),
-              b, hq, hkv, hd, n_pages, bs, nb, scale,
+              b, hq, hkv, hd, n_pages, bs, nb, scale, window, softcap,
               q.stride(0), q.stride(1), *k_pages.stride()[:3],
               *v_pages.stride()[:3], *k_scale.stride(), *v_scale.stride(),
               out.stride(0), out.stride(1), block_tables.stride(0),
@@ -354,12 +383,12 @@ def _quant_launch(q, k_pages, v_pages, k_scale, v_scale, block_tables,
 
 @_quant_op.register_fake
 def _quant_fake(q, k_pages, v_pages, k_scale, v_scale, block_tables,
-                kv_lens, scale):
+                kv_lens, scale, window, softcap):
     return q.new_empty(q.shape)
 
 
 def _quant_costs(q, k_pages, v_pages, k_scale, v_scale, block_tables,
-                 kv_lens, scale):
+                 kv_lens, scale, window, softcap):
     b, hq, hd = q.shape
     nb, bs = block_tables.shape[1], k_pages.shape[1]
     per = sum(t[0, 0].numel() * t.element_size()

@@ -2,6 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
         --requests 8 --max-batch 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-3.2-1b
     PYTHONPATH=src python -m repro_torch.launch.serve --cache paged \\
         --kv-dtype int8 --num-blocks 12 --prefill-chunk 8 --offload host
 
@@ -15,6 +16,10 @@ launch-plan runtime (``eager`` op by op; the others one CUDA graph per
 segment, ``fused`` with the norm windows on the hand-written kernels);
 ``autotuned`` raises (ROADMAP Queue A, "measured characterization and
 autotune").
+``--arch`` takes every registered config (``repro_torch.configs``): the
+dense decoders, Gemma-2's local/global stack, RWKV-6 and the encoder-only
+BERT and XLM-R, which the engine serves greedily as the reference's does,
+their prompts attending each other without the causal mask.
 Weights are random, drawn on the device from a generator seeded 0; prompts
 are 12 tokens from numpy's generator seeded 0, as in the reference.  Runs
 on the GPU by default and raises without one; ``--device cpu`` runs the
@@ -36,7 +41,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, reduced
+from repro_torch.configs import get_config, list_configs, reduced
 from repro_torch.core.device_model import PLATFORMS
 from repro_torch.device import resolve_device
 from repro_torch.inference.backends import PLANS
@@ -129,7 +134,8 @@ def report(eng: ServeEngine, done: list, wall_s: float) -> dict:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--arch", default="smollm-360m",
+                    choices=list_configs())
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-batch", type=int, default=4)

@@ -1,9 +1,15 @@
-"""Causal GQA self-attention over a contiguous or a paged KV cache.
+"""GQA self-attention over a contiguous or a paged KV cache.
 
 Counterpart of the self-attention paths of ``attention_fwd`` in
 ``repro/layers/attention.py`` (cross-attention and sharding come with
 later slices; see ROADMAP).  Where the reference computes attention in
-plain XLA, the port routes it through its hand-written kernels.
+plain XLA, the port routes it through its hand-written kernels.  As there:
+q, k and v take their biases after their projections when the config has
+``qkv_bias`` (q's after the fused RMSNorm+matmul kernel produced it); the
+scores are soft-capped by ``cfg.attn_softcap``; a layer's ``window`` (its
+``sliding_window`` on an ``attn_local`` layer, else 0) limits every query
+to the last ``window`` positions; and an encoder-only family
+(``cfg.family == "encoder"``) attends without the causal mask.
 
 Contiguous cache, (B,T,HKV,hd) per layer:
 
@@ -68,12 +74,18 @@ NEG_INF = -2.3819763e38  # large negative, bf16-safe (reference value)
 
 def attention_init(gen, cfg: ModelConfig, device) -> dict:
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    return {
+    p = {
         "wq": dense_init(gen, (d, hq * hd), cfg.pdtype, device),
         "wk": dense_init(gen, (d, hkv * hd), cfg.pdtype, device),
         "wv": dense_init(gen, (d, hkv * hd), cfg.pdtype, device),
         "wo": dense_init(gen, (hq * hd, d), cfg.pdtype, device),
     }
+    if cfg.qkv_bias:
+        # zeros, as the reference builds them
+        for name, width in (("bq", hq * hd), ("bk", hkv * hd),
+                            ("bv", hkv * hd)):
+            p[name] = torch.zeros(width, dtype=cfg.pdtype, device=device)
+    return p
 
 
 def _zeros_with_scratch(shape, dtype, device) -> torch.Tensor:
@@ -231,7 +243,7 @@ def paged_attention_context(cfg: ModelConfig, b: int, s: int, device, *,
 
 
 def _paged_attention(q, k, v, cfg: ModelConfig, ctx: AttnContext,
-                     cache: dict, scale: float):
+                     cache: dict, scale: float, window: int):
     """Writes the new tokens into the pool, then attends; (B,S,HQ*hd)."""
     b, s, hq, hd = q.shape
     hkv = k.shape[2]
@@ -250,13 +262,14 @@ def _paged_attention(q, k, v, cfg: ModelConfig, ctx: AttnContext,
         with_scratch(kp)[page, off] = k_new.to(kp.dtype)
         with_scratch(vp)[page, off] = v_new.to(vp.dtype)
     if ctx.decode:
+        opts = dict(scale=scale, window=window, softcap=cfg.attn_softcap)
         if quantized:
             o = kernels.paged_decode_attention_quant(
                 q[:, 0], kp, vp, cache["k_scale"], cache["v_scale"],
-                ctx.block_tables, ctx.kv_lens, scale=scale)
+                ctx.block_tables, ctx.kv_lens, **opts)
         else:
             o = kernels.paged_decode_attention(
-                q[:, 0], kp, vp, ctx.block_tables, ctx.kv_lens, scale=scale)
+                q[:, 0], kp, vp, ctx.block_tables, ctx.kv_lens, **opts)
         return o.reshape(b, 1, hq * hd)
     ids, end = ctx.gather, ctx.kv_end
     kg = kp[ids].reshape(b, -1, hkv, hd)[:, :end]
@@ -267,30 +280,50 @@ def _paged_attention(q, k, v, cfg: ModelConfig, ctx: AttnContext,
         vg = dequantize_kv(vg, cache["v_scale"][ids].reshape(b, -1, hkv)
                            [:, :end], v.dtype)
     o = kernels.flash_attention(q.transpose(1, 2), kg.transpose(1, 2),
-                                vg.transpose(1, 2), scale=scale, causal=True,
+                                vg.transpose(1, 2), scale=scale,
+                                causal=is_causal(cfg), window=window,
                                 softcap=cfg.attn_softcap)
     return o.transpose(1, 2).reshape(b, s, hq * hd)
 
 
+def is_causal(cfg: ModelConfig) -> bool:
+    """An encoder-only family attends without the causal mask, as the
+    reference's forward does."""
+    return cfg.family != "encoder"
+
+
+def _project(h, params, name: str, heads: int, hd: int, y=None):
+    """``h @ w{name}`` (or its given product ``y``) plus ``b{name}`` when
+    the layer has biases, as (B,S,heads,hd)."""
+    if y is None:
+        y = h @ params[f"w{name}"]
+    bias = params.get(f"b{name}")
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    return y.reshape(h.shape[0], h.shape[1], heads, hd)
+
+
 def attention_fwd(params, h, q, cfg: ModelConfig, ctx: AttnContext,
-                  cache: Optional[dict] = None):
+                  cache: Optional[dict] = None, window: int = 0):
     """Self-attention of one layer; returns its output (B,S,D).
 
     ``h``: the normed input (B,S,D); ``q``: its query projection
-    ``h @ wq`` (B,S,HQ*hd), which the caller's fused RMSNorm+matmul kernel
-    produced together with ``h``.  ``cache``: this layer's {"k","v"}
-    (B,T,HKV,hd) or its pages (``make_paged_self_cache``, with a paged
-    ``ctx``), updated in place.
+    ``h @ wq`` (B,S,HQ*hd) without bias, which the caller's fused
+    RMSNorm+matmul kernel produced together with ``h``.  ``cache``: this
+    layer's {"k","v"} (B,T,HKV,hd) or its pages
+    (``make_paged_self_cache``, with a paged ``ctx``), updated in place.
+    ``window``: the layer's sliding window (0: none).
     """
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     scale = cfg.attn_scale or hd ** -0.5
     b, s = h.shape[0], h.shape[1]
-    q = apply_rope(q.reshape(b, s, hq, hd), ctx.rope)
-    k = apply_rope((h @ params["wk"]).reshape(b, s, hkv, hd), ctx.rope)
-    v = (h @ params["wv"]).reshape(b, s, hkv, hd)
+    q = apply_rope(_project(h, params, "q", hq, hd, y=q), ctx.rope)
+    k = apply_rope(_project(h, params, "k", hkv, hd), ctx.rope)
+    v = _project(h, params, "v", hkv, hd)
 
     if ctx.paged:
-        return _paged_attention(q, k, v, cfg, ctx, cache, scale) @ params["wo"]
+        return _paged_attention(q, k, v, cfg, ctx, cache, scale,
+                                window) @ params["wo"]
     if ctx.decode:
         ck, cv = cache["k"], cache["v"]
         rows, pos = ctx.pos
@@ -298,7 +331,8 @@ def attention_fwd(params, h, q, cfg: ModelConfig, ctx: AttnContext,
         with_scratch(cv)[rows, pos] = v[:, 0].to(cv.dtype)
         o = kernels.decode_attention(q[:, 0], ck.transpose(1, 2),
                                      cv.transpose(1, 2), ctx.kv_lens,
-                                     scale=scale)
+                                     scale=scale, window=window,
+                                     softcap=cfg.attn_softcap)
         o = o.reshape(b, 1, hq * hd)
     else:
         if cache is not None:
@@ -311,6 +345,7 @@ def attention_fwd(params, h, q, cfg: ModelConfig, ctx: AttnContext,
             k, v = cache["k"][:, :end], cache["v"][:, :end]
         o = kernels.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                     v.transpose(1, 2), scale=scale,
-                                    causal=True, softcap=cfg.attn_softcap)
+                                    causal=is_causal(cfg),
+                                    window=window, softcap=cfg.attn_softcap)
         o = o.transpose(1, 2).reshape(b, s, hq * hd)
     return o @ params["wo"]

@@ -1,4 +1,4 @@
 from repro_torch.models.transformer import (  # noqa: F401
-    check_supported, forward, init_params, is_recurrent, make_cache,
-    make_paged_cache,
+    check_supported, forward, init_params, is_recurrent, layer_window,
+    make_cache, make_paged_cache,
 )

@@ -1,22 +1,28 @@
-"""Decoder-only transformer: parameters, KV cache and forward.
+"""Transformer stacks: parameters, KV cache and forward.
 
 Counterpart of ``repro/models/transformer.py`` for the block patterns
-``("attn",)`` (dense GQA decoders such as SmolLM-360M) and ``("rwkv6",)``
-(RWKV-6, ``layers/rwkv.py``).  The layer stack is
-a Python loop over per-layer parameter dicts (``params["blocks"][i]``);
-``bridge.params_from_jax`` unstacks the reference's superblock axis into
-that list.
+``("attn",)`` (dense GQA decoders such as SmolLM-360M, Llama-3.2-1B,
+GPT-2, InternLM2 and CodeQwen1.5 with its qkv bias, and the encoder-only
+BERT and XLM-R, which attend without the causal mask),
+``("attn_local", "attn")`` (Gemma-2: sliding-window and global layers in
+turn, soft-capped scores) and ``("rwkv6",)`` (RWKV-6, ``layers/rwkv.py``).
+Layer i is of kind ``block_pattern[i % len(block_pattern)]``, and an
+``attn_local`` layer attends over the last ``sliding_window`` positions.
+The layer stack is a Python loop over per-layer parameter dicts
+(``params["blocks"][i]``); ``bridge.params_from_jax`` unstacks the
+reference's superblock axis into that list, superblock-major, then slot.
 
 The forward computes the reference function, with its hot spots routed
 through the hand-written kernels exactly where the reference's fused launch
 plan substitutes its Pallas kernels (``repro/runtime/rules.py``).  Per
-forward at L layers:
+forward at L layers, for both attention patterns:
 
   * ``rmsnorm_matmul(x, norm1, wq) -> (q, h)``, L times (``h @ wk`` and
-    ``h @ wv`` stay ``torch.matmul``);
+    ``h @ wv`` stay ``torch.matmul``; a q bias is added after the kernel);
   * ``decode_attention`` (decode), ``paged_decode_attention`` (decode over
     the paged pool; ``_quant`` in int8) or ``flash_attention`` (prefill and
-    paged prefill chunks), L times;
+    paged prefill chunks), L times, each with its layer's window and the
+    config's softcap;
   * ``residual_rmsnorm(x, norm2, residual=attn_out)``, L times;
   * ``residual_rmsnorm(x, final_norm)``, once.
 
@@ -53,7 +59,7 @@ from repro_torch.layers.common import (dense_init, embed_tokens, mlp_fwd,
                                        mlp_init, unembed)
 
 
-PATTERNS = (("attn",), ("rwkv6",))
+PATTERNS = (("attn",), ("attn_local", "attn"), ("rwkv6",))
 RECURRENT_KINDS = ("rwkv6", "mamba")
 
 
@@ -64,18 +70,18 @@ def is_recurrent(cfg: ModelConfig) -> bool:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for model features this slice of the port does not run."""
+    """Raise for model features this slice of the port does not run:
+    mixture-of-experts, an encoder-decoder stack, a frontend, and block
+    patterns other than ``PATTERNS`` (cross-attention, Mamba, mixed
+    stacks)."""
     if tuple(cfg.block_pattern) not in PATTERNS:
         raise NotImplementedError(
             f"{cfg.name}: block pattern {cfg.block_pattern} not ported yet, "
             "see ROADMAP Queue A, \"model features\"")
-    # the port's attention is causal; the reference runs an encoder-only
-    # family without the causal mask
     unported = [name for name, on in (
-        ("moe", cfg.moe is not None), ("encoder", cfg.n_encoder_layers > 0),
-        ("family encoder", cfg.family == "encoder"),
-        ("frontend", cfg.frontend != "none"), ("qkv_bias", cfg.qkv_bias),
-        ("attn_softcap", cfg.attn_softcap != 0.0)) if on]
+        ("moe", cfg.moe is not None),
+        ("n_encoder_layers", cfg.n_encoder_layers > 0),
+        ("frontend", cfg.frontend != "none")) if on]
     if unported:
         raise NotImplementedError(
             f"{cfg.name}: {unported} not ported yet, see ROADMAP Queue A, "
@@ -151,6 +157,13 @@ def make_paged_cache(cfg: ModelConfig, num_pages: int, block_size: int,
             for _ in range(cfg.n_layers)]
 
 
+def layer_window(cfg: ModelConfig, i: int) -> int:
+    """Layer i's sliding window: ``sliding_window`` on an ``attn_local``
+    layer, else 0 (global)."""
+    kind = cfg.block_pattern[i % len(cfg.block_pattern)]
+    return cfg.sliding_window if kind == "attn_local" else 0
+
+
 def forward(params, tokens, cfg: ModelConfig, *, cache: Optional[list] = None,
             cache_index: int = 0, lengths=None, block_tables=None):
     """Returns (logits f32 (B,S,V), cache).
@@ -204,7 +217,8 @@ def forward(params, tokens, cfg: ModelConfig, *, cache: Optional[list] = None,
             with scope("attn"):
                 o = attn.attention_fwd(
                     bp["mixer"], h, q, cfg, ctx,
-                    cache=None if cache is None else cache[i])
+                    cache=None if cache is None else cache[i],
+                    window=layer_window(cfg, i))
             with scope("norm2"):
                 h, x = kernels.residual_rmsnorm(x, bp["norm2"]["scale"],
                                                 residual=o, eps=eps)

@@ -148,11 +148,14 @@ def test_forward_calls_the_kernels_where_the_fused_plan_does(setup,
 
 
 def test_unported_features_raise():
+    from repro_torch.configs import MoEConfig
     cfg = reduced(get_config("smollm-360m"))
     gen = torch.Generator().manual_seed(0)
-    for bad in (cfg.replace(block_pattern=("attn_local", "attn")),
-                cfg.replace(qkv_bias=True), cfg.replace(attn_softcap=50.0),
-                cfg.replace(family="encoder")):
+    moe = cfg.replace(moe=MoEConfig(n_experts=4, top_k=2, d_expert=64),
+                      moe_slots=(0,))
+    for bad in (moe, cfg.replace(n_encoder_layers=2),
+                cfg.replace(frontend="vision", n_frontend_tokens=8),
+                cfg.replace(block_pattern=("attn", "xattn"))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             init_params(bad, gen, device="cpu")
     params = init_params(cfg, gen, device="cpu")
@@ -160,10 +163,9 @@ def test_unported_features_raise():
         forward(params, torch.zeros((1, 2), dtype=torch.int32), cfg,
                 cache=make_cache(cfg, 1, 8, device="cpu"),
                 lengths=np.array([1]))
-    # the reference runs an encoder non-causal; the port's forward refuses
+    # the reference's MoE layers are not ported; the port's forward refuses
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        forward(params, torch.zeros((1, 2), dtype=torch.int32),
-                cfg.replace(family="encoder"))
+        forward(params, torch.zeros((1, 2), dtype=torch.int32), moe)
     assert params["embed"].shape == (cfg.vocab_size, cfg.d_model)
 
 
@@ -185,7 +187,7 @@ def test_unported_messages_name_their_roadmap_item():
             device="cpu"),
         "speculative decoding": lambda: backend.verify(None, None, None),
         "model features": lambda: check_supported(
-            cfg.replace(family="encoder")),
+            cfg.replace(n_encoder_layers=2)),
     }
     for item, call in calls.items():
         with pytest.raises((ValueError, NotImplementedError)) as err:
