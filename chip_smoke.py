@@ -107,7 +107,31 @@ Phases (any failure exits non-zero before a result is printed):
      bites), then an engine under eager and jit, jit's tokens against
      eager's; BERT and XLM-R at full depth: one f32 non-causal forward of
      4 x 512 tokens, kernels against plain versions.  Each model is freed
-     before the next is built.
+     before the next is built;
+ 15. the measured characterization and the plan autotuner on Llama-3.2-1B
+     at full width and depth (random bf16 weights): (a)
+     ``telemetry.characterize`` over the closed-loop ``code-completion``
+     scenario (64 requests, seed 0, prompts capped at 64 tokens, outputs at
+     8, ``max_len`` 256) at batches 1-64 under ``eager`` and ``jit``,
+     printing each point's row (decode step, launch tax, dispatches,
+     TTFT/ITL p50/p99, tok/s, occupancy), its classification and each
+     plan's inflection batch; every point must emit the workload's tokens,
+     and a jit point one dispatch a decode step; then, at each batch, a jit
+     decode step split into what the engine clock counts: the graph
+     replay's device time and the logits' copy to the host (the host
+     argmax follows the clock's stop); (b) ``runtime.autotune``
+     from the eager sweep at batches 1, 4 and 16 (``Intel+H100``): the
+     saved plan table (each entry's region, candidates and pick), then the
+     workload served at each batch under ``plan="autotuned"``, whose
+     tokens must equal an engine's built with the picked plan by name;
+     (c) ``memory_pressure_sweep`` on paged SmolLM-360M at full width
+     (64 uncapped ``code-completion`` requests on 32 slots, ``max_len``
+     512, pages of 16; ``Intel+H100`` and ``GH200``, pools at 1.0 / 0.5 /
+     0.33 of the no-pressure size, bf16 and int8 pages), each row beside
+     the offload tier's measured copy time; a 0.33 pool must preempt; (d)
+     the merged Chrome trace of one eager point and the workload JSONL
+     written by ``launch.characterize.write_artifacts``, read back as strict
+     JSON with matched flow pairs and as the same requests.
 
 Phases 4, 6, 7 and 9 serve with ``--plan eager`` (``plan="eager"``): one
 dispatch a node of the traced step, whose norms are their plain versions,
@@ -132,6 +156,7 @@ JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -217,6 +242,13 @@ from repro_torch.kernels.fused.rmsnorm_matmul.ref import \
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref    # noqa: E402
 from repro_torch.kernels.rwkv6.ref import wkv6_oracle, wkv6_ref  # noqa: E402
 from repro_torch.launch import serve                       # noqa: E402
+from repro_torch.launch.autotune import print_table        # noqa: E402
+from repro_torch.launch.characterize import (              # noqa: E402
+    print_memory_sweep, print_points, write_artifacts)
+from repro_torch.runtime.autotune import autotune          # noqa: E402
+from repro_torch.telemetry.characterize import (           # noqa: E402
+    _requests, characterize, memory_pressure_sweep)
+from repro_torch.workload import load_workload             # noqa: E402
 from repro_torch.models import (forward, init_params,      # noqa: E402
                                 is_recurrent, make_cache, make_paged_cache)
 
@@ -2206,6 +2238,237 @@ def phase_others() -> tuple:
     return rows, counts
 
 
+# ------------------------------------------------------------------ phase 15
+CHAR_BATCHES = (1, 2, 4, 8, 16, 32, 64)
+CHAR_KW = dict(scenario="code-completion", n_requests=64, seed=0,
+               prompt_cap=64, output_cap=8, max_len=256,
+               platform="Intel+H100")
+TUNE_BATCHES = (1, 4, 16)
+# the pool at a serving size: 64 uncapped code-completion requests (prompts
+# 31-128 tokens) on 32 slots, pages of 16, so the full pool is 288 bf16
+# pages (189 MB) and a preemption moves a sequence's pages (up to 9, 5.9 MB)
+SWEEP_KW = dict(scenario="code-completion", n_requests=64, max_batch=32,
+                max_len=512, block_size=16, prompt_cap=None, output_cap=None,
+                platforms=("Intel+H100", "GH200"),
+                pool_fracs=(1.0, 0.5, 0.33), kv_dtypes=("bf16", "int8"))
+# the kernels each phase-15 path must launch
+CHAR_KERNELS = {
+    "characterize:eager": ("decode_attention", "flash_attention"),
+    "characterize:jit": ("decode_attention", "flash_attention",
+                         "residual_rmsnorm", "rmsnorm_matmul"),
+    "autotuned": ("decode_attention", "flash_attention"),
+    "memory_sweep": ("paged_decode_attention",
+                     "paged_decode_attention_quant", "flash_attention")}
+
+
+def check_path_launched(path: str, counts: dict) -> None:
+    idle = [k for k in CHAR_KERNELS[path] if counts[k] <= 0]
+    if idle:
+        fail(f"phase 15 {path}: {idle} launched no time")
+
+
+def characterize_sweeps(cfg, params, counts: dict) -> dict:
+    """(a): the eager and jit sweeps, checked and printed."""
+    results = {}
+    for plan in ("eager", "jit"):
+        kernels.reset_launch_counts()
+        res = characterize(cfg, params, batches=CHAR_BATCHES, plan=plan,
+                           device=DEV, **CHAR_KW)
+        torch.cuda.synchronize()
+        counts[f"characterize:{plan}"] = kernels.launch_counts()
+        check_path_launched(f"characterize:{plan}",
+                            counts[f"characterize:{plan}"])
+        want = sum(r.max_new_tokens for r in res.workload.requests)
+        print(f"phase 15: characterize {cfg.name} plan {plan}, "
+              f"{res.workload.n} {res.scenario} requests ({want} tokens), "
+              f"batches {list(CHAR_BATCHES)}:")
+        print_points(res)
+        for p in res.points:
+            print(f"  row {json.dumps(p.row())}")
+            if p.tokens_out < want:
+                fail(f"phase 15 {plan} batch {p.batch}: {p.tokens_out} "
+                     f"tokens of the workload's {want}")
+            if plan == "jit" and p.dispatches_per_decode_step != 1:
+                fail(f"phase 15 jit batch {p.batch}: "
+                     f"{p.dispatches_per_decode_step} dispatches per decode "
+                     "step, not 1")
+        print(f"phase 15: {plan} inflection batch "
+              f"{res.boundedness.inflection_batch}; classification "
+              f"{json.dumps(res.summary()['classification'])}")
+        results[plan] = res
+        torch.cuda.empty_cache()
+    return results
+
+
+def jit_step_split(cfg, params, kv_len: int = 60) -> dict:
+    """(a'): what the engine clock counts in a jit decode step at each sweep
+    batch: the graph replay's device time (CUDA events around it, each
+    waited for), the f32 logits' copy to the host, and the two back to
+    back, as ``ServeEngine.step`` times them (its host argmax of each row
+    follows the clock's stop)."""
+    rng = np.random.default_rng(3)
+    out = {}
+    for b in CHAR_BATCHES:
+        eng = ServeEngine(cfg, params, max_batch=b,
+                          max_len=CHAR_KW["max_len"], device=DEV)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, 1)))
+        lens = np.full(b, kv_len, np.int32)
+
+        def call():
+            return eng.backend.decode(eng.cache, toks, lens)[0]
+
+        call()
+        torch.cuda.synchronize()
+        device_ms = events_busy_ms(call, 20)
+        copy = []
+        for _ in range(20):
+            logits = call()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits.cpu().numpy()
+            copy.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            call().cpu().numpy()
+        step_ms = (time.perf_counter() - t0) / 20 * 1e3
+        out[b] = dict(device_ms=device_ms,
+                      copy_ms=float(np.median(copy)) * 1e3, step_ms=step_ms)
+        r = out[b]
+        print(f"phase 15: jit decode step, batch {b}, kv len {kv_len}: "
+              f"device {r['device_ms']:.3f} ms (CUDA events around the "
+              f"replay), logits copy {r['copy_ms']:.3f} ms ({b} x "
+              f"{cfg.vocab_size} f32 to the host), replay and copy back to "
+              f"back {r['step_ms']:.3f} ms (the engine clock's step)")
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_tokens(cfg, params, workload, batch: int, **kw) -> list:
+    eng = ServeEngine(cfg, params, max_batch=batch, max_len=CHAR_KW[
+        "max_len"], device=DEV, **kw)
+    done = eng.run(_requests(workload))
+    tokens = [r.generated for r in sorted(done, key=lambda r: r.rid)]
+    if len(tokens) != workload.n:
+        fail(f"phase 15 {kw}: finished {len(tokens)} of {workload.n}")
+    del eng
+    torch.cuda.empty_cache()
+    return tokens
+
+
+def autotuned_serving(cfg, params, eager, tmp: str, counts: dict) -> dict:
+    """(b): the plan table from the eager sweep, then each batch served
+    under ``plan="autotuned"`` against the picked plan by name."""
+    result = autotune(cfg, params, batches=TUNE_BATCHES,
+                      platform="Intel+H100", characterization=eager,
+                      max_len=CHAR_KW["max_len"], device=DEV)
+    path = result.table.save(f"{tmp}/plan_table.json")
+    print(f"phase 15: autotune from the eager sweep, plan table {path}:")
+    print_table(result.table)
+    auto = counts["autotuned"] = {k: 0 for k in kernels.launch_counts()}
+    for b in TUNE_BATCHES:
+        kernels.reset_launch_counts()
+        got = serve_tokens(cfg, params, eager.workload, b, plan="autotuned",
+                           plan_table=path)
+        for k, v in kernels.launch_counts().items():
+            auto[k] += v
+        picked = result.table.lookup(b)
+        want = serve_tokens(cfg, params, eager.workload, b, plan=picked)
+        if got != want:
+            fail(f"phase 15 batch {b}: autotuned tokens differ from plan "
+                 f"{picked}'s")
+        print(f"  batch {b}: autotuned:{picked} tokens equal plan {picked}'s "
+              f"in {len(got)}/{len(got)} requests")
+    check_path_launched("autotuned", auto)
+    return result.table.to_dict()
+
+
+def pressure_sweep(counts: dict) -> dict:
+    """(c): the paged memory-pressure sweep on full-width SmolLM-360M."""
+    cfg = get_config(ARCH)
+    params = model_params(cfg, 15)
+    kernels.reset_launch_counts()
+    sweep = memory_pressure_sweep(cfg, params, device=DEV, **SWEEP_KW)
+    torch.cuda.synchronize()
+    counts["memory_sweep"] = kernels.launch_counts()
+    check_path_launched("memory_sweep", counts["memory_sweep"])
+    print(f"phase 15: memory_pressure_sweep {cfg.name} (block "
+          f"{sweep['block_size']}, full pool {sweep['full_pool_blocks']} "
+          f"blocks, block bytes {sweep['block_bytes']}):")
+    print_memory_sweep(sweep)
+    for r in sweep["points"]:
+        if r["pool_frac"] == 0.33 and r["preemptions"] == 0:
+            fail(f"phase 15 memory sweep {r['platform']} {r['kv_dtype']}: "
+                 "no preemption at pool fraction 0.33")
+    del params
+    torch.cuda.empty_cache()
+    return sweep
+
+
+def strict_json(text: str, what: str):
+    def bad(const):
+        fail(f"phase 15: {what} holds {const}, not strict JSON")
+    return json.loads(text, parse_constant=bad)
+
+
+def check_artifacts(eager, tmp: str) -> dict:
+    """(d): one merged trace and the workload JSONL, read back."""
+    point = eager.points[-1]
+    paths = write_artifacts(dataclasses.replace(eager, points=[point]), tmp)
+    trace = strict_json(Path(paths[f"trace_b{point.batch}"]).read_text(),
+                        "the merged trace")
+    starts, finishes = {}, {}
+    for ev in trace["traceEvents"]:
+        if ev.get("cat") == "dispatch_flow":
+            side = starts if ev["ph"] == "s" else finishes
+            if ev["id"] in side:
+                fail(f"phase 15: flow id {ev['id']} twice")
+            side[ev["id"]] = ev
+    n_flows = len(point.modeled_events) * len(point.decode_anchors)
+    if set(starts) != set(finishes) or len(starts) != n_flows or not n_flows:
+        fail(f"phase 15: {len(starts)} flow starts, {len(finishes)} "
+             f"finishes, want {n_flows} pairs")
+    wl = load_workload(paths["workload"])
+    if [r.to_json() for r in wl.requests] != \
+            [r.to_json() for r in eager.workload.requests] or \
+            wl.meta() != eager.workload.meta():
+        fail("phase 15: the workload JSONL reloads into other requests")
+    strict_json(Path(paths["summary"]).read_text(), "characterize.json")
+    print(f"phase 15: artifacts {sorted(Path(tmp).iterdir())}: the trace "
+          f"of batch {point.batch} is strict JSON with {len(starts)} matched "
+          f"flow pairs ({len(point.decode_anchors)} decode anchors x "
+          f"{len(point.modeled_events)} modeled kernels), "
+          f"{len(trace['traceEvents'])} events; the JSONL reloads into the "
+          f"same {wl.n} requests")
+    return {k: Path(v).name for k, v in paths.items()}
+
+
+def phase_characterize() -> tuple:
+    """Phase 15: the measured characterization, the plan autotuner, the
+    memory-pressure sweep and the trace artifacts (see the module
+    docstring).  Returns ({part: numbers}, {path: launch counts})."""
+    t0 = time.perf_counter()
+    cfg = get_config(LLAMA)
+    params = model_params(cfg, 15)
+    counts = {}
+    results = characterize_sweeps(cfg, params, counts)
+    split = jit_step_split(cfg, params)
+    with tempfile.TemporaryDirectory() as tmp:
+        table = autotuned_serving(cfg, params, results["eager"], tmp,
+                                  counts)
+        del params
+        torch.cuda.empty_cache()
+        artifacts = check_artifacts(results["eager"], tmp)
+    sweep = pressure_sweep(counts)
+    secs = time.perf_counter() - t0
+    out = {"characterize": {p: r.summary() for p, r in results.items()},
+           "jit_step_split": split, "plan_table": table, "memory_sweep": sweep,
+           "artifacts": artifacts, "seconds": secs}
+    print(f"phase 15: {secs:.1f} s")
+    print("phase 15: " + json.dumps(out))
+    return out, counts
+
+
 # ------------------------------------------------------------------ main
 # which main path (its jit run, phase 11) each kernel's ``launches`` is
 # read from
@@ -2250,7 +2513,8 @@ def main() -> None:
     _, plan_counts = phase_plans(cfg, rcfg, eager, jit_done)
     _, llama_counts = phase_llama()
     _, other_counts = phase_others()
-    print(f"chip_smoke: phases 1-14 in {time.perf_counter() - t0:.1f} s")
+    _, char_counts = phase_characterize()
+    print(f"chip_smoke: phases 1-15 in {time.perf_counter() - t0:.1f} s")
 
     entries = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -2268,6 +2532,7 @@ def main() -> None:
         by_path.update({p: c[name] for p, c in plan_counts.items()})
         by_path.update({p: c[name] for p, c in llama_counts.items()})
         by_path.update({p: c[name] for p, c in other_counts.items()})
+        by_path.update({p: c[name] for p, c in char_counts.items()})
         entries.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "launches_by_path": by_path, **row})

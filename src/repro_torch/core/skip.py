@@ -17,9 +17,8 @@ Typical use:
     outcome = skip.fuse(length=16)           # chain plan: fuse + measure
     choice = skip.plan("GH200")              # cost-aware auto LaunchPlan
     ex = skip.executor(choice.plan)          # segment executor
-
-``characterize`` and ``autotune`` come with ROADMAP Queue A's "measured
-characterization and autotune" item and raise until then.
+    SKIP.characterize(cfg, params, ...)      # measured serving sweep
+    SKIP.autotune(cfg, params, ...)          # measured plan table
 """
 from __future__ import annotations
 
@@ -38,9 +37,6 @@ from repro_torch.core.tracing import Trace, trace_fn
 if TYPE_CHECKING:  # pragma: no cover
     from repro_torch.runtime import (LaunchPlan, PlanChoice, PlanExecutor,
                                      Planner)
-
-NOT_PORTED = ("not ported yet, see ROADMAP Queue A, \"measured "
-              "characterization and autotune\"")
 
 DEFAULT_BATCHES = (1, 2, 4, 8, 16, 32, 64, 128)
 
@@ -119,15 +115,26 @@ class SKIP:
     # ------------------------------------------------------------ measured
     @staticmethod
     def characterize(cfg, params, **kw):
-        """Measured serving characterization (the reference's
-        ``telemetry.characterize``)."""
-        raise ValueError(f"SKIP.characterize {NOT_PORTED}")
+        """Measured serving characterization: drive the live ServeEngine
+        with a named traffic scenario, sweep batch sizes, aggregate
+        TTFT/ITL/E2E percentiles and measured launch tax, and classify the
+        CPU/GPU-bound inflection from the measured curve.  Thin facade
+        over ``repro_torch.telemetry.characterize.characterize`` (same
+        kwargs: scenario, batches, plan, platform, n_requests, seed,
+        workload, device...).
+        """
+        from repro_torch.telemetry.characterize import characterize
+        return characterize(cfg, params, **kw)
 
     @staticmethod
     def autotune(cfg, params, **kw):
-        """Measurement-driven plan autotuning (the reference's
-        ``runtime.autotune``)."""
-        raise ValueError(f"SKIP.autotune {NOT_PORTED}")
+        """Measurement-driven plan autotuning: characterize, gate the
+        candidate plans by the measured CPU/GPU-bound region, benchmark
+        them on the live engine, and return the persisted-plan-table
+        result.  Thin facade over ``repro_torch.runtime.autotune.autotune``.
+        """
+        from repro_torch.runtime.autotune import autotune
+        return autotune(cfg, params, **kw)
 
     # ------------------------------------------------------------ fusion
     def recommend(self, length: int = 8, threshold: float = 1.0):

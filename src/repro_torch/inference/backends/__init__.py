@@ -3,7 +3,7 @@ from repro_torch.inference.backends.base import (  # noqa: F401
     BackendInfo, CallAccount, ExecutionBackend,
 )
 from repro_torch.inference.backends.local import (  # noqa: F401
-    AUTOTUNE_ITEM, NOT_PORTED, PLANS, LocalBackend,
+    NOT_PORTED, PLANS, LocalBackend,
 )
 
 

@@ -7,10 +7,12 @@ source of numerics for every backend and plan: anything that changes
 logits or cache writes belongs here.
 
 Each body takes its per-step inputs (tokens, lengths, block tables, the
-prefill's slot) as device tensors of fixed shape and its shape-setting
-arguments (``plen``, the chunk's ``t0``) as Python ints, and picks nothing
-by value on the host, so ``LocalBackend`` can capture it as a CUDA graph
-and replay it for any input values.
+prefill's slot and prompt length) as device tensors of fixed shape and its
+shape-setting argument (the chunk's ``t0``) as a Python int, and picks
+nothing by value on the host, so ``LocalBackend`` can capture it as a CUDA
+graph and replay it for any input values.  The prompt length is a device
+input (the reference keeps it static, one compile per length): one capture
+or trace then serves every prompt of a bucket.
 """
 from __future__ import annotations
 
@@ -57,20 +59,20 @@ def _zeroed_row(cache) -> list:
 
 
 def make_step_bodies(cfg: ModelConfig) -> StepBodies:
-    def prefill_body(params, cache, tokens, slot, plen: int):
+    def prefill_body(params, cache, tokens, slot, plen):
         # tokens: (1, bucket) padded, or exactly the plen prompt tokens for
-        # a recurrent stack or an encoder (engine.py); slot: (1,) device
-        # index.  The prompt is written into a zeroed one-row cache, as the
-        # reference zeroes the slot's rows first, so nothing of a previous
-        # occupant (KV or recurrent state) survives; that row then replaces
-        # the slot's by a device index.
+        # a recurrent stack or an encoder (engine.py); slot, plen: (1,)
+        # device ints.  The prompt is written into a zeroed one-row cache,
+        # as the reference zeroes the slot's rows first, so nothing of a
+        # previous occupant (KV or recurrent state) survives; that row then
+        # replaces the slot's by a device index.
         row = _zeroed_row(cache)
         logits, _ = forward(params, tokens, cfg, cache=row, cache_index=0)
         index = slot.long()
         for c, r in zip(cache, row):
             for name, t in c.items():
                 t.index_copy_(0, index, r[name])
-        return logits[:, plen - 1], cache
+        return logits.index_select(1, plen.long() - 1)[:, 0], cache
 
     def decode_body(params, cache, tokens, lengths):
         logits, cache = forward(params, tokens, cfg, cache=cache,

@@ -15,15 +15,15 @@ and the paged cache (speculative verify is not ported yet, ROADMAP Queue A,
     in a memory pool of its own, and replayed.  On a hit one copy from a
     pinned staging buffer refreshes the graph's static inputs and one
     ``replay()`` runs the step.  The signature keeps static what the
-    reference keeps static: a contiguous prefill keys on ``plen`` and the
-    bucket (the slot is a device input), an RWKV prefill on its exact
-    prompt length, a decode step on the batch and table width.  A paged
-    prefill chunk keys on its length and on ``t0``, which the reference
-    traces: here ``t0`` sets how many pages the chunk gathers and
-    ``flash_attention``'s host ``kv_len``, so it is static.  A failed
-    capture or replay raises; nothing falls back to eager.  A miss's host
-    time includes its warm-up and capture, as the reference's first jit
-    call includes its compile.  On the CPU (the tests) ``"jit"`` runs the
+    reference keeps static, but for the prompt length: a contiguous
+    prefill keys on its bucket (the slot and ``plen`` are device inputs),
+    an RWKV or encoder prefill on its exact prompt length, a decode step
+    on the batch and table width.  A paged prefill chunk keys on its
+    length and on ``t0``, which the reference traces: here ``t0`` sets
+    how many pages the chunk gathers and ``flash_attention``'s host
+    ``kv_len``, so it is static.  A failed capture or replay raises;
+    nothing falls back to eager.  A miss's host time includes its warm-up
+    and capture, as the reference's first jit call includes its compile.  On the CPU (the tests) ``"jit"`` runs the
     same fixed-shape body without capture.
   * ``"eager"``, ``"whole_graph"``, ``"chain"``, ``"auto"`` and
     ``"fused"`` route through the launch-plan runtime, as the reference's
@@ -42,9 +42,10 @@ and the paged cache (speculative verify is not ported yet, ROADMAP Queue A,
     ``rmsnorm_matmul`` and ``residual_rmsnorm`` kernels; under the other
     planned strategies the norms run as their plain versions.
 
-``"autotuned"`` raises ``ValueError`` (ROADMAP Queue A, "measured
-characterization and autotune").  Every plan runs the same bodies
-(``bodies.py``) on the same device tensors.
+``"autotuned"`` is not a backend plan: the engine resolves its plan
+table to one of these before it builds the backend, as the reference
+does.  Every plan runs the same bodies (``bodies.py``) on the same device
+tensors.
 
 Accounting, per call: the host time around it without a device sync, as
 the reference measures its jit dispatch; the launches of the hand-written
@@ -89,7 +90,6 @@ NOT_PORTED = "not ported yet, see ROADMAP Queue A"
 _TRACES: OrderedDict = OrderedDict()
 _TRACES_MAX = 64
 PLANS = ("jit", "eager", "whole_graph", "chain", "auto", "fused")
-AUTOTUNE_ITEM = "measured characterization and autotune"
 
 
 def _host_ints(x, shape) -> np.ndarray:
@@ -229,9 +229,6 @@ class LocalBackend(AccountingMixin):
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int,
                  max_len: int, plan: str = "jit", device="cuda",
                  platform: str = "Intel+H100"):
-        if plan == "autotuned":
-            raise ValueError(f"plan {plan!r} {NOT_PORTED}, "
-                             f"\"{AUTOTUNE_ITEM}\" (runtime/autotune.py)")
         if plan not in PLANS:
             raise ValueError(f"unknown plan {plan!r}; expected one of "
                              f"{PLANS}")
@@ -316,7 +313,7 @@ class LocalBackend(AccountingMixin):
                 self._programs[(key, layout)] = hit
             staging, prog = hit
             staging.load(arrays)
-            outs = prog.replay(host_times)
+            outs = pf.executor.replay(prog, host_times)
             launches = dict(prog.launches)
         else:
             inputs = self._device_inputs(arrays, shapes)
@@ -480,7 +477,8 @@ class LocalBackend(AccountingMixin):
         """Write one prompt into a slot; (last-position logits, cache)."""
         toks = _host_ints(tokens, (1, -1))
         return self._call("prefill", cache,
-                          [toks, np.array([slot], np.int32)], (int(plen),))
+                          [toks, np.array([slot], np.int32),
+                           np.array([plen], np.int32)], ())
 
     def decode(self, cache, tokens, lengths):
         """One batched decode step; ``lengths`` (B,) host values."""

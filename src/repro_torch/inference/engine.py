@@ -29,9 +29,14 @@ Device work goes through an ``ExecutionBackend`` (``backends.local``):
 one CUDA graph; ``"eager"``, ``"whole_graph"``, ``"chain"``, ``"auto"``
 and ``"fused"`` run it through the launch-plan runtime (``runtime/``),
 whose dispatches, modeled TKLQT and fused rule hits the stats count.
-``plan="autotuned"``, speculative decoding, tensor parallelism, the
-request tracer and the boundedness monitor are not ported yet: asking for
-any of them raises ``ValueError`` rather than being ignored.
+``plan="autotuned"`` serves the plan a measured ``PlanTable``
+(``runtime.autotune``) picked for ``max_batch``.  ``telemetry=`` (a
+``SpanRecorder``) records prefill, decode and per-segment dispatch spans
+on the serving clock; ``monitor=`` (on by default, as in the reference)
+classifies the live decode steps CPU- or GPU-bound
+(``telemetry.monitor``).  Speculative decoding, tensor parallelism and
+the request tracer are not ported yet: asking for any of them raises
+``ValueError`` naming its ROADMAP Queue A item rather than being ignored.
 """
 from __future__ import annotations
 
@@ -257,20 +262,20 @@ class ServeEngine:
 
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 4,
                  max_len: int = 256, plan: str = "jit", device="cuda",
-                 platform: str = "Intel+H100", plan_table=None, tp: int = 1,
+                 platform: str = "Intel+H100", plan_table=None,
+                 telemetry=None, tp: int = 1,
                  cache: str = "contiguous", block_size: int = 16,
                  num_blocks: Optional[int] = None, offload: str = "none",
                  prefill_chunk: Optional[int] = None,
                  kv_dtype: str = "bf16", share_prefix: bool = False,
                  speculative: bool = False,
-                 monitor=None, tracer=None):
-        unported = [name for name, asked in (
-            ("plan_table", plan_table is not None),
-            ("speculative", bool(speculative)),
-            ("monitor", bool(monitor)),
-            ("tracer", tracer is not None)) if asked]
-        if unported:
-            raise ValueError(f"{', '.join(unported)} {NOT_PORTED}")
+                 monitor=True, tracer=None):
+        if speculative:
+            raise ValueError(f"speculative= {NOT_PORTED}, \"speculative "
+                             "decoding\"")
+        if tracer is not None:
+            raise ValueError(f"tracer= {NOT_PORTED}, \"fleet, router, "
+                             "request tracing\"")
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch} "
                              "(an engine with no slots can never admit)")
@@ -298,6 +303,11 @@ class ServeEngine:
             raise ValueError(
                 "kv_dtype= and share_prefix= need cache='paged' (the "
                 "contiguous cache has no pages to quantize or share)")
+        if plan == "autotuned":
+            plan = self._autotuned_plan(cfg, plan_table, max_batch, platform)
+            self.plan_label = f"autotuned:{plan}"
+        else:
+            self.plan_label = plan
         self.cfg = cfg
         self.params = params
         self.B = max_batch
@@ -312,7 +322,7 @@ class ServeEngine:
         self.backend = make_backend(cfg, params, max_batch=max_batch,
                                     max_len=max_len, tp=tp, plan=plan,
                                     device=device, platform=platform)
-        self.plan = self.plan_label = self.backend.plan
+        self.plan = self.backend.plan
         self.tp = self.backend.info.tp
         self.kv_dtype = kv_dtype
         self.share_prefix = bool(share_prefix)
@@ -347,15 +357,61 @@ class ServeEngine:
         self.slots: list[Optional[Request]] = [None] * max_batch
         self.registry = MetricsRegistry()
         self.stats = EngineStats(plan=self.plan_label, registry=self.registry)
+        self.telemetry = telemetry          # Optional[SpanRecorder]
+        # live boundedness monitor: True -> create one, False/None -> off,
+        # or pass a BoundednessMonitor instance to share across engines
+        if monitor is True:
+            # imported here: the monitor imports characterize, which
+            # imports this module
+            from repro_torch.telemetry.monitor import BoundednessMonitor
+            self.monitor = BoundednessMonitor()
+        else:
+            self.monitor = monitor or None
         # virtual serving clock (seconds): advances by measured wall time
         # while the engine works, jumps over idle gaps of open-loop arrivals
         self.now = 0.0
         self._bind_telemetry()
 
+    @staticmethod
+    def _autotuned_plan(cfg, plan_table, max_batch: int,
+                        platform: str) -> str:
+        """The plan a measured ``PlanTable`` picked for ``max_batch``,
+        after the reference's checks that the table was tuned for this
+        model, width and platform."""
+        from repro_torch.runtime.autotune import PlanTable
+        if plan_table is None:
+            raise ValueError(
+                "plan='autotuned' needs plan_table= (a PlanTable, "
+                "a dict, or a path to a saved plan table)")
+        table = PlanTable.from_any(plan_table)
+        if table.arch and table.arch != cfg.name:
+            raise ValueError(
+                f"plan table was autotuned for arch {table.arch!r}, engine "
+                f"config is {cfg.name!r}; re-run repro_torch.launch."
+                "autotune for this model")
+        if table.d_model and table.d_model != cfg.d_model:
+            raise ValueError(
+                f"plan table was autotuned at d_model={table.d_model} "
+                "(reduced() keeps the arch name), engine config has "
+                f"d_model={cfg.d_model}; re-run repro_torch.launch.autotune "
+                "against this exact config")
+        if table.platform and table.platform != platform:
+            raise ValueError(
+                f"plan table was autotuned for platform {table.platform!r}, "
+                f"engine uses {platform!r}; re-run repro_torch.launch."
+                "autotune for this platform")
+        return table.lookup(max_batch)
+
     # ------------------------------------------------------------ internals
     @property
     def timings(self) -> dict:
         return self.stats.timings
+
+    @property
+    def _planned_decode(self):
+        """The decode ``_PlannedFn`` when a launch-plan mode is active (the
+        reference's engine attribute, read by telemetry)."""
+        return self.backend.planned_decode
 
     @staticmethod
     def _bucket(n: int) -> int:
@@ -390,6 +446,27 @@ class ServeEngine:
         for nm in acct.rule_names:
             self.stats.rule_hits[nm] = self.stats.rule_hits.get(nm, 0) + 1
 
+    def _record_segments(self, acct: CallAccount, t_begin: float) -> None:
+        """Per-segment dispatch spans on the engine clock: the measured
+        host times of the last planned call, laid out back to back from
+        the step's start (tid 1 of the merged Chrome trace)."""
+        if not self.telemetry.enabled:
+            return
+        t = t_begin
+        for name, h in zip(acct.segment_names, acct.segment_host_times):
+            self.telemetry.add(name, "dispatch", t, t + h, tid=1)
+            t += h
+
+    def _note_step(self, batch: int, dt: float, acct: CallAccount) -> None:
+        """One decode step into the step-time histogram and the live
+        boundedness monitor (measured step time and launch tax, and the
+        step's per-operator attribution under a launch plan)."""
+        self._h_step.observe(dt)
+        if self.monitor is not None:
+            self.monitor.observe(batch, dt, acct.host_time_s)
+            if acct.attribution is not None:
+                self.monitor.observe_operators(acct.attribution.rows)
+
     def _bind_telemetry(self) -> None:
         reg = self.registry
         self.backend.bind_metrics(reg)
@@ -397,6 +474,10 @@ class ServeEngine:
             self.kv.pool.bind_metrics(reg)
         if self.offload_tier is not None:
             self.offload_tier.bind_metrics(reg)
+        if self.telemetry is not None:
+            self.telemetry.bind_metrics(reg)
+        if self.monitor is not None:
+            self.monitor.bind_metrics(reg)
         self._h_step = reg.histogram("engine_step_time_seconds",
                                      "decode step wall time")
         self._h_ttft = reg.histogram(
@@ -445,8 +526,10 @@ class ServeEngine:
         t0 = time.perf_counter()
         logits, self.cache = self.backend.prefill(
             self.cache, torch.from_numpy(toks), slot, plen)
-        self._absorb(self.backend.last, decode=False)
+        acct = self.backend.last
+        self._absorb(acct, decode=False)
         first = self._sample(logits[0])
+        t_begin = self.now
         self.now += time.perf_counter() - t0
         req.generated.append(first)
         self.stats.prefills += 1
@@ -461,6 +544,10 @@ class ServeEngine:
             req.status = "active"
             self.slots[slot] = req
             self.lengths[slot] = plen
+        if self.telemetry is not None:
+            self.telemetry.add(f"prefill[{plen}]", "prefill", t_begin,
+                               self.now, rid=req.rid, slot=slot, plen=plen)
+            self._record_segments(acct, t_begin)
         return True
 
     # ------------------------------------------------------------ paged api
@@ -671,11 +758,18 @@ class ServeEngine:
         t_start = time.perf_counter()
         logits, self.cache = self.backend.prefill_chunk(
             self.cache, torch.from_numpy(toks), bt, task.pos)
-        self._absorb(self.backend.last, decode=False)
+        acct = self.backend.last
+        self._absorb(acct, decode=False)
         task.last_logits = logits
         task.pos += chunk_len
         self.stats.prefill_chunks += 1
+        t_begin = self.now
         self.now += time.perf_counter() - t_start
+        if self.telemetry is not None:
+            self.telemetry.add(f"prefill_chunk[{chunk_len}]", "prefill",
+                               t_begin, self.now, rid=task.req.rid,
+                               slot=task.slot, pos=task.pos)
+            self._record_segments(acct, t_begin)
 
     def _finish_prefill(self, task: _PrefillTask) -> None:
         """Complete a chunked prefill: emit the first token (or nothing
@@ -758,15 +852,18 @@ class ServeEngine:
         t0 = time.perf_counter()
         logits, self.cache = self.backend.paged_decode(
             self.cache, torch.from_numpy(toks), self.lengths.copy(), bt)
-        self._absorb(self.backend.last, decode=True)
+        acct = self.backend.last
+        self._absorb(acct, decode=True)
         self.stats.decode_steps += 1
         self.stats.slot_occupancy.append(len(active))
         self.stats.block_pool_utilization.append(self.kv.pool.utilization)
         logits_np = logits.cpu().numpy()
         dt = time.perf_counter() - t0
+        t_begin = self.now
         self.now += dt
         self.stats.step_times_s.append(dt)
-        self._h_step.observe(dt)
+        self._note_step(len(active), dt, acct)
+        self._record_decode(len(active), t_begin, acct)
         for i in active:
             req = self.slots[i]
             self.lengths[i] += 1
@@ -782,6 +879,13 @@ class ServeEngine:
                     timing.done_s = self.now
                 self._release_slot(i, req)
         return True
+
+    def _record_decode(self, batch: int, t_begin: float,
+                       acct: CallAccount) -> None:
+        if self.telemetry is not None:
+            self.telemetry.add(f"decode[b={batch}]", "decode", t_begin,
+                               self.now, batch=batch)
+            self._record_segments(acct, t_begin)
 
     def step(self) -> None:
         """One decode step for all active slots (paged: after one chunk of
@@ -800,14 +904,17 @@ class ServeEngine:
         t0 = time.perf_counter()
         logits, self.cache = self.backend.decode(
             self.cache, torch.from_numpy(toks), self.lengths.copy())
-        self._absorb(self.backend.last, decode=True)
+        acct = self.backend.last
+        self._absorb(acct, decode=True)
         self.stats.decode_steps += 1
         self.stats.slot_occupancy.append(len(active))
         logits_np = logits.cpu().numpy()
         dt = time.perf_counter() - t0
+        t_begin = self.now
         self.now += dt
         self.stats.step_times_s.append(dt)
-        self._h_step.observe(dt)
+        self._note_step(len(active), dt, acct)
+        self._record_decode(len(active), t_begin, acct)
         for i in active:
             req = self.slots[i]
             self.lengths[i] += 1
@@ -897,8 +1004,11 @@ class ServeEngine:
         return done
 
     def reset(self) -> None:
-        """Clear serving state (slots, stats, clock, timings) but keep the
-        backend and its built kernels: warmup run, reset, measured run."""
+        """Clear serving state (slots, stats, clock, timings, monitor
+        windows, spans) but keep the backend, its built kernels, captured
+        graphs and traced plans: the cache is zeroed in place, so every
+        graph keyed on its addresses replays (warmup run, reset, measured
+        run)."""
         for c in self.cache:
             for t in c.values():
                 t.zero_()
@@ -907,6 +1017,10 @@ class ServeEngine:
         self.registry = MetricsRegistry()
         self.stats = EngineStats(plan=self.plan_label, registry=self.registry)
         self.now = 0.0
+        if self.monitor is not None:
+            self.monitor.clear()
+        if self.telemetry is not None:
+            self.telemetry.clear()
         self._pending = []
         if self.cache_mode == "paged":
             self.kv.reset()

@@ -14,8 +14,8 @@ each step as one CUDA graph (``inference.backends.local``); ``eager``,
 ``whole_graph``, ``chain``, ``auto`` and ``fused`` run it through the
 launch-plan runtime (``eager`` op by op; the others one CUDA graph per
 segment, ``fused`` with the norm windows on the hand-written kernels);
-``autotuned`` raises (ROADMAP Queue A, "measured characterization and
-autotune").
+``--plan autotuned --plan-table plan_table.json`` serves the plan that
+``repro_torch.launch.autotune`` measured best for ``--max-batch``.
 ``--arch`` takes every registered config (``repro_torch.configs``): the
 dense decoders, Gemma-2's local/global stack, RWKV-6 and the encoder-only
 BERT and XLM-R, which the engine serves greedily as the reference's does,
@@ -30,7 +30,8 @@ fills (``dispatches_per_decode_step``, ``modeled_tklqt_us`` and
 graphs captured (count, seconds, device memory) and the traces of the
 planned bodies (count, nodes, seconds); under ``--cache
 paged`` also the reference's paged fields and the measured device time of
-the offload copies.
+the offload copies; and ``boundedness``, the live monitor's verdict over
+the measured decode steps (``telemetry.monitor``).
 """
 from __future__ import annotations
 
@@ -129,6 +130,8 @@ def report(eng: ServeEngine, done: list, wall_s: float) -> dict:
         "graph_memory_bytes": graphs.memory_bytes,
         "kernel_launches_per_decode_step": st.kernel_launches_per_decode_step,
         "prefill_kernel_launches": st.prefill_kernel_launches,
+        "boundedness": (eng.monitor.summary() if eng.monitor is not None
+                        else None),
     }
 
 
@@ -146,7 +149,12 @@ def main(argv=None):
                     help="jit: each step one CUDA graph replay (captured "
                          "once per signature); eager: op by op; "
                          "whole_graph, chain, auto, fused: a launch plan "
-                         "over the step's trace, one CUDA graph a segment")
+                         "over the step's trace, one CUDA graph a segment; "
+                         "autotuned: the plan --plan-table picked for "
+                         "--max-batch")
+    ap.add_argument("--plan-table", default=None,
+                    help="plan_table.json from repro_torch.launch.autotune "
+                         "(required with --plan autotuned)")
     ap.add_argument("--platform", default="Intel+H100",
                     choices=sorted(PLATFORMS),
                     help="the paper's platform row whose host link prices "
@@ -193,7 +201,8 @@ def main(argv=None):
     params = init_params(cfg, gen, device=dev)
     eng = ServeEngine(cfg, params, max_batch=args.max_batch,
                       max_len=args.max_len, plan=args.plan, device=dev,
-                      platform=args.platform, cache=args.cache,
+                      platform=args.platform, plan_table=args.plan_table,
+                      cache=args.cache,
                       block_size=args.block_size, num_blocks=args.num_blocks,
                       offload=args.offload, prefill_chunk=args.prefill_chunk,
                       kv_dtype=args.kv_dtype,

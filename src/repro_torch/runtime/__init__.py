@@ -3,8 +3,9 @@
 Counterpart of ``repro/runtime``: ``LaunchPlan`` partitions a kernel
 trace, ``Planner`` picks boundaries analytically against the TKLQT device
 model, ``PlanExecutor`` runs the plan's segments directly or as CUDA
-graphs.  ``runtime/autotune.py`` comes with ROADMAP Queue A's "measured
-characterization and autotune" item.
+graphs, and ``runtime.autotune`` picks a plan per slot-pool size from
+measured serving (``PlanTable``, served by
+``ServeEngine(plan="autotuned")``).
 """
 from repro_torch.runtime.executor import (PlanExecutor,  # noqa: F401
                                           cache_stats, clear_cache)

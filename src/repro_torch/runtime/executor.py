@@ -33,7 +33,7 @@ from torch.fx import Node
 
 from repro_torch import kernels
 from repro_torch.core.tracing import Trace
-from repro_torch.runtime.plan import LaunchPlan
+from repro_torch.runtime.plan import LaunchPlan, segment_label
 from repro_torch.runtime.rules import get_rule
 
 # (trace.token, plan.key(), input signature) -> _Program
@@ -117,13 +117,18 @@ class _Program:
         self.keep = frozenset()        # and those its direct segments read
         self.launches: dict = {}       # hand-written launches per replay
 
-    def run(self, env: dict, host_times: list, measure: bool = False):
+    def run(self, env: dict, host_times: list, measure: bool = False,
+            starts: Optional[list] = None):
+        """Dispatch every segment directly; each one's host time goes to
+        ``host_times`` (and its start, when asked, to ``starts``)."""
         for s in self.segments:
             t0 = time.perf_counter()
             s.run(env)
             if measure and torch.cuda.is_available():
                 torch.cuda.synchronize()
             host_times.append(time.perf_counter() - t0)
+            if starts is not None:
+                starts.append(t0)
         return self.trace.outputs(env)
 
     def capture(self, env: dict, stream, pool) -> None:
@@ -147,7 +152,8 @@ class _Program:
                 total[k] = total.get(k, 0) + v
         self.launches = total
 
-    def replay(self, host_times: list) -> list:
+    def replay(self, host_times: list, starts: Optional[list] = None
+               ) -> list:
         env = self.env
         for s in self.segments:
             t0 = time.perf_counter()
@@ -156,6 +162,8 @@ class _Program:
             else:
                 s.run(env, self.keep)
             host_times.append(time.perf_counter() - t0)
+            if starts is not None:
+                starts.append(t0)
         kernels.credit_launches(self.launches)
         return self.trace.outputs(env)
 
@@ -185,12 +193,22 @@ def _capture(seg: _Segment, env: dict, pool, keep):
 
 
 class PlanExecutor:
-    """Executes a trace segment by segment under a LaunchPlan."""
+    """Executes a trace segment by segment under a LaunchPlan.
 
-    def __init__(self, trace: Trace, plan: Optional[LaunchPlan] = None):
+    ``recorder`` (a ``repro_torch.telemetry.spans.SpanRecorder``) gets one
+    ``dispatch`` span per segment launch or graph replay, on tid 1, with
+    the segment's index and its operators.  Timestamps are raw
+    ``perf_counter`` values: do not share one recorder with
+    ``ServeEngine``, whose spans sit on its serving clock (the engine lays
+    the segment times onto that clock itself, ``_record_segments``).
+    """
+
+    def __init__(self, trace: Trace, plan: Optional[LaunchPlan] = None, *,
+                 recorder=None):
         self.trace = trace
         self.plan = plan or LaunchPlan.eager(len(trace.kernels))
         self.plan.validate(len(trace.kernels))
+        self.recorder = recorder
         self._program = None
         self._seg_ops = None
 
@@ -228,8 +246,31 @@ class PlanExecutor:
         (flat outputs, host time per segment)."""
         prog = self._program or self._build()
         host_times: list = []
-        outs = prog.run(self.trace.env(flat), host_times, measure)
+        starts = self._starts()
+        outs = prog.run(self.trace.env(flat), host_times, measure, starts)
+        self._record(starts, host_times)
         return outs, host_times
+
+    def replay(self, prog: "_Program", host_times: list) -> list:
+        """Replay a program ``capture`` returned; its flat outputs."""
+        starts = self._starts()
+        outs = prog.replay(host_times, starts)
+        self._record(starts, host_times)
+        return outs
+
+    def _starts(self) -> Optional[list]:
+        rec = self.recorder
+        return [] if rec is not None and rec.enabled else None
+
+    def _record(self, starts: Optional[list], host_times: list) -> None:
+        """One ``dispatch`` span per segment (the reference executor's)."""
+        if starts is None:
+            return
+        ops = self.segment_operators()
+        for si, (t0, h) in enumerate(zip(starts, host_times)):
+            self.recorder.add(
+                segment_label(self.trace.kernels, self.plan.segments[si]),
+                "dispatch", t0, t0 + h, tid=1, segment=si, ops=ops[si])
 
     def run(self, *args, measure: bool = False):
         """Execute all segments; returns (flat outputs, host time/segment)."""

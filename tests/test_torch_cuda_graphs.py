@@ -30,6 +30,7 @@ from repro_torch.inference.engine import Request, ServeEngine
 from repro_torch.kernels.decode_attention.ops import split_plan
 from repro_torch.models import init_params, make_cache, make_paged_cache
 from repro_torch.runtime import PlanExecutor, Planner
+from repro_torch.telemetry.spans import SpanRecorder
 
 pytestmark = pytest.mark.cuda
 MAX_LEN = 64
@@ -229,7 +230,7 @@ def test_plan_replays_its_direct_output(dev, arch, plan):
     """A launch plan of the decode body, captured one CUDA graph a segment
     and replayed, against the same plan dispatched directly: the same
     logits and the same cache, bit for bit (the RWKV state restored
-    before each run)."""
+    before each run); the executor's recorder gets a span a segment."""
     cfg, params = _model(arch, dev)
     cache = make_cache(cfg, 2, MAX_LEN, device=dev)
     leaves = [t for layer in cache for t in layer.values()]
@@ -263,9 +264,15 @@ def test_plan_replays_its_direct_output(dev, arch, plan):
     restore()
     prog = ex.capture(flat, stream)
     torch.cuda.synchronize()
-    for _ in range(2):
+    ex.recorder = SpanRecorder()
+    for i in range(2):
         restore()
-        got = prog.replay([])[0]
+        host = []
+        got = ex.replay(prog, host)[0]
         torch.cuda.synchronize()
         assert torch.equal(got, want)
         assert all(torch.equal(a, b) for a, b in zip(leaves, want_cache))
+        # one dispatch span a segment's replay (or direct views segment)
+        spans = ex.recorder.spans[i * len(host):]
+        assert len(host) == lp.n_launches == len(spans)
+        assert [s.args["segment"] for s in spans] == list(range(len(host)))

@@ -19,7 +19,8 @@ RWKV-6 (2 layers, f32) with the reference's weights bridged bit for bit:
     of the traced step, whose hand-written kernel nodes are the jit step's
     attention (or wkv6) launches: eager runs the norms as their plain
     versions, as the reference's planned modes do;
-  * every launch-plan strategy but ``autotuned`` serves the jit tokens.
+  * every launch-plan strategy serves the jit tokens (``autotuned``
+    through its plan table).
 """
 import contextlib
 import io
@@ -268,11 +269,25 @@ def test_dropped_paged_writes_leave_the_visible_pool_alone(smollm, kv_dtype):
 
 
 @pytest.mark.parametrize("plan", ["autotuned"])
-def test_launch_plan_strategies_stay_unported(smollm, plan):
+def test_autotuned_plan_serves_the_jit_tokens(smollm, plan):
+    """``plan="autotuned"`` serves the plan its table picked for the slot
+    count (here ``whole_graph``), with the jit plan's tokens."""
     _, cfg, _, params = smollm
-    with pytest.raises(ValueError, match="autotune"):
-        ServeEngine(cfg, params, max_batch=2, max_len=MAX_LEN, plan=plan,
-                    device="cpu")
+    table = {"version": 1, "arch": cfg.name, "d_model": cfg.d_model,
+             "platform": "Intel+H100",
+             "entries": {"2": {"batch": 2, "region": "GPU-bound",
+                               "selected": "whole_graph"}}}
+    runs = {}
+    for name, kw in (("jit", {}), (plan, dict(plan_table=table))):
+        eng = ServeEngine(cfg, params, max_batch=2, max_len=MAX_LEN,
+                          plan=name, device="cpu", **kw)
+        runs[name] = (eng, [r.generated for r in eng.run(
+            _requests(Request, cfg.vocab_size))])
+    eng = runs[plan][0]
+    assert eng.plan == "whole_graph"
+    assert eng.stats.plan == "autotuned:whole_graph"
+    assert eng.stats.dispatches_per_decode_step == 1
+    assert runs[plan][1] == runs["jit"][1]
 
 
 @pytest.fixture(scope="module")

@@ -175,21 +175,25 @@ def test_unported_messages_name_their_roadmap_item():
     import re
 
     from repro_torch.inference.backends import LocalBackend, make_backend
+    from repro_torch.inference.engine import ServeEngine
     from repro_torch.models import check_supported
+    from repro_torch.telemetry.characterize import spec_sweep, tp_sweep
     cfg = reduced(get_config("smollm-360m"))
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     backend = LocalBackend(cfg, params, max_batch=1, max_len=8, device="cpu")
-    calls = {
-        "tensor parallel": lambda: make_backend(cfg, params, max_batch=1,
-                                                max_len=8, tp=2),
-        "measured characterization and autotune": lambda: LocalBackend(
-            cfg, params, max_batch=1, max_len=8, plan="autotuned",
-            device="cpu"),
-        "speculative decoding": lambda: backend.verify(None, None, None),
-        "model features": lambda: check_supported(
-            cfg.replace(n_encoder_layers=2)),
-    }
-    for item, call in calls.items():
+    calls = [
+        ("tensor parallel", lambda: make_backend(cfg, params, max_batch=1,
+                                                 max_len=8, tp=2)),
+        ("tensor parallel", lambda: tp_sweep(cfg, params)),
+        ("fleet, router, request tracing", lambda: ServeEngine(
+            cfg, params, max_batch=1, max_len=8, device="cpu",
+            tracer=object())),
+        ("speculative decoding", lambda: backend.verify(None, None, None)),
+        ("speculative decoding", lambda: spec_sweep(cfg, params)),
+        ("model features", lambda: check_supported(
+            cfg.replace(n_encoder_layers=2))),
+    ]
+    for item, call in calls:
         with pytest.raises((ValueError, NotImplementedError)) as err:
             call()
         msg = str(err.value)

@@ -3,9 +3,10 @@
 Six requests of ragged prompt lengths and budgets through ``max_batch 2``
 (so slots are reused): greedy tokens byte-identical to the JAX
 ``ServeEngine(plan="jit")`` on the same bridged weights, with the same
-scheduling counters.  Also: without ``device=`` the engine asks for the GPU
-and raises where there is none, and every feature not ported yet raises
-(the paged cache's parity is in ``test_torch_paged_serve.py``).
+scheduling counters, also under ``plan="autotuned"`` and with the live
+monitor.  Also: without ``device=`` the engine asks for the GPU and raises
+where there is none, and every feature not ported yet raises (the paged
+cache's parity is in ``test_torch_paged_serve.py``).
 """
 import contextlib
 import io
@@ -90,13 +91,37 @@ def test_engine_defaults_to_the_gpu(setup):
 @pytest.mark.parametrize("kw", [
     dict(cache="paged", speculative=True),
     dict(cache="paged", tracer=object()), dict(speculative=True),
-    dict(tp=2), dict(plan="autotuned"), dict(monitor=True), dict(tracer=object()),
-    dict(plan_table={})])
+    dict(tp=2), dict(tracer=object())])
 def test_unported_options_raise(setup, kw):
     _, cfg, _, params = setup
     with pytest.raises(ValueError, match="ROADMAP"):
         ServeEngine(cfg, params, max_batch=2, max_len=MAX_LEN, device="cpu",
                     **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(plan="autotuned", plan_table={
+        "version": 1, "arch": "smollm-360m", "platform": "Intel+H100",
+        "entries": {"1": {"batch": 1, "region": "CPU-bound",
+                          "selected": "chain"}}}),
+    dict(monitor=True), dict(plan_table={})])
+def test_ported_options_serve_the_reference_tokens(setup, kw):
+    """The options ported with the measured characterization (a plan
+    table, the live monitor, a table beside a named plan, which the
+    reference ignores) serve the JAX engine's tokens."""
+    jcfg, cfg, jparams, params = setup
+    jeng = JxServeEngine(jcfg, jparams, max_batch=2, max_len=MAX_LEN,
+                         plan="jit")
+    want = [r.generated for r in jeng.run(_workload(JxRequest,
+                                                    cfg.vocab_size))]
+    eng = ServeEngine(cfg, params, max_batch=2, max_len=MAX_LEN, device="cpu",
+                      **kw)
+    assert [r.generated for r in eng.run(_workload(Request,
+                                                   cfg.vocab_size))] == want
+    if kw.get("plan") == "autotuned":
+        assert eng.stats.plan == "autotuned:chain"
+    assert eng.monitor.summary()["batches"] == sorted(
+        set(eng.stats.slot_occupancy))
 
 
 def test_serve_cli_reports_the_engine_fields():

@@ -46,6 +46,7 @@ from repro_torch.core import metrics
 from repro_torch.core import proximity as prox
 from repro_torch.core.tracing import Executor, trace_fn
 from repro_torch.inference.engine import Request, ServeEngine
+from repro_torch.models import init_params
 from repro_torch.runtime import (LaunchPlan, PlanExecutor, Planner,
                                  find_matches, fused_plan)
 from repro_torch.runtime import planner as planner_mod
@@ -280,9 +281,20 @@ def test_skip_facade_over_a_torch_function():
     ex = Executor(skip.trace_)
     assert ex.n_launches == len(skip.trace_.kernels)
     assert torch.equal(ex.run(x, w)[0][0], fn(x, w))
-    for call in (SKIP.characterize, SKIP.autotune):
-        with pytest.raises(ValueError, match="autotune"):
-            call(None, None)
+    # the measured side delegates: a serving sweep, then a plan table
+    cfg = reduced(get_config("smollm-360m"))
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         device="cpu")
+    kw = dict(scenario="code-completion", n_requests=2, prompt_cap=8,
+              output_cap=3, max_len=32, device="cpu")
+    res = SKIP.characterize(cfg, params, batches=(1, 2), plan="jit", **kw)
+    assert [p.batch for p in res.points] == [1, 2]
+    assert all(p.dispatches_per_decode_step == 1 for p in res.points)
+    tuned = SKIP.autotune(cfg, params, batches=(2,), characterization=res,
+                          **kw)
+    assert list(tuned.table.entries) == [2]
+    assert tuned.table.lookup(2) in ("eager", "chain", "fused", "jit",
+                                     "whole_graph")
 
 
 def test_fused_rule_hits_match_the_reference():
