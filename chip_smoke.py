@@ -28,7 +28,12 @@ Phases (any failure exits non-zero before a result is printed):
      ``[gemma2_t1024]`` (window 256) beside SDPA with the windowed mask;
      ``flash_attention`` non-causal at BERT's prefill (B 4, 12 heads of
      64, S = T = 512) beside SDPA; the norms at D 2048, 4096, 4608 and
-     6144;
+     6144; the three multi-query entries of the speculative verify
+     (``decode_attention_mq``, ``paged_decode_attention_mq``,
+     ``paged_decode_attention_quant_mq``) at S = 2, 5 and 9 queries a
+     row at SmolLM's decode shape, at S = 5 over ``[t1024]`` and at
+     Gemma-2's window-and-softcap shape, the contiguous one beside SDPA
+     with the per-query mask (timed in bf16);
   3. full-width SmolLM-360M logits in f32, kernels against plain
      versions, for a prefill and batched decode steps; then the paged
      path (a chunked prefill in chunks of 8 and the same decode steps)
@@ -131,7 +136,28 @@ Phases (any failure exits non-zero before a result is printed):
      the offload tier's measured copy time; a 0.33 pool must preempt; (d)
      the merged Chrome trace of one eager point and the workload JSONL
      written by ``launch.characterize.write_artifacts``, read back as strict
-     JSON with matched flow pairs and as the same requests.
+     JSON with matched flow pairs and as the same requests;
+ 16. speculative decoding (k = 4, ``plan="jit"``): (a) ``serve
+     --speculative --spec-k 4`` of full-width SmolLM-360M in bf16 on the
+     contiguous cache and the paged pool, and the int8 pool under phase
+     7's pressure with host offload, each beside its phase 11 plain jit
+     run: tokens (equal, or parting at a printed near tie), accept rate,
+     steps per emitted token, rounds, draft dispatches, ms a token and a
+     round beside plain jit's, graphs and pool MiB, launches a round
+     (the target's verify on the cache's ``_mq`` entry and the draft's
+     catch-up step on ``decode_attention_mq``, counted); (b) the three
+     cells again with the shifted-unembed draft that the target rejects
+     nearly every round: the paged cells must roll blocks back and keep
+     their peak pool within two pages a row of plain's; then contiguous
+     and paged bf16 on an aligned target (its layers past the draft's add
+     nothing to the residual stream) beside a plain jit run of the same
+     weights: the draft must be accepted in more than half the proposals,
+     so the draft's catch-up step carries two real tokens; (c) an f32
+     engine at full width and 2 layers (TF32 off): whole streams of
+     both drafts on both caches equal to plain greedy's; (d)
+     Llama-3.2-1B: one ``serve --speculative`` run beside phase 13's jit
+     tokens; (e) ``launch.characterize --spec-sweep`` over ks 0, 2, 4 and
+     batches 1, 4, its ``spec_sweep.json`` read back.
 
 Phases 4, 6, 7 and 9 serve with ``--plan eager`` (``plan="eager"``): one
 dispatch a node of the traced step, whose norms are their plain versions,
@@ -147,6 +173,9 @@ at (4, 1, 2560) and (1, 12, 2560) with and without a residual in f32 and
 bf16, WKV6 (f32) at decode (B 4, T 1), a 12-token prefill, 64 and 1024
 steps in one launch (``[t64]``, ``[t1024]``: B 1, H 40, hd 64) and the
 reference's extreme-decay case, which must stay finite.
+
+The ``kernels`` line's ``launches`` are the main paths' jit runs (phase
+11); the multi-query entries', phase 16's speculative runs.
 
 Then it prints the ``{"kernels": [...]}`` line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It needs the repository
@@ -183,6 +212,17 @@ KERNEL_INFO = {
         "src/repro_torch/csrc/paged_decode_attention.cu",
         "src/repro/kernels/decode_attention/kernel.py:211"),
     "paged_decode_attention_quant": (
+        "src/repro_torch/csrc/paged_decode_attention.cu",
+        "src/repro/kernels/decode_attention/kernel.py:170"),
+    # the multi-query forms of the three (speculative verify): same kernels,
+    # a template instance of their own each
+    "decode_attention_mq": (
+        "src/repro_torch/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention/kernel.py:228"),
+    "paged_decode_attention_mq": (
+        "src/repro_torch/csrc/paged_decode_attention.cu",
+        "src/repro/kernels/decode_attention/kernel.py:211"),
+    "paged_decode_attention_quant_mq": (
         "src/repro_torch/csrc/paged_decode_attention.cu",
         "src/repro/kernels/decode_attention/kernel.py:170"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -232,8 +272,9 @@ from repro_torch.inference.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.inference.kv_quant import quantize_kv     # noqa: E402
 from repro_torch.kernels.decode_attention.ops import _decode_launch  # noqa: E402,E501
 from repro_torch.kernels.decode_attention.ref import (     # noqa: E402
-    decode_attention_ref, paged_decode_attention_quant_ref,
-    paged_decode_attention_ref)
+    decode_attention_mq_ref, decode_attention_ref,
+    paged_decode_attention_mq_ref, paged_decode_attention_quant_mq_ref,
+    paged_decode_attention_quant_ref, paged_decode_attention_ref)
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.fused.residual_rmsnorm.ref import \
     residual_rmsnorm_ref                                   # noqa: E402
@@ -245,6 +286,10 @@ from repro_torch.launch import serve                       # noqa: E402
 from repro_torch.launch.autotune import print_table        # noqa: E402
 from repro_torch.launch.characterize import (              # noqa: E402
     print_memory_sweep, print_points, write_artifacts)
+from repro_torch.launch.characterize import \
+    main as characterize_main                              # noqa: E402
+from repro_torch.inference.speculative import (           # noqa: E402
+    default_draft_config, draft_params_from_target)
 from repro_torch.runtime.autotune import autotune          # noqa: E402
 from repro_torch.telemetry.characterize import (           # noqa: E402
     _requests, characterize, memory_pressure_sweep)
@@ -254,6 +299,10 @@ from repro_torch.models import (forward, init_params,      # noqa: E402
 
 DEV = torch.device("cuda", 0)
 PLAINS = {"decode_attention": decode_attention_ref,
+          "decode_attention_mq": decode_attention_mq_ref,
+          "paged_decode_attention_mq": paged_decode_attention_mq_ref,
+          "paged_decode_attention_quant_mq":
+              paged_decode_attention_quant_mq_ref,
           "flash_attention": attention_ref,
           "paged_decode_attention": paged_decode_attention_ref,
           "paged_decode_attention_quant": paged_decode_attention_quant_ref,
@@ -651,6 +700,103 @@ def decode_entry_cases(tag, hq, hkv, hd, window, cap, scale, dtype, lens,
     }
 
 
+# the speculative verify's queries a row: k = 1, 4 and 8 (S = k + 1); S = 5
+# (k = 4, phase 16's depth) is each multi-query entry's own row
+MQ_S = (2, 5, 9)
+
+
+def mq_entry_cases(tag, s, hq, hkv, hd, window, cap, scale, dtype, lens,
+                   t_len, seed):
+    """The three multi-query entries (``name_mq``, or ``name_mq[tag]``) at
+    one shape: S queries a row, query j of row b at position lens[b] - S +
+    j; the pools hold each row's valid pages.  The bound counts each row's
+    keys once (the union of its queries' ranges) and each query's own
+    products; without a softcap the contiguous entry beside SDPA with the
+    per-query (windowed) length mask, which computes the same function.
+    Timed in bf16 only (f32 checks the error)."""
+    b = len(lens)
+    es = torch.tensor([], dtype=dtype).element_size()
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=DEV)
+    q = randn((b, s, hq, hd), dtype, seed)
+    kt = randn((b, t_len, hkv, hd), dtype, seed + 1).transpose(1, 2)
+    vt = randn((b, t_len, hkv, hd), dtype, seed + 2).transpose(1, 2)
+    qlen = (lens_t[:, None] - (s - 1)
+            + torch.arange(s, device=DEV)[None, :])[:, :, None]
+    pos = torch.arange(t_len, device=DEV)[None, None, :]
+    mask = pos < qlen
+    if window:
+        mask &= pos > qlen - 1 - window
+    mask = mask[:, None]                                   # (B,1,S,T)
+    keys, pairs = 0, 0
+    for n in lens:
+        ql = [n - (s - 1) + j for j in range(s)]
+        lo = max(0, ql[0] - window) if window else 0
+        keys += min(n, t_len) - lo
+        pairs += sum(min(x, t_len) - (max(0, x - window) if window else 0)
+                     for x in ql)
+    nb = t_len // BLOCK
+    n_pages = sum(-(-n // BLOCK) for n in lens) + 3
+    bt = paged_table(lens, n_pages, seed + 3, nb)
+    kp = randn((n_pages, BLOCK, hkv, hd), dtype, seed + 4)
+    vp = randn((n_pages, BLOCK, hkv, hd), dtype, seed + 5)
+    kq, ks = quantize_kv(randn((n_pages, BLOCK, hkv, hd), torch.float32,
+                               seed + 6))
+    vq, vs = quantize_kv(randn((n_pages, BLOCK, hkv, hd), torch.float32,
+                               seed + 7))
+    opts = dict(scale=scale, window=window, softcap=cap)
+    io_bytes = 2 * b * s * hq * hd * es
+    table_bytes = 4 * b * nb + 4 * b
+    flops = 4 * pairs * hq * hd
+    sfx = f"[{tag}]" if tag else ""
+    common = dict(flops=flops, untimed_f32=True)
+    return {
+        f"decode_attention_mq{sfx}": dict(
+            call=lambda: kernels.decode_attention_mq(q, kt, vt, lens_t,
+                                                     **opts),
+            plain=lambda: decode_attention_mq_ref(q, kt, vt, lens_t, **opts),
+            library=(lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), kt, vt, attn_mask=mask, scale=scale,
+                enable_gqa=True)) if not cap else None,
+            bytes=io_bytes + 2 * keys * hkv * hd * es + 4 * b, **common),
+        f"paged_decode_attention_mq{sfx}": dict(
+            call=lambda: kernels.paged_decode_attention_mq(
+                q, kp, vp, bt, lens_t, **opts),
+            plain=lambda: paged_decode_attention_mq_ref(q, kp, vp, bt,
+                                                        lens_t, **opts),
+            library=None,
+            bytes=io_bytes + 2 * keys * hkv * hd * es + table_bytes,
+            **common),
+        f"paged_decode_attention_quant_mq{sfx}": dict(
+            call=lambda: kernels.paged_decode_attention_quant_mq(
+                q, kq, vq, ks, vs, bt, lens_t, **opts),
+            plain=lambda: paged_decode_attention_quant_mq_ref(
+                q, kq, vq, ks, vs, bt, lens_t, **opts),
+            library=None,
+            bytes=io_bytes + 2 * keys * hkv * (hd + 4) + table_bytes,
+            **common),
+    }
+
+
+def mq_cases(cfg, dtype):
+    """The multi-query entries at SmolLM's decode shape (B 4, lengths
+    28/21/17/13) with S = 2, 5 and 9 (keys ``[s2]``, none, ``[s9]``), at
+    S = 5 over ``[t1024]`` and at Gemma-2's window-and-softcap shape
+    (``[gemma2]``)."""
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    cases = {}
+    for i, s in enumerate(MQ_S):
+        cases.update(mq_entry_cases("" if s == 5 else f"s{s}", s, hq, hkv,
+                                    hd, 0, 0.0, hd ** -0.5, dtype,
+                                    [28, 21, 17, 13], MAX_LEN, 150 + 10 * i))
+    cases.update(mq_entry_cases("t1024", 5, hq, hkv, hd, 0, 0.0, hd ** -0.5,
+                                dtype, LONG_LENS, T_LONG, 180))
+    ghq, ghkv, ghd, window, cap, scale = DENSE_DECODE["gemma2"]
+    cases.update(mq_entry_cases("gemma2", 5, ghq, ghkv, ghd, window, cap,
+                                scale, dtype, [28, 21, 17, 13], MAX_LEN,
+                                190))
+    return cases
+
+
 def dense_cases(dtype):
     """The kernels at the new configs' shapes (keys ``name[tag]``): the
     decode entries at Gemma-2's (window 16, softcap 50, lengths
@@ -781,7 +927,7 @@ def phase_kernels(cfg, rcfg) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         cases = {**main_path_cases(cfg, dtype), **flash_cases(cfg, dtype),
                  **decode_long_cases(cfg, dtype), **rwkv_cases(rcfg, dtype),
-                 **dense_cases(dtype)}
+                 **dense_cases(dtype), **mq_cases(cfg, dtype)}
         for name, c in cases.items():
             out, ref = c["call"](), c["plain"]()
             err = max_err(out, ref)
@@ -802,6 +948,11 @@ def phase_kernels(cfg, rcfg) -> dict:
                       f" (<= {bound:.3g})")
                 rows.setdefault(name, {})[
                     f"vs_contiguous_max_abs_err_{str(dtype)[6:]}"] = c_err
+            if dtype == torch.float32 and c.get("untimed_f32"):
+                print(f"phase 2: {name:38s} float32   max_err {err:.3g} "
+                      f"(<= {bound:.3g})")
+                rows.setdefault(name, {})["max_abs_err_f32"] = err
+                continue
             k_ms, k_host = time_ms(c["call"])
             p_ms, p_host = time_ms(c["plain"])
             lib_ms = time_ms(c["library"])[0] if c["library"] else None
@@ -1558,7 +1709,8 @@ def cell_row(rep, trace) -> dict:
         p50_itl_ms=rep["p50_itl_ms"], p99_itl_ms=rep["p99_itl_ms"],
         dispatches=rep["dispatches_per_decode_step"],
         graphs=rep["graphs_captured"], capture_s=rep["graph_capture_s"],
-        graph_mb=rep["graph_memory_bytes"] / 2 ** 20)
+        graph_mb=rep["graph_memory_bytes"] / 2 ** 20,
+        peak_pool=rep["block_pool_utilization"]["peak"])
 
 
 def attention_of(eng) -> str:
@@ -2072,7 +2224,8 @@ def phase_llama() -> tuple:
     and depth: f32 logits kernels against plain versions, then bf16
     serving under eager and jit on the contiguous cache and the paged
     pool, then fused on the contiguous cache.  Returns ({cell: {plan:
-    numbers}}, {cell:plan: launch counts})."""
+    numbers}}, {cell:plan: launch counts}, {cell: jit's finished
+    requests})."""
     t0 = time.perf_counter()
     cfg = get_config(LLAMA)
     f32_logits_check(cfg, 13, 13)
@@ -2097,7 +2250,7 @@ def phase_llama() -> tuple:
     secs = time.perf_counter() - t0
     print(f"phase 13: {secs:.1f} s")
     print("phase 13: " + json.dumps({"rows": rows, "seconds": secs}))
-    return rows, counts
+    return rows, counts, jit_done
 
 
 # ------------------------------------------------------------------ phase 14
@@ -2469,17 +2622,322 @@ def phase_characterize() -> tuple:
     return out, counts
 
 
+# ------------------------------------------------------------------ phase 16
+SPEC_K = 4
+SPEC = ["--speculative", "--spec-k", str(SPEC_K)]
+SPEC_SWEEP = ["--spec-sweep", "--spec-ks", "0,2,4", "--batches", "1,4",
+              "--model-batches", "16", "--requests", "6"]
+
+
+def shifted_draft(cfg, params):
+    """The reference tests' adversarial draft: the target's first half
+    with an untied unembed shifted by one token, which the target rejects
+    nearly every round."""
+    dcfg = default_draft_config(cfg).replace(tie_embeddings=False)
+    dparams = dict(draft_params_from_target(params, dcfg))
+    dparams["lm_head"] = torch.roll(params["embed"], 1, 0).T
+    return dict(draft_config=dcfg, draft_params=dparams)
+
+
+def aligned_target(cfg, params, draft_layers: int) -> dict:
+    """``params`` with every layer past the draft's adding nothing to the
+    residual stream (its attention and MLP output projections zeroed, new
+    tensors): the target then computes the default draft's function, so
+    the draft is accepted nearly every round and each round after the
+    first starts with the draft's width-2 catch-up step."""
+    blocks = []
+    for i, blk in enumerate(params["blocks"]):
+        if i >= draft_layers:
+            blk = dict(blk, mixer=dict(blk["mixer"]), mlp=dict(blk["mlp"]))
+            blk["mixer"]["wo"] = torch.zeros_like(blk["mixer"]["wo"])
+            blk["mlp"]["w_out"] = torch.zeros_like(blk["mlp"]["w_out"])
+        blocks.append(blk)
+    return dict(params, blocks=blocks)
+
+
+def spec_engine(cell, cfg, params, draft: dict,
+                speculative: bool = True) -> tuple:
+    """A speculative ``ServeEngine`` (k = SPEC_K, plan jit; plain jit
+    without ``speculative``) of ``cell`` on ``params`` with the draft
+    options ``draft``: warmup, reset, then the measured run with the
+    launch counts reset just before and read just after, and the blocks
+    the rollback frees counted.  Returns (engine, finished requests,
+    report, counts, rolled-back blocks)."""
+    kw = dict(speculative=True, spec_k=SPEC_K, plan="jit", **draft) \
+        if speculative else dict(plan="jit")
+    pressure = cell == "paged_int8_pressure"
+    if pressure:
+        eng = ServeEngine(cfg, params, offload="host",
+                          num_blocks=PRESSURE_BLOCKS, **PRESSURE_OPTS, **kw)
+    else:
+        paged = dict(cache="paged", block_size=BLOCK) if "paged" in cell \
+            else {}
+        eng = ServeEngine(cfg, params, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                          device=DEV, **paged, **kw)
+
+    def make():
+        return (pressure_requests(cfg.vocab_size) if pressure
+                else serve.make_requests(N_REQ, cfg.vocab_size, 16))
+    eng.run(make())
+    eng.reset()
+    trimmed = [0]
+    if eng.kv is not None and speculative:
+        trim = eng.kv.pool.trim
+
+        def counted_trim(owner, n_tokens):
+            freed = trim(owner, n_tokens)
+            trimmed[0] += len(freed)
+            return freed
+        eng.kv.pool.trim = counted_trim
+    reqs = make()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    rep = serve.report(eng, done, wall)
+    if len(done) != len(reqs) or any(
+            r.status != "done" or len(r.generated) != r.max_new_tokens
+            for r in done):
+        fail(f"phase 16 {cell}: finished {len(done)} of {len(reqs)} requests")
+    return eng, done, rep, counts, trimmed[0]
+
+
+def plain_row(rep) -> dict:
+    """The numbers ``spec_row`` reads from a plain jit run's report (as
+    phase 11's ``cell_row`` holds them)."""
+    return dict(tok_per_s=rep["tok_per_s"], step_ms=rep["mean_decode_step_ms"],
+                graph_mb=rep["graph_memory_bytes"] / 2 ** 20,
+                peak_pool=rep["block_pool_utilization"]["peak"])
+
+
+def spec_row(cell, draft_name, eng, rep, trimmed, plain) -> dict:
+    """One speculative cell's numbers beside plain jit's (``plain``: the
+    cell's phase 11 row) and its check that the mq entries launched in
+    every round of the measured run: the target's verify (L launches of
+    the cache's ``_mq`` entry) and the draft's width-2 catch-up step (its
+    L launches of ``decode_attention_mq``)."""
+    st = eng.stats
+    verify = attention_of(eng) + "_mq"
+    rounds = st.spec_rounds
+    n, nd = eng.cfg.n_layers, eng.draft_cfg.n_layers
+    want = {verify: n}
+    want["decode_attention_mq"] = want.get("decode_attention_mq", 0) + nd
+    per_round = {k: v for k, v in
+                 rep["kernel_launches_per_decode_step"].items() if v}
+    got = {k: per_round.get(k, 0) for k in want}
+    if rounds <= 0 or rounds != rep["decode_steps"] or got != want:
+        fail(f"phase 16 {cell} {draft_name}: {rounds} rounds of "
+             f"{rep['decode_steps']} decode steps, multi-query launches a "
+             f"round {got} != {want}")
+    decode_tokens = rep["tokens_out"] - rep["prefills"]
+    row = dict(
+        accept_rate=st.accept_rate,
+        steps_per_emitted_token=st.steps_per_emitted_token,
+        spec_rounds=rounds, draft_dispatches=st.draft_dispatches,
+        proposed=st.proposed, accepted=st.accepted,
+        corrections=st.corrections, tokens_out=rep["tokens_out"],
+        ms_per_token=1e3 / rep["tok_per_s"],
+        plain_ms_per_token=1e3 / plain["tok_per_s"],
+        round_ms=rep["mean_decode_step_ms"],
+        plain_step_ms=plain["step_ms"],
+        decode_ms_per_token=(rep["mean_decode_step_ms"] * rounds
+                             / decode_tokens),
+        graphs=rep["graphs_captured"],
+        graph_mb=rep["graph_memory_bytes"] / 2 ** 20,
+        plain_graph_mb=plain["graph_mb"],
+        launches_per_round=per_round,
+        peak_pool=rep["block_pool_utilization"]["peak"],
+        rolled_back_blocks=trimmed)
+    print(f"phase 16: {cell} {draft_name}: accept_rate "
+          f"{row['accept_rate']:.3f}, steps/emitted token "
+          f"{row['steps_per_emitted_token']:.3f}, {rounds} rounds, "
+          f"{row['draft_dispatches']} draft dispatches; "
+          f"{row['ms_per_token']:.3f} ms a token (plain jit "
+          f"{row['plain_ms_per_token']:.3f}), round {row['round_ms']:.3f} "
+          f"ms (plain decode step {row['plain_step_ms']:.3f}), decode "
+          f"{row['decode_ms_per_token']:.3f} ms a decode token; "
+          f"{row['graphs']} graphs, {row['graph_mb']:.1f} MiB pool (plain "
+          f"jit {row['plain_graph_mb']:.1f}); launches a round "
+          f"{row['launches_per_round']}"
+          + ("" if eng.kv is None else
+             f"; peak pool {row['peak_pool']:.3f}, " + (
+                 "blocks rolled back not counted (serve CLI)"
+                 if trimmed is None else f"{trimmed} blocks rolled back")))
+    return row
+
+
+def spec_tokens(cell, done, plain_done, params, cfg, draft_name) -> int:
+    """Speculative tokens against plain jit's of the same requests: equal,
+    or parting at a printed near tie (verify multiplies at B * (k+1)
+    rows, where cuBLAS may take other algorithms)."""
+    plain = plain_int8_logits if cell == "paged_int8_pressure" \
+        else plain_logits
+    same = check_near_ties(done, plain_done, params, cfg,
+                           (f"speculative ({draft_name})", "plain jit"),
+                           plain)
+    print(f"  {cell} {draft_name}: speculative tokens equal plain jit's in "
+          f"{same}/{len(done)} requests token for token (the rest part at "
+          "a printed near tie)")
+    return same
+
+
+def spec_f32_streams() -> dict:
+    """Phase 16 (c): full-width SmolLM at 2 layers in f32 (TF32 off):
+    speculative whole streams, both drafts, contiguous and paged, equal to
+    plain jit greedy's exactly."""
+    cfg = get_config(ARCH).replace(n_layers=2, param_dtype="float32",
+                                   compute_dtype="float32")
+    params = model_params(cfg, 16)
+    out = {}
+    for cell, extra in (("contiguous", {}),
+                        ("paged", dict(cache="paged", block_size=BLOCK))):
+        def run(**kw):
+            eng = ServeEngine(cfg, params, max_batch=MAX_BATCH,
+                              max_len=MAX_LEN, device=DEV, **extra, **kw)
+            done = eng.run(serve.make_requests(N_REQ, cfg.vocab_size, 24))
+            return {r.rid: r.generated for r in done}, eng
+        plain, _ = run()
+        for name, draft in (("truncated", {}),
+                            ("shifted", shifted_draft(cfg, params))):
+            toks, eng = run(speculative=True, spec_k=SPEC_K, **draft)
+            if toks != plain:
+                bad = [rid for rid in plain if toks.get(rid) != plain[rid]]
+                fail(f"phase 16 f32 {cell} {name}: whole streams differ from "
+                     f"plain greedy in requests {bad}")
+            out[f"{cell}:{name}"] = eng.stats.accept_rate
+            print(f"phase 16: f32 2 layers {cell} {name} draft: "
+                  f"{len(plain)}/{len(plain)} whole streams equal plain jit "
+                  f"greedy's (accept_rate {eng.stats.accept_rate:.3f}, "
+                  f"{eng.stats.spec_rounds} rounds)")
+    return out
+
+
+def phase_speculative(jit_rows, jit_done, llama_rows, llama_done) -> tuple:
+    """Phase 16: speculative decoding (k = SPEC_K, plan jit) at full width:
+    (a) SmolLM-360M bf16 through ``serve --speculative`` on the contiguous
+    cache and the paged pool, and the int8 pool under phase 7's pressure
+    with host offload; (b) the same cells with the shifted-unembed draft;
+    then an aligned target (its layers past the draft's zeroed out of the
+    residual stream) whose draft is accepted nearly every round; (c) f32
+    whole streams; (d) Llama-3.2-1B; (e) ``characterize --spec-sweep``.
+    Returns ({part: numbers}, {path: launch counts})."""
+    t0 = time.perf_counter()
+    cfg = get_config(ARCH)
+    rows, counts = {}, {}
+    for cell in ("contiguous", "paged_bf16"):
+        extra = (PAGED if cell == "paged_bf16" else []) + SPEC
+        eng, done, rep, c = serve_flags(cfg, extra, "jit", 16)
+        counts[f"spec_{cell}"] = c
+        spec_tokens(cell, done, jit_done[cell], eng.params, cfg, "truncated")
+        rows[f"{cell}:truncated"] = spec_row(cell, "truncated", eng, rep,
+                                             None, jit_rows[cell]["jit"])
+        params = eng.params                # the serve CLI's weights
+        del eng
+        torch.cuda.empty_cache()
+    for cell in ("paged_int8_pressure", "contiguous", "paged_bf16"):
+        for name in (("truncated", "shifted")
+                     if cell == "paged_int8_pressure" else ("shifted",)):
+            draft = shifted_draft(cfg, params) if name == "shifted" else {}
+            eng, done, rep, c, trimmed = spec_engine(cell, cfg, params, draft)
+            if name == "truncated":
+                counts[f"spec_{cell}"] = c
+            spec_tokens(cell, done, jit_done[cell], params, cfg, name)
+            plain = jit_rows[cell]["jit"]
+            rows[f"{cell}:{name}"] = row = spec_row(cell, name, eng, rep,
+                                                    trimmed, plain)
+            if eng.kv is not None and name == "shifted":
+                # k = 4 grows at most 2 pages of 16 a row past what the
+                # emitted tokens need; the rollback returns them
+                slack = 2 * MAX_BATCH / eng.kv.num_blocks
+                plain_peak = jit_rows[cell]["jit"]["peak_pool"]
+                if not (trimmed > 0
+                        and row["peak_pool"] <= plain_peak + slack):
+                    fail(f"phase 16 {cell} shifted: {trimmed} blocks rolled "
+                         f"back, peak pool {row['peak_pool']:.3f} vs plain "
+                         f"{plain_peak:.3f} + {slack:.3f}")
+            if cell == "paged_int8_pressure":
+                st = eng.stats
+                if not (st.preemptions > 0
+                        and st.offload_bytes == st.restore_bytes > 0):
+                    fail(f"phase 16 {cell} {name}: preemptions "
+                         f"{st.preemptions}, offload {st.offload_bytes} B, "
+                         f"restore {st.restore_bytes} B")
+                print(f"  {cell} {name}: {st.preemptions} preemptions, "
+                      f"{st.offload_bytes} B offloaded and restored, the "
+                      "draft's cache rebuilt at each resume")
+            del eng
+            torch.cuda.empty_cache()
+    # the aligned target: the default draft accepted nearly every round,
+    # so the catch-up step carries two real tokens; beside a plain jit run
+    # of the same weights
+    aligned = aligned_target(cfg, params,
+                             default_draft_config(cfg).n_layers)
+    for cell in ("contiguous", "paged_bf16"):
+        eng, pdone, prep, _, _ = spec_engine(cell, cfg, aligned, {},
+                                             speculative=False)
+        del eng
+        eng, done, rep, _, trimmed = spec_engine(cell, cfg, aligned, {})
+        spec_tokens(cell, done, pdone, aligned, cfg, "aligned")
+        rows[f"{cell}:aligned"] = row = spec_row(cell, "aligned", eng, rep,
+                                                 trimmed, plain_row(prep))
+        if not row["accept_rate"] > 0.5:
+            fail(f"phase 16 {cell} aligned: accept rate "
+                 f"{row['accept_rate']:.3f}: the catch-up step rarely ran")
+        del eng
+        torch.cuda.empty_cache()
+    del params, aligned
+    torch.cuda.empty_cache()
+    rows["f32"] = spec_f32_streams()
+    torch.cuda.empty_cache()
+    lcfg = get_config(LLAMA)
+    eng, done, rep, counts["spec_llama"] = serve_flags(lcfg, SPEC, "jit", 16)
+    spec_tokens("llama_contiguous", done, llama_done["llama_contiguous"],
+                eng.params, lcfg, "truncated")
+    rows["llama_contiguous:truncated"] = spec_row(
+        "llama_contiguous", "truncated", eng, rep, None,
+        llama_rows["llama_contiguous"]["jit"])
+    del eng
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        buf = io.StringIO()
+        kernels.reset_launch_counts()
+        with contextlib.redirect_stdout(buf):
+            sweep = characterize_main(["--arch", ARCH, *SPEC_SWEEP,
+                                       "--out-dir", tmp])
+        counts["spec_sweep"] = kernels.launch_counts()
+        back = strict_json(Path(tmp, "spec_sweep.json").read_text(),
+                           "spec_sweep.json")
+    if back != json.loads(json.dumps(sweep)):
+        fail("phase 16: spec_sweep.json does not read back as the sweep")
+    print(f"phase 16: characterize {' '.join(SPEC_SWEEP)} (device "
+          f"{sweep['device']}, {sweep['n_draft_kernels']} draft kernels a "
+          "step); spec_sweep.json read back equal")
+    for line in buf.getvalue().strip().splitlines()[:-1]:
+        print(f"  {line}")
+    rows["spec_sweep"] = {"measured": sweep["measured"],
+                          "win_batches": sweep["win_batches"]}
+    secs = time.perf_counter() - t0
+    print(f"phase 16: {secs:.1f} s")
+    print("phase 16: " + json.dumps({"rows": rows, "seconds": secs}))
+    return rows, counts
+
+
 # ------------------------------------------------------------------ main
-# which main path (its jit run, phase 11) each kernel's ``launches`` is
-# read from
+# which main path (its jit run, phase 11; the multi-query entries: their
+# phase-16 speculative run) each kernel's ``launches`` is read from
 MAIN_PATH = {"decode_attention": "contiguous",
              "flash_attention": "contiguous",
              "residual_rmsnorm": "contiguous",
              "rmsnorm_matmul": "contiguous",
              "paged_decode_attention": "paged_bf16",
              "paged_decode_attention_quant": "paged_int8_pressure",
-    "rmsnorm": "rwkv",
-    "wkv6": "rwkv"}
+             "rmsnorm": "rwkv",
+             "wkv6": "rwkv",
+             "decode_attention_mq": "spec_contiguous",
+             "paged_decode_attention_mq": "spec_paged_bf16",
+             "paged_decode_attention_quant_mq": "spec_paged_int8_pressure"}
 
 
 def main() -> None:
@@ -2509,12 +2967,14 @@ def main() -> None:
     eager["rwkv"] = (rep, done, phase_trace(eng, "phase 10", prefill=True))
     del eng
     torch.cuda.empty_cache()
-    _, jit_done, path_counts = phase_jit(cfg, rcfg, eager)
+    jit_rows, jit_done, path_counts = phase_jit(cfg, rcfg, eager)
     _, plan_counts = phase_plans(cfg, rcfg, eager, jit_done)
-    _, llama_counts = phase_llama()
+    llama_rows, llama_counts, llama_done = phase_llama()
     _, other_counts = phase_others()
     _, char_counts = phase_characterize()
-    print(f"chip_smoke: phases 1-15 in {time.perf_counter() - t0:.1f} s")
+    _, spec_counts = phase_speculative(jit_rows, jit_done, llama_rows,
+                                       llama_done)
+    print(f"chip_smoke: phases 1-16 in {time.perf_counter() - t0:.1f} s")
 
     entries = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -2522,7 +2982,7 @@ def main() -> None:
         for key, sub in rows.items():          # e.g. "rmsnorm_matmul[prefill]"
             if key.startswith(name + "["):
                 row[key[len(name) + 1:-1]] = sub
-        launches = path_counts[MAIN_PATH[name]][name]
+        launches = {**path_counts, **spec_counts}[MAIN_PATH[name]][name]
         if launches <= 0:
             fail(f"{name} was not launched on its main path "
                  f"({MAIN_PATH[name]})")
@@ -2533,6 +2993,7 @@ def main() -> None:
         by_path.update({p: c[name] for p, c in llama_counts.items()})
         by_path.update({p: c[name] for p, c in other_counts.items()})
         by_path.update({p: c[name] for p, c in char_counts.items()})
+        by_path.update({p: c[name] for p, c in spec_counts.items()})
         entries.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "launches_by_path": by_path, **row})

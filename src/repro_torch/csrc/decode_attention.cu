@@ -54,3 +54,42 @@ extern "C" int decode_attention_launch(
                   da_vec_ok<T, T>(hd, q, k, v, st)));
   return static_cast<int>(cudaGetLastError());
 }
+
+// Multi-query form (speculative verify, the draft's catch-up step): q and
+// out (B, S, HQ, hd); query j of row b at position kv_lens[b] - S + j (see
+// decode_attention.cuh, MQ).  The split is the wrapper's plan for B rows;
+// the workspace and counters hold B * S (row, query) pairs; grid.z runs
+// over the S queries' splits.
+extern "C" int decode_attention_mq_launch(
+    const void* q, const void* k, const void* v, void* out,
+    const void* kv_lens, int b, int s_q, int hq, int hkv, int t_len, int hd,
+    float scale, int window, float softcap, long long q_b, long long q_s,
+    long long q_h, long long k_b, long long k_h, long long k_t, long long v_b,
+    long long v_h, long long v_t, long long o_b, long long o_s, long long o_h,
+    int n_split, int split_len, void* ws, void* counters, int dtype,
+    void* stream) {
+  const DecodeSplit sp{n_split, split_len, static_cast<float*>(ws),
+                       static_cast<unsigned*>(counters)};
+  if (kv_lens == nullptr || s_q < 1 ||
+      !da_shapes_ok(b, hq, hkv, hd, b, t_len, 1, sp, window, softcap) ||
+      static_cast<long long>(n_split) * s_q > DA_MAX_SPLITS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  DecodeStrides st{q_b, q_h, k_b, k_t, k_h, v_b, v_t, v_h, 0,
+                   0,   0,   0,   0,   0,   o_b, o_h, 0};
+  st.n_q = s_q;
+  st.q_s = q_s;
+  st.o_s = o_s;
+  const dim3 grid(hkv, b, n_split * s_q);
+  auto s = static_cast<cudaStream_t>(stream);
+  RT_DISPATCH(dtype, T,
+              decode_attention_kernel<T, T, false, false, true>
+              <<<grid, DA_THREADS, 0, s>>>(
+                  static_cast<const T*>(q), static_cast<const T*>(k),
+                  static_cast<const T*>(v), nullptr, nullptr,
+                  static_cast<T*>(out), nullptr,
+                  static_cast<const int*>(kv_lens), 0, hq, hkv, hd, b,
+                  t_len, 1, scale, window, softcap, st, sp,
+                  da_vec_ok<T, T>(hd, q, k, v, st) &&
+                      q_s * static_cast<long long>(sizeof(T)) % 16 == 0));
+  return static_cast<int>(cudaGetLastError());
+}

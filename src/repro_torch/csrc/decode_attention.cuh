@@ -55,6 +55,18 @@
 //    no pointer is loaded from the constant bank inside the loop.
 // Where hd % 8 != 0 or a pointer or stride is not aligned to a lane's
 // vector, the same kernel loads element by element.
+//
+// MQ (multi-query: the speculative verify and the draft's catch-up step)
+// gives each row n_q queries, q and out (B, n_q, HQ, hd).  Query j of row b
+// sits at position lens[b] - n_q + j: its length is lens[b] - (n_q - 1 - j),
+// capped at nb * bs as a row's is, and its window starts from that length.
+// grid.z runs over the (query, split) pairs, z = j * n_split + split, and
+// each CTA runs the body above at its query's length with the split plan
+// of a B-row call, so a query's sums are taken in the order of a
+// single-token step at the same length.  The workspace and the counters
+// are kept per (row, query).  The row stays blockIdx.y, and the query and
+// split are read again from ctaid.z where they are used, so the MQ
+// instance holds no more registers than the single-token one.
 #pragma once
 
 #include "common.cuh"
@@ -128,6 +140,14 @@ __device__ __forceinline__ void da_load_scalar(const E* p, int d0, int hd,
     f[e] = d0 + e < hd ? rt_to_f32(p[d0 + e]) : 0.f;
 }
 
+// blockIdx.z read anew (volatile: not kept in a register from an earlier
+// read, so what derives from it is computed where it is used)
+__device__ __forceinline__ int da_ctaid_z() {
+  int z;
+  asm volatile("mov.u32 %0, %%ctaid.z;" : "=r"(z));
+  return z;
+}
+
 struct DecodeStrides {
   long long q_b, q_h;          // q (B, HQ, hd), unit stride on hd
   long long k_p, k_t, k_h;     // k pages (P, bs, HKV, hd), unit stride on hd
@@ -136,6 +156,8 @@ struct DecodeStrides {
   long long vs_p, vs_t, vs_h;
   long long o_b, o_h;          // out (B, HQ, hd)
   long long bt_b;              // block table (B, NB), unit stride on NB
+  int n_q = 1;                 // MQ only: queries a row, and their
+  long long q_s = 0, o_s = 0;  // strides in q (B, n_q, HQ, hd) and out
 };
 
 // The split of the positions (kernels/decode_attention/ops.py::split_plan)
@@ -148,8 +170,8 @@ struct DecodeSplit {
 };
 
 // lens: (B,) int32 device array, or null to use `len_all` for every row;
-// a row's length is capped at nb * bs.
-template <typename T, typename KV, bool QUANT, bool TABLE>
+// a row's length is capped at nb * bs.  MQ needs lens.
+template <typename T, typename KV, bool QUANT, bool TABLE, bool MQ = false>
 __global__ void __launch_bounds__(DA_THREADS)
 decode_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
                         const KV* __restrict__ vp,
@@ -165,7 +187,14 @@ decode_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
   __shared__ float sm_acc[DA_WARPS][DA_MAX_G][DA_MAX_HD];
   __shared__ bool sm_last;
 
-  const int kh = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+  const int kh = blockIdx.x, b = blockIdx.y;
+  int split = blockIdx.z;
+  const T* qb = q + b * st.q_b;
+  if constexpr (MQ) {
+    const int qi = split / sp.n_split;
+    split -= qi * sp.n_split;
+    qb += qi * st.q_s;
+  }
   const int g = hq / hkv;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   int lp = 1;                        // lanes per position: hd / 8, pow2
@@ -179,7 +208,7 @@ decode_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
   float qr[DA_MAX_G][DA_EPL];
 #pragma unroll
   for (int h = 0; h < DA_MAX_G; ++h) {
-    const T* qh = q + b * st.q_b + (kh * g + min(h, g - 1)) * st.q_h;
+    const T* qh = qb + (kh * g + min(h, g - 1)) * st.q_h;
     if (vec)
       DaLane<T>::unpack(DaLane<T>::load(qh + dl), qr[h]);
     else
@@ -192,7 +221,8 @@ decode_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
       if (h >= g || d0 >= hd) qr[h][e] = 0.f;
 
   const int t_len = nb * bs;
-  const int len_in = lens != nullptr ? lens[b] : len_all;  // used below
+  int len_in = 0;                    // the row's length, used below
+  if constexpr (!MQ) len_in = lens != nullptr ? lens[b] : len_all;
   const int t0 = split * sp.split_len;
   const int* row = bt + b * st.bt_b;
   const long long k_p = st.k_p, k_t = st.k_t, v_p = st.v_p, v_t = st.v_t;
@@ -238,6 +268,12 @@ decode_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
   };
   const int first = t0 + warp * DA_U * ppw;
   load_batch(first);
+  // MQ: the query's own length, loaded (and its index read anew from
+  // ctaid.z) after the first batch's loads are issued, so neither is held
+  // across them: the f32 instance then keeps the single-token one's
+  // registers
+  if constexpr (MQ)
+    len_in = lens[b] - (st.n_q - 1 - da_ctaid_z() / sp.n_split);
 
   const int len = min(len_in, t_len);
   // the window's first position, from the row's own length (not the
@@ -355,12 +391,23 @@ decode_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
   }
   __syncthreads();
 
+  // the (row, query) pair r indexes the output, the workspace and the
+  // counters (r = b without MQ)
+  int r = b;
+  T* ob = out + b * st.o_b;
+  if constexpr (MQ) {
+    const int z = da_ctaid_z();
+    const int qe = z / sp.n_split;
+    split = z - qe * sp.n_split;
+    r = b * st.n_q + qe;
+    ob += qe * st.o_s;
+  }
   // merge the warps' partial softmax states; a warp that saw no position
   // holds (NEG_INF, 0, 0) and contributes nothing
   const size_t part_stride = static_cast<size_t>(g) * (hd + 2);
   float* part = sp.n_split == 1
                     ? nullptr
-                    : sp.ws + (static_cast<size_t>(b * hkv + kh) *
+                    : sp.ws + (static_cast<size_t>(r * hkv + kh) *
                                    sp.n_split + split) * part_stride;
   for (int idx = threadIdx.x; idx < g * hd; idx += DA_THREADS) {
     const int h = idx / hd, dd = idx % hd;
@@ -375,7 +422,7 @@ decode_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
       a = fmaf(sm_acc[w][h][dd], c, a);
     }
     if (sp.n_split == 1) {
-      out[b * st.o_b + (kh * g + h) * st.o_h + dd] =
+      ob[(kh * g + h) * st.o_h + dd] =
           rt_from_f32<T>(a / fmaxf(lsum, 1e-30f));
     } else {
       part[h * (hd + 2) + 2 + dd] = a;
@@ -390,14 +437,14 @@ decode_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
   // the last split of (row, KV head) to arrive merges all of them
   __threadfence();
   __syncthreads();
-  unsigned* counter = sp.counters + b * hkv + kh;
+  unsigned* counter = sp.counters + r * hkv + kh;
   if (threadIdx.x == 0)
     sm_last = atomicAdd(counter, 1u) == static_cast<unsigned>(sp.n_split - 1);
   __syncthreads();
   if (!sm_last) return;
   __threadfence();
   if (threadIdx.x == 0) *counter = 0u;         // ready for the next call
-  const float* parts = sp.ws + static_cast<size_t>(b * hkv + kh) *
+  const float* parts = sp.ws + static_cast<size_t>(r * hkv + kh) *
                                    sp.n_split * part_stride;
   for (int idx = threadIdx.x; idx < g * hd; idx += DA_THREADS) {
     const int h = idx / hd, dd = idx % hd;
@@ -411,7 +458,7 @@ decode_attention_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
       lsum = fmaf(__ldcg(ps + 1), c, lsum);
       a = fmaf(__ldcg(ps + 2 + dd), c, a);
     }
-    out[b * st.o_b + (kh * g + h) * st.o_h + dd] =
+    ob[(kh * g + h) * st.o_h + dd] =
         rt_from_f32<T>(a / fmaxf(lsum, 1e-30f));
   }
 }

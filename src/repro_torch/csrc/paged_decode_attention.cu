@@ -99,3 +99,82 @@ extern "C" int paged_decode_attention_quant_launch(
                   da_vec_ok<T, int8_t>(hd, q, kp, vp, st)));
   return static_cast<int>(cudaGetLastError());
 }
+
+// Multi-query forms of the two entries above (speculative verify over the
+// pool): q and out (B, S, HQ, hd); query j of row b at position
+// kv_lens[b] - S + j (see decode_attention.cuh, MQ).  The split is the
+// wrapper's plan for B rows; workspace and counters hold B * S pairs;
+// grid.z runs over the S queries' splits.
+extern "C" int paged_decode_attention_mq_launch(
+    const void* q, const void* kp, const void* vp, void* out, const void* bt,
+    const void* kv_lens, int b, int s_q, int hq, int hkv, int hd,
+    int n_pages, int bs, int nb, float scale, int window, float softcap,
+    long long q_b, long long q_s, long long q_h, long long k_p,
+    long long k_t, long long k_h, long long v_p, long long v_t,
+    long long v_h, long long o_b, long long o_s, long long o_h,
+    long long bt_b, int n_split, int split_len, void* ws, void* counters,
+    int dtype, void* stream) {
+  const DecodeSplit sp{n_split, split_len, static_cast<float*>(ws),
+                       static_cast<unsigned*>(counters)};
+  if (s_q < 1 ||
+      !da_shapes_ok(b, hq, hkv, hd, n_pages, bs, nb, sp, window, softcap) ||
+      static_cast<long long>(n_split) * s_q > DA_MAX_SPLITS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  DecodeStrides st{q_b, q_h, k_p, k_t, k_h, v_p, v_t, v_h, 0,
+                   0,   0,   0,   0,   0,   o_b, o_h, bt_b};
+  st.n_q = s_q;
+  st.q_s = q_s;
+  st.o_s = o_s;
+  const dim3 grid(hkv, b, n_split * s_q);
+  auto s = static_cast<cudaStream_t>(stream);
+  RT_DISPATCH(dtype, T,
+              decode_attention_kernel<T, T, false, true, true>
+              <<<grid, DA_THREADS, 0, s>>>(
+                  static_cast<const T*>(q), static_cast<const T*>(kp),
+                  static_cast<const T*>(vp), nullptr, nullptr,
+                  static_cast<T*>(out), static_cast<const int*>(bt),
+                  static_cast<const int*>(kv_lens), 0, hq, hkv, hd, n_pages,
+                  bs, nb, scale, window, softcap, st, sp,
+                  da_vec_ok<T, T>(hd, q, kp, vp, st) &&
+                      q_s * static_cast<long long>(sizeof(T)) % 16 == 0));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int paged_decode_attention_quant_mq_launch(
+    const void* q, const void* kp, const void* vp, const void* ks,
+    const void* vs, void* out, const void* bt, const void* kv_lens, int b,
+    int s_q, int hq, int hkv, int hd, int n_pages, int bs, int nb,
+    float scale, int window, float softcap, long long q_b, long long q_s,
+    long long q_h, long long k_p, long long k_t, long long k_h,
+    long long v_p, long long v_t, long long v_h, long long ks_p,
+    long long ks_t, long long ks_h, long long vs_p, long long vs_t,
+    long long vs_h, long long o_b, long long o_s, long long o_h,
+    long long bt_b, int n_split, int split_len, void* ws, void* counters,
+    int dtype, void* stream) {
+  const DecodeSplit sp{n_split, split_len, static_cast<float*>(ws),
+                       static_cast<unsigned*>(counters)};
+  if (s_q < 1 ||
+      !da_shapes_ok(b, hq, hkv, hd, n_pages, bs, nb, sp, window, softcap) ||
+      static_cast<long long>(n_split) * s_q > DA_MAX_SPLITS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  DecodeStrides st{q_b,  q_h,  k_p,  k_t,  k_h, v_p, v_t, v_h, ks_p,
+                   ks_t, ks_h, vs_p, vs_t, vs_h, o_b, o_h, bt_b};
+  st.n_q = s_q;
+  st.q_s = q_s;
+  st.o_s = o_s;
+  const dim3 grid(hkv, b, n_split * s_q);
+  auto s = static_cast<cudaStream_t>(stream);
+  RT_DISPATCH(dtype, T,
+              decode_attention_kernel<T, int8_t, true, true, true>
+              <<<grid, DA_THREADS, 0, s>>>(
+                  static_cast<const T*>(q), static_cast<const int8_t*>(kp),
+                  static_cast<const int8_t*>(vp),
+                  static_cast<const float*>(ks),
+                  static_cast<const float*>(vs), static_cast<T*>(out),
+                  static_cast<const int*>(bt),
+                  static_cast<const int*>(kv_lens), 0, hq, hkv, hd, n_pages,
+                  bs, nb, scale, window, softcap, st, sp,
+                  da_vec_ok<T, int8_t>(hd, q, kp, vp, st) &&
+                      q_s * static_cast<long long>(sizeof(T)) % 16 == 0));
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,9 +1,13 @@
-"""Execution backends for the serving engine (tp=1 local only so far)."""
+"""Execution backends for the serving engine: tp=1 local, optionally
+wrapped speculative (``SpeculativeBackend``)."""
 from repro_torch.inference.backends.base import (  # noqa: F401
     BackendInfo, CallAccount, ExecutionBackend,
 )
 from repro_torch.inference.backends.local import (  # noqa: F401
     NOT_PORTED, PLANS, LocalBackend,
+)
+from repro_torch.inference.backends.speculative import (  # noqa: F401
+    SpeculativeBackend,
 )
 
 

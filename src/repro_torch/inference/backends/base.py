@@ -10,7 +10,8 @@ block tables — and is deliberately device-free: no meshes, no shard_map,
 no placement.  Everything that touches devices lives behind this protocol:
 
   * cache construction (where the KV pytree lives, and how it is sharded)
-  * the four step kinds (contiguous prefill/decode, paged chunk/decode)
+  * the step kinds (contiguous prefill/decode, paged chunk/decode, and the
+    speculative verify of both)
   * plan/fusion dispatch (the launch-plan runtime) and its accounting
 
 Each call returns ``(logits, cache)`` exactly like the jitted closures the
@@ -19,8 +20,9 @@ the scheduler folds into ``EngineStats`` — one merge path for jit, planned,
 and sharded execution instead of three inline copies.
 
 The port has ``LocalBackend`` (one device: CUDA graphs under ``plan="jit"``,
-eager PyTorch under ``plan="eager"``); the sharded and speculative
-backends are still to port (ROADMAP Queue A).
+the launch-plan runtime under the other plans) and ``SpeculativeBackend``
+(a draft model's stream around it); the sharded backend is still to port
+(ROADMAP Queue A).
 """
 from __future__ import annotations
 

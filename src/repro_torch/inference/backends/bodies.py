@@ -1,8 +1,8 @@
 """The serving step bodies of the contiguous and the paged cache.
 
 Counterpart of ``repro/inference/backends/bodies.py`` (prefill, decode,
-paged prefill chunk and paged decode; the verify bodies come with
-speculative decoding, ROADMAP Queue A "speculative decoding").  One
+paged prefill chunk, paged decode and the two speculative verifies) and of
+the draft step of ``repro/inference/backends/speculative.py``.  One
 source of numerics for every backend and plan: anything that changes
 logits or cache writes belongs here.
 
@@ -30,6 +30,9 @@ class StepBodies(NamedTuple):
     decode: Callable           # batched contiguous decode step
     paged_prefill: Callable    # one paged prefill chunk
     paged_decode: Callable     # batched paged decode step
+    verify: Callable           # k+1 tokens a row, every logits row back
+    paged_verify: Callable     # the same over the paged pool
+    draft_step: Callable       # explicit positions, the last logits row
     # bodies whose second run on the same inputs differs from the first
     # (the recurrent state advances twice); every other body rewrites the
     # same cache entries with the same values
@@ -91,6 +94,26 @@ def make_step_bodies(cfg: ModelConfig) -> StepBodies:
                                 lengths=lengths, block_tables=block_tables)
         return logits[:, 0], cache
 
+    def verify_body(params, cache, tokens, lengths):
+        # tokens (B, k+1): the last emitted token and the k draft tokens of
+        # each row, written at lengths[b] + j; every row's logits back
+        return forward(params, tokens, cfg, cache=cache, lengths=lengths)
+
+    def paged_verify_body(params, cache, tokens, lengths, block_tables):
+        return forward(params, tokens, cfg, cache=cache, lengths=lengths,
+                       block_tables=block_tables)
+
+    def draft_step_body(params, cache, tokens, positions, lengths):
+        # right-aligned draft step with explicit per-row positions (B, W):
+        # the catch-up after a fully accepted window feeds 2 tokens, later
+        # steps 1; a padding column carries position max_len (its write
+        # drops) and its logits are not read.  Only the last column's
+        # logits matter: the next proposal.
+        logits, cache = forward(params, tokens, cfg, cache=cache,
+                                positions=positions, lengths=lengths)
+        return logits[:, -1], cache
+
     return StepBodies(prefill_body, decode_body, paged_prefill_body,
-                      paged_decode_body,
+                      paged_decode_body, verify_body, paged_verify_body,
+                      draft_step_body,
                       advance_state=("decode",) if is_recurrent(cfg) else ())

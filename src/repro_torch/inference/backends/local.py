@@ -2,8 +2,9 @@
 through the launch-plan runtime.
 
 Counterpart of ``repro/inference/backends/local.py`` for the contiguous
-and the paged cache (speculative verify is not ported yet, ROADMAP Queue A,
-"speculative decoding").  Plans:
+and the paged cache, with the speculative verify of both and the draft
+model's step (``backends.speculative`` serves the draft through a
+``LocalBackend`` of its own).  Plans:
 
   * ``"jit"``, the default as in the reference, is the counterpart of its
     ``jax.jit`` of the four bodies.  On a CUDA device each body call is
@@ -18,7 +19,9 @@ and the paged cache (speculative verify is not ported yet, ROADMAP Queue A,
     reference keeps static, but for the prompt length: a contiguous
     prefill keys on its bucket (the slot and ``plen`` are device inputs),
     an RWKV or encoder prefill on its exact prompt length, a decode step
-    on the batch and table width.  A paged prefill chunk keys on its
+    on the batch and table width, a verify on (B, k+1) and the table width
+    (``pick_spec_k`` takes at most two k, so two verify graphs a cache), a
+    draft step on its width (2 for the catch-up step, then 1).  A paged prefill chunk keys on its
     length and on ``t0``, which the reference traces: here ``t0`` sets
     how many pages the chunk gathers and ``flash_attention``'s host
     ``kv_len``, so it is static.  A failed capture or replay raises;
@@ -502,12 +505,28 @@ class LocalBackend(AccountingMixin):
                           ())
 
     def verify(self, cache, tokens, lengths):
-        raise ValueError(f"speculative verify {NOT_PORTED}, \"speculative "
-                         "decoding\"")
+        """Score k+1 tokens a row in one batched step (the speculative
+        verify); tokens (B, k+1), ``lengths`` (B,) host values; (every
+        logits row (B, k+1, V), cache).  Under jit one graph per (B, k+1)."""
+        toks = _host_ints(tokens, (self.B, -1))
+        return self._call("verify", cache,
+                          [toks, _host_ints(lengths, (-1,))], ())
 
     def paged_verify(self, cache, tokens, lengths, block_tables):
-        raise ValueError(f"speculative verify {NOT_PORTED}, \"speculative "
-                         "decoding\"")
+        """``verify`` over the paged pool."""
+        toks = _host_ints(tokens, (self.B, -1))
+        return self._call("paged_verify", cache,
+                          [toks, _host_ints(lengths, (-1,)),
+                           _host_ints(block_tables, (self.B, -1))], ())
+
+    def draft_step(self, cache, tokens, positions, lengths):
+        """One step of the speculative draft model (this backend serving
+        the draft): tokens and positions (B, W) right-aligned, ``lengths``
+        (B,); (last-column logits (B, V), cache)."""
+        toks = _host_ints(tokens, (self.B, -1))
+        return self._call("draft_step", cache,
+                          [toks, _host_ints(positions, toks.shape),
+                           _host_ints(lengths, (-1,))], ())
 
     @property
     def planned_decode(self):

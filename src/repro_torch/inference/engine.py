@@ -34,9 +34,22 @@ whose dispatches, modeled TKLQT and fused rule hits the stats count.
 ``SpanRecorder``) records prefill, decode and per-segment dispatch spans
 on the serving clock; ``monitor=`` (on by default, as in the reference)
 classifies the live decode steps CPU- or GPU-bound
-(``telemetry.monitor``).  Speculative decoding, tensor parallelism and
-the request tracer are not ported yet: asking for any of them raises
-``ValueError`` naming its ROADMAP Queue A item rather than being ignored.
+(``telemetry.monitor``).
+
+``speculative=True`` (``plan="jit"`` and greedy only, as in the
+reference) wraps the backend in ``backends.speculative.
+SpeculativeBackend``: each round a draft model (by default the target's
+first half of layers, sharing its tensors) proposes k tokens one step at a
+time, the target scores all k+1 positions in one verify step, and the
+longest draft prefix matching the target's argmax is emitted with the
+target's correction token, so the tokens are plain greedy decoding's; k
+follows ``pick_spec_k`` and ``spec_inflection``.  On the paged pool the
+verify window's blocks are grown first and the blocks of rejected
+positions trimmed after.  A recurrent stack and an encoder are refused
+(``models.check_speculative``): the reference speculates on both and its
+tokens then part from its greedy ones.  Tensor parallelism and the request
+tracer are not ported yet: asking for either raises ``ValueError`` naming
+its ROADMAP Queue A item rather than being ignored.
 """
 from __future__ import annotations
 
@@ -51,11 +64,15 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device_model import PLATFORMS
 from repro_torch.inference.backends import (NOT_PORTED, CallAccount,
-                                            make_backend)
+                                            SpeculativeBackend, make_backend)
 from repro_torch.inference.kv_quant import KV_DTYPES
+from repro_torch.inference.speculative import (default_draft_config,
+                                               draft_params_from_target,
+                                               is_truncation_of, pick_spec_k,
+                                               validate_draft)
 from repro_torch.kvcache import (HostOffloadTier, PagedKVCache,
                                  default_num_blocks)
-from repro_torch.models import is_recurrent
+from repro_torch.models import check_speculative, is_recurrent
 from repro_torch.telemetry.metrics import RequestTiming
 from repro_torch.telemetry.registry import MetricsRegistry
 
@@ -136,6 +153,20 @@ class EngineStats:
                                   float,
                                   "offload DMAs priced over the coupling "
                                   "link (core.device_model PCIe/C2C)"),
+        # ---- speculative decoding (speculative=True; zero otherwise)
+        "spec_rounds": ("engine_spec_rounds", int,
+                        "draft-propose + batched-verify rounds"),
+        "proposed": ("engine_spec_proposed", int,
+                     "draft tokens offered to verification"),
+        "accepted": ("engine_spec_accepted", int,
+                     "draft tokens accepted AND emitted"),
+        "corrections": ("engine_spec_corrections", int,
+                        "target correction tokens emitted"),
+        "draft_dispatches": ("engine_draft_dispatches", int,
+                             "launches on the draft dispatch stream"),
+        "modeled_draft_launch_tax_s": (
+            "engine_modeled_draft_launch_tax_seconds", float,
+            "draft stream launches, platform-priced"),
         # ---- prefix sharing (share_prefix=True; zero otherwise)
         "prefix_adoptions": ("engine_prefix_adoptions", int,
                              "admissions that adopted shared prefix blocks"),
@@ -230,6 +261,23 @@ class EngineStats:
                 if self.decode_steps else 0.0)
 
     @property
+    def accept_rate(self) -> float:
+        """Fraction of proposed draft tokens accepted (and emitted)."""
+        return self.accepted / self.proposed if self.proposed else 0.0
+
+    @property
+    def spec_emitted(self) -> int:
+        """Tokens emitted through speculative rounds (accept + correct)."""
+        return self.accepted + self.corrections
+
+    @property
+    def steps_per_emitted_token(self) -> float:
+        """Sequential target steps per token emitted in spec rounds —
+        < 1.0 is the speculation win (plain decode is exactly 1.0)."""
+        return (self.spec_rounds / self.spec_emitted
+                if self.spec_emitted else 0.0)
+
+    @property
     def dispatches_per_decode_step(self) -> float:
         """Host dispatches per decode step (1 under jit: one replay)."""
         return (self.decode_dispatches / self.decode_steps
@@ -268,11 +316,10 @@ class ServeEngine:
                  num_blocks: Optional[int] = None, offload: str = "none",
                  prefill_chunk: Optional[int] = None,
                  kv_dtype: str = "bf16", share_prefix: bool = False,
-                 speculative: bool = False,
+                 greedy: bool = True, speculative: bool = False,
+                 draft_config=None, draft_params=None, spec_k: int = 4,
+                 spec_inflection: Optional[int] = None,
                  monitor=True, tracer=None):
-        if speculative:
-            raise ValueError(f"speculative= {NOT_PORTED}, \"speculative "
-                             "decoding\"")
         if tracer is not None:
             raise ValueError(f"tracer= {NOT_PORTED}, \"fleet, router, "
                              "request tracing\"")
@@ -303,6 +350,25 @@ class ServeEngine:
             raise ValueError(
                 "kv_dtype= and share_prefix= need cache='paged' (the "
                 "contiguous cache has no pages to quantize or share)")
+        if not speculative and (draft_config is not None
+                                or draft_params is not None):
+            raise ValueError(
+                "draft_config=/draft_params= need speculative=True")
+        if speculative:
+            if not greedy:
+                raise ValueError(
+                    "speculative=True requires greedy=True: the accept "
+                    "rule matches draft tokens against target ARGMAX — "
+                    "sampled decoding has no byte-identical reference "
+                    "sequence to preserve")
+            if plan != "jit":
+                raise ValueError(
+                    f"speculative=True executes plan='jit' only (got "
+                    f"{plan!r}): the launch-plan runtime replays fixed "
+                    "single-token streams; model the draft/verify launch "
+                    "trade with telemetry.characterize.spec_sweep or "
+                    "runtime.planner.simulate_plan(draft_launches=...)")
+            check_speculative(cfg)
         if plan == "autotuned":
             plan = self._autotuned_plan(cfg, plan_table, max_batch, platform)
             self.plan_label = f"autotuned:{plan}"
@@ -319,9 +385,35 @@ class ServeEngine:
         self.exact_prefill = self.recurrent or cfg.family == "encoder"
         self.prefill_chunk = prefill_chunk
         self.platform = platform
+        self.greedy = greedy
         self.backend = make_backend(cfg, params, max_batch=max_batch,
                                     max_len=max_len, tp=tp, plan=plan,
                                     device=device, platform=platform)
+        self.speculative = bool(speculative)
+        self.spec_k = spec_k
+        self.spec_inflection = spec_inflection
+        if speculative:
+            # wrap the target backend with the draft-propose /
+            # batched-verify layer
+            draft_cfg = (draft_config if draft_config is not None
+                         else default_draft_config(cfg))
+            validate_draft(cfg, draft_cfg, spec_k)
+            if draft_params is None:
+                if not is_truncation_of(draft_cfg, cfg):
+                    raise ValueError(
+                        f"draft config {draft_cfg.name!r} is not a "
+                        f"truncation of {cfg.name!r} (different width/"
+                        "heads/pattern), so its weights cannot be sliced "
+                        "from the target: pass draft_params= explicitly "
+                        "(e.g. repro_torch.models.init_params(draft_config,"
+                        " generator))")
+                draft_params = draft_params_from_target(params, draft_cfg)
+            self.backend = SpeculativeBackend(
+                self.backend, draft_cfg, draft_params,
+                max_batch=max_batch, max_len=max_len, platform=platform)
+            self.draft_cfg = draft_cfg
+            self.draft_cache = self.backend.init_draft_cache()
+            self.draft_lengths = np.zeros(max_batch, np.int32)
         self.plan = self.backend.plan
         self.tp = self.backend.info.tp
         self.kv_dtype = kv_dtype
@@ -445,6 +537,11 @@ class ServeEngine:
         self.stats.modeled_tklqt_s += acct.modeled_tklqt_s
         for nm in acct.rule_names:
             self.stats.rule_hits[nm] = self.stats.rule_hits.get(nm, 0) + 1
+        self.stats.proposed += acct.proposed
+        self.stats.accepted += acct.accepted
+        self.stats.draft_dispatches += acct.draft_dispatches
+        self.stats.modeled_draft_launch_tax_s += \
+            acct.modeled_draft_launch_tax_s
 
     def _record_segments(self, acct: CallAccount, t_begin: float) -> None:
         """Per-segment dispatch spans on the engine clock: the measured
@@ -544,6 +641,8 @@ class ServeEngine:
             req.status = "active"
             self.slots[slot] = req
             self.lengths[slot] = plen
+            if self.speculative:
+                self._draft_prefill_slot(slot, req.prompt)
         if self.telemetry is not None:
             self.telemetry.add(f"prefill[{plen}]", "prefill", t_begin,
                                self.now, rid=req.rid, slot=slot, plen=plen)
@@ -682,6 +781,12 @@ class ServeEngine:
         self._admit_seq += 1
         self.slots[slot] = req
         self.lengths[slot] = entries
+        if self.speculative:
+            # the target KV came back byte-exact from host memory, but the
+            # draft cache was not kept: rebuild it from the known tokens
+            # (prompt + emitted minus the pending last one: ``entries``)
+            self._draft_prefill_slot(
+                slot, list(req.prompt) + list(req.generated[:-1]))
         return True
 
     def _pick_victim(self, exclude: int) -> Optional[int]:
@@ -782,6 +887,8 @@ class ServeEngine:
             self._register_donor(tuple(task.toks[:PREFIX_LEN]),
                                  req.rid, task.toks, len(task.toks))
         if task.replay:
+            if self.speculative:
+                self._draft_prefill_slot(slot, task.toks)
             return          # resumed recompute: KV rebuilt, nothing emitted
         first = self._sample(task.last_logits[0])
         req.generated.append(first)
@@ -793,6 +900,8 @@ class ServeEngine:
             req.status = "done"
             timing.done_s = self.now
             self._release_slot(slot, req)
+        elif self.speculative:
+            self._draft_prefill_slot(slot, task.toks)
 
     def _advance_prefills(self) -> bool:
         """One chunk of every in-flight prefill, interleaved with decode."""
@@ -887,13 +996,192 @@ class ServeEngine:
                                self.now, batch=batch)
             self._record_segments(acct, t_begin)
 
+    # ------------------------------------------------------------ speculative
+    def _draft_prefill_slot(self, slot: int, toks_list) -> None:
+        """Build the draft's KV for a slot from the known token sequence
+        (bucketed like the target's prefill; the body zeroes the row)."""
+        plen = len(toks_list)
+        toks = np.zeros((1, self._bucket(plen)), np.int32)
+        toks[0, :plen] = toks_list
+        _, self.draft_cache = self.backend.draft_prefill(
+            self.draft_cache, torch.from_numpy(toks), slot, plen)
+        self._absorb(self.backend.last, decode=False)
+        self.draft_lengths[slot] = plen
+
+    def _spec_depth(self) -> int:
+        """Launch-tax-aware k for this round: deep while decode is
+        CPU/dispatch-bound at the current batch, shallow near the
+        inflection, 0 (plain decode) past it."""
+        batch = sum(1 for i, s in enumerate(self.slots)
+                    if s is not None and i not in self._prefill_tasks)
+        return pick_spec_k(batch, max_k=self.spec_k,
+                           inflection_batch=self.spec_inflection)
+
+    def _spec_active(self, k: int, paged: bool) -> list:
+        """The slots a round serves; paged: each grown to cover its verify
+        window (L .. L+k), which may preempt younger rows out of it."""
+        if not paged:
+            return [i for i, s in enumerate(self.slots) if s is not None]
+        active = [i for i, s in enumerate(self.slots)
+                  if s is not None and i not in self._prefill_tasks]
+        stalled = set()
+        for i in active:
+            if self.slots[i] is None:
+                continue
+            want = min(int(self.lengths[i]) + k + 1, self.T)
+            if not self._ensure_paged_blocks(self.slots[i], want,
+                                             exclude=i):
+                stalled.add(i)
+            elif not self._cow_protect(self.slots[i].rid,
+                                       int(self.lengths[i]), want):
+                stalled.add(i)
+        return [i for i in active
+                if self.slots[i] is not None and i not in stalled]
+
+    def _propose(self, k: int, active: list) -> np.ndarray:
+        """The draft's k proposals (B, k): one width-2 right-aligned
+        catch-up step (after a fully accepted window the draft never saw
+        its own k-th proposal, so it may be one token behind), then k-1
+        single steps, each argmax taken on the host as the reference does.
+        Padding columns carry position T: the write drops and the logits
+        column is not read."""
+        cat_toks = np.zeros((self.B, 2), np.int32)
+        cat_pos = np.full((self.B, 2), self.T, np.int32)
+        for i in active:
+            req = self.slots[i]
+            L = int(self.lengths[i])
+            cat_toks[i, 1] = req.generated[-1]
+            cat_pos[i, 1] = L
+            if int(self.draft_lengths[i]) == L - 1:
+                cat_toks[i, 0] = req.generated[-2]
+                cat_pos[i, 0] = L - 1
+        draft = np.zeros((self.B, k), np.int64)
+        toks, pos = cat_toks, cat_pos
+        for j in range(k):
+            if j:
+                toks = np.zeros((self.B, 1), np.int32)
+                pos = np.full((self.B, 1), self.T, np.int32)
+                for i in active:
+                    toks[i, 0] = draft[i, j - 1]
+                    pos[i, 0] = self.draft_lengths[i]
+            logits_d, self.draft_cache = self.backend.draft_step(
+                self.draft_cache, torch.from_numpy(toks),
+                torch.from_numpy(pos), self.draft_lengths.copy())
+            self._absorb(self.backend.last, decode=True)
+            draft[:, j] = np.argmax(logits_d.cpu().numpy(), axis=-1)
+            for i in active:
+                self.draft_lengths[i] = (int(self.lengths[i]) + 1 if j == 0
+                                         else self.draft_lengths[i] + 1)
+        return draft
+
+    def _spec_round(self, k: int, paged: bool) -> bool:
+        """One draft-propose / batched-verify round for all decode-ready
+        slots.  The draft proposes k tokens (k launches on its own dispatch
+        stream), the target verifies all k+1 positions in ONE batched step,
+        and the longest draft prefix matching the target's argmax is
+        emitted plus the target's correction token — so every emitted
+        token is a target argmax from the true prefix and the output is
+        plain greedy decoding's."""
+        active = self._spec_active(k, paged)
+        if not active:
+            return False
+        t0 = time.perf_counter()
+        draft = self._propose(k, active)
+        # --- batched verify: the target scores all k+1 positions at once
+        ver = np.zeros((self.B, k + 1), np.int32)
+        for i in active:
+            ver[i, 0] = self.slots[i].generated[-1]
+            ver[i, 1:] = draft[i]
+        if paged:
+            owners = [self.slots[i].rid if self.slots[i] is not None
+                      and i not in self._prefill_tasks else None
+                      for i in range(self.B)]
+            logits, self.cache = self.backend.paged_verify(
+                self.cache, torch.from_numpy(ver), self.lengths.copy(),
+                self.kv.block_tables(owners))
+        else:
+            logits, self.cache = self.backend.verify(
+                self.cache, torch.from_numpy(ver), self.lengths.copy())
+        acct = self.backend.last
+        acct.proposed = k * len(active)
+        tgt = np.argmax(logits.cpu().numpy(), axis=-1)      # (B, k+1)
+        dt = time.perf_counter() - t0
+        t_begin = self.now
+        self.now += dt
+        self.stats.step_times_s.append(dt)
+        self._note_step(len(active), dt, acct)
+        self.stats.decode_steps += 1
+        self.stats.spec_rounds += 1
+        self.stats.slot_occupancy.append(len(active))
+        if paged:
+            self.stats.block_pool_utilization.append(
+                self.kv.pool.utilization)
+        if self.telemetry is not None:
+            self.telemetry.add(f"spec_verify[b={len(active)},k={k}]",
+                               "decode", t_begin, self.now,
+                               batch=len(active))
+        total_accepted = 0
+        for i in active:
+            req = self.slots[i]
+            L = int(self.lengths[i])
+            n_acc = 0
+            while n_acc < k and int(draft[i, n_acc]) == int(tgt[i, n_acc]):
+                n_acc += 1
+            # emit the accepted prefix + the target's correction token,
+            # with the same budget/length stops as plain decode
+            timing = self.timings.get(req.rid)
+            Lcur = L
+            for j in range(n_acc + 1):
+                req.generated.append(int(tgt[i, j]))
+                Lcur += 1
+                self.stats.tokens_out += 1
+                if j < n_acc:
+                    total_accepted += 1
+                else:
+                    self.stats.corrections += 1
+                self._note_token(timing)
+                if len(req.generated) >= req.max_new_tokens or \
+                        Lcur >= self.T - 1:
+                    req.done = True
+                    break
+            self.lengths[i] = Lcur
+            # draft rollback is a length retreat: entries past the accepted
+            # prefix are stale, masked by the lengths until overwritten
+            self.draft_lengths[i] = L + min(n_acc + 1, k)
+            if req.done:
+                req.status = "done"
+                if timing is not None:
+                    timing.done_s = self.now
+                if paged:
+                    self._release_slot(i, req)
+                else:
+                    self.slots[i] = None
+                    self.lengths[i] = 0
+            elif paged:
+                # block-table rollback: free + zero the tail blocks grown
+                # for rejected verify positions
+                freed = self.kv.pool.trim(req.rid, Lcur)
+                if freed:
+                    self.cache = self.kv.zero_pages(self.cache, freed)
+        acct.accepted = total_accepted
+        self._absorb(acct, decode=True)
+        return True
+
     def step(self) -> None:
         """One decode step for all active slots (paged: after one chunk of
-        every in-flight prefill)."""
+        every in-flight prefill); with ``speculative=True`` a
+        draft-propose / verify round while ``pick_spec_k`` gives k > 0."""
         if self.cache_mode == "paged":
             progressed = self._advance_prefills()
-            progressed = self._paged_decode_step() or progressed
+            k = self._spec_depth() if self.speculative else 0
+            if k:
+                progressed = self._spec_round(k, paged=True) or progressed
+            else:
+                progressed = self._paged_decode_step() or progressed
             self._last_step_progressed = progressed
+            return
+        if self.speculative and (k := self._spec_depth()):
+            self._spec_round(k, paged=False)
             return
         active = [i for i, s in enumerate(self.slots) if s is not None]
         if not active:
@@ -1022,6 +1310,11 @@ class ServeEngine:
         if self.telemetry is not None:
             self.telemetry.clear()
         self._pending = []
+        if self.speculative:
+            for c in self.draft_cache:
+                for t in c.values():
+                    t.zero_()
+            self.draft_lengths = np.zeros(self.B, np.int32)
         if self.cache_mode == "paged":
             self.kv.reset()
             self._prefill_tasks = {}

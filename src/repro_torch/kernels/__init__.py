@@ -12,7 +12,9 @@ wrappers through this module, so a test can substitute a spy for any of
 them.
 """
 from repro_torch.kernels.decode_attention.ops import (
-    decode_attention, paged_decode_attention, paged_decode_attention_quant)
+    decode_attention, decode_attention_mq, paged_decode_attention,
+    paged_decode_attention_mq, paged_decode_attention_quant,
+    paged_decode_attention_quant_mq)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.fused import residual_rmsnorm, rmsnorm_matmul
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
@@ -20,9 +22,12 @@ from repro_torch.kernels.rwkv6.ops import wkv6
 
 WRAPPERS = {
     "decode_attention": decode_attention,
+    "decode_attention_mq": decode_attention_mq,
     "flash_attention": flash_attention,
     "paged_decode_attention": paged_decode_attention,
     "paged_decode_attention_quant": paged_decode_attention_quant,
+    "paged_decode_attention_mq": paged_decode_attention_mq,
+    "paged_decode_attention_quant_mq": paged_decode_attention_quant_mq,
     "residual_rmsnorm": residual_rmsnorm,
     "rmsnorm_matmul": rmsnorm_matmul,
     "rmsnorm": rmsnorm,

@@ -9,6 +9,13 @@ shape, so a trace of the step (``core/tracing.py``) holds each launch as
 one node.  ``decode_attention.launches``,
 ``paged_decode_attention.launches`` and
 ``paged_decode_attention_quant.launches`` count kernel launches.
+
+The ``_mq`` entries are their multi-query forms (speculative verify and
+the draft's catch-up step): q (B,S,HQ,hd) and one length a row, query j
+at position ``kv_lens - S + j``, each query attending as a single-token
+step at its own length would (``ref.py``); same kernel body, built as a
+template instance of its own (``csrc/decode_attention.cuh``, MQ), so the
+single-token entries' code is unchanged.  Their launches count apart.
 """
 from __future__ import annotations
 
@@ -18,8 +25,9 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention.ref import (
-    decode_attention_ref, paged_decode_attention_quant_ref,
-    paged_decode_attention_ref)
+    decode_attention_mq_ref, decode_attention_ref,
+    paged_decode_attention_mq_ref, paged_decode_attention_quant_mq_ref,
+    paged_decode_attention_quant_ref, paged_decode_attention_ref)
 
 _ARGS = ([build.P] * 5 + [build.I] * 6 + [build.F, build.I, build.F]
          + [build.L] * 10
@@ -30,9 +38,18 @@ _PAGED_ARGS = ([build.P] * 6 + [build.I] * 7 + [build.F, build.I, build.F]
 _PAGED_QUANT_ARGS = ([build.P] * 8 + [build.I] * 7
                      + [build.F, build.I, build.F] + [build.L] * 17
                      + [build.I, build.I, build.P, build.P, build.I, build.P])
+_SPLIT_TAIL = [build.I, build.I, build.P, build.P, build.I, build.P]
+_MQ_ARGS = ([build.P] * 5 + [build.I] * 6 + [build.F, build.I, build.F]
+            + [build.L] * 12 + _SPLIT_TAIL)
+_PAGED_MQ_ARGS = ([build.P] * 6 + [build.I] * 8
+                  + [build.F, build.I, build.F] + [build.L] * 13
+                  + _SPLIT_TAIL)
+_PAGED_QUANT_MQ_ARGS = ([build.P] * 8 + [build.I] * 8
+                        + [build.F, build.I, build.F] + [build.L] * 19
+                        + _SPLIT_TAIL)
 MAX_GROUP = 8       # query heads per KV head one CTA serves
 MAX_HEAD_DIM = 128
-MAX_ROWS = 65535    # grid.y
+MAX_ROWS = 65535    # grid.y, and grid.z (a multi-query call's query splits)
 SPLIT_MIN = 128     # positions one CTA takes before a call splits
 TARGET_CTAS = 264   # two waves of the H100's 132 SMs
 WARPS, POSITIONS_PER_LANE_GROUP = 4, 2    # csrc/decode_attention.cuh
@@ -77,26 +94,31 @@ def visit_plan(n_split: int, split_len: int, t_len: int, length: int,
 _counters: dict = {}
 
 
-def _split_buffers(name, q, b, hkv, g, hd, t_len):
+def _split_buffers(name, q, b, hkv, g, hd, t_len, n_q: int = 1):
     """The split plan and, with more than one split, the workspace (from
     the caching allocator, uninitialised) and the arrival counters.  The
     counters start at zero and the kernel's last CTA of each (row, KV
     head) sets its counter back to zero, so no call clears them.  They are
     kept per (device, stream): two streams running the kernel at once
     would otherwise count each other's CTAs; and per size, never freed, so
-    a CUDA graph that captured their address stays valid."""
+    a CUDA graph that captured their address stays valid.  A multi-query
+    call (``n_q`` queries a row) splits as a call over its ``b`` rows does,
+    so each query's sums run in a single-token step's order; its workspace
+    and counters hold ``b * n_q`` (row, query) pairs."""
     n_split, per = split_plan(t_len, b, hkv)
-    if b > MAX_ROWS:
-        raise ValueError(f"{name}: {b} rows exceed the kernel's grid "
-                         f"({MAX_ROWS})")
+    if b > MAX_ROWS or n_split * n_q > MAX_ROWS:
+        raise ValueError(f"{name}: {b} rows of {n_q} queries in {n_split} "
+                         f"splits exceed the kernel's grid ({MAX_ROWS} rows, "
+                         f"{MAX_ROWS} query splits)")
+    rows = b * n_q
     if n_split == 1:
         return n_split, per, None, None
-    ws = torch.empty(b * hkv * n_split * g * (hd + 2), dtype=torch.float32,
-                     device=q.device)
-    key = (q.device.index, build.stream_ptr(q), b * hkv)
+    ws = torch.empty(rows * hkv * n_split * g * (hd + 2),
+                     dtype=torch.float32, device=q.device)
+    key = (q.device.index, build.stream_ptr(q), rows * hkv)
     cnt = _counters.get(key)
     if cnt is None:
-        cnt = torch.zeros(b * hkv, dtype=torch.int32, device=q.device)
+        cnt = torch.zeros(rows * hkv, dtype=torch.int32, device=q.device)
         _counters[key] = cnt
     return n_split, per, ws, cnt
 
@@ -403,3 +425,240 @@ paged_decode_attention.costs = _paged_costs
 paged_decode_attention_quant.launches = 0
 paged_decode_attention_quant.op = _quant_op._opoverload
 paged_decode_attention_quant.costs = _quant_costs
+
+
+# ------------------------------------------------------------ multi-query
+def _check_mq(name, q, kv_lens):
+    if q.dim() != 4:
+        raise ValueError(f"{name}: q {tuple(q.shape)} must be (B,S,HQ,hd)")
+    if q.stride(3) != 1:
+        raise ValueError(f"{name}: head_dim must have unit stride")
+    b = q.shape[0]
+    if (kv_lens.shape != (b,) or kv_lens.dtype != torch.int32
+            or not kv_lens.is_contiguous()):
+        raise ValueError(f"{name}: kv_lens must be a contiguous (B,) int32 "
+                         "tensor")
+
+
+def decode_attention_mq(q, k, v, kv_lens, *, scale: float, window: int = 0,
+                        softcap: float = 0.0):
+    """Multi-query ``decode_attention``: q (B,S,HQ,hd); k/v (B,HKV,T,hd)
+    strided views as there; kv_lens (B,) int32, the row's length after its
+    last query.  Query j of row b sits at position ``kv_lens[b] - S + j``
+    and attends as a single-token call of length ``kv_lens[b] - (S-1-j)``
+    would (capped at T, its window from that length).  Returns
+    (B,S,HQ,hd)."""
+    build.require_placed("decode_attention_mq", q)
+    return _decode_mq_op._opoverload(q, k, v, kv_lens, float(scale),
+                                     _window(window), float(softcap))
+
+
+@torch.library.custom_op("repro_torch::decode_attention_mq",
+                         mutates_args=(), device_types="cpu")
+def _decode_mq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  kv_lens: torch.Tensor, scale: float, window: int,
+                  softcap: float) -> torch.Tensor:
+    return decode_attention_mq_ref(q, k, v, kv_lens, scale=scale,
+                                   window=window,
+                                   softcap=softcap).contiguous()
+
+
+@_decode_mq_op.register_kernel("cuda")
+def _decode_mq_launch(q, k, v, kv_lens, scale, window, softcap):
+    name = "decode_attention_mq"
+    build.require_cuda(name, q, k, v, kv_lens)
+    _check_mq(name, q, kv_lens)
+    b, s, hq, hd = q.shape
+    _, hkv, t, _ = k.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} disagree")
+    if hq % hkv or hq // hkv > MAX_GROUP or hd > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: needs HQ % HKV == 0, HQ/HKV <= "
+                         f"{MAX_GROUP}, hd <= {MAX_HEAD_DIM}; got HQ={hq} "
+                         f"HKV={hkv} hd={hd}")
+    if q.dtype != k.dtype or v.dtype != k.dtype:
+        raise ValueError(f"{name}: q, k, v must share one dtype")
+    if k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError(f"{name}: head_dim must have unit stride")
+    out = torch.empty((b, s, hq, hd), dtype=q.dtype, device=q.device)
+    split = _split_buffers(name, q, b, hkv, hq // hkv, hd, t, n_q=s)
+    fn = build.function("decode_attention_mq_launch", _MQ_ARGS)
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+              kv_lens.data_ptr(), b, s, hq, hkv, t, hd, scale, window,
+              softcap, q.stride(0), q.stride(1), q.stride(2), k.stride(0),
+              k.stride(1), k.stride(2), v.stride(0), v.stride(1),
+              v.stride(2), out.stride(0), out.stride(1), out.stride(2),
+              *_split_args(split), build.dtype_code(q), build.stream_ptr(q))
+    build.check(code, name)
+    decode_attention_mq.launches += 1
+    return out
+
+
+@_decode_mq_op.register_fake
+def _decode_mq_fake(q, k, v, kv_lens, scale, window, softcap):
+    return q.new_empty(q.shape)
+
+
+def _decode_mq_costs(q, k, v, kv_lens, scale, window, softcap) -> tuple:
+    """As ``_decode_costs``, for each of the S queries."""
+    b, s, hq, hd = q.shape
+    t = k.shape[2]
+    return 4.0 * b * s * hq * t * hd, float(build.nbytes(q, k, v, kv_lens)
+                                            + build.nbytes(q))
+
+
+decode_attention_mq.launches = 0
+decode_attention_mq.op = _decode_mq_op._opoverload
+decode_attention_mq.costs = _decode_mq_costs
+
+
+def _check_paged_mq(name, q, k_pages, v_pages, block_tables, kv_lens,
+                    scales=()):
+    _check_mq(name, q, kv_lens)
+    _check_paged(name, q[:, 0], k_pages, v_pages, block_tables, kv_lens,
+                 scales)
+
+
+def paged_decode_attention_mq(q, k_pages, v_pages, block_tables, kv_lens, *,
+                              scale: float, window: int = 0,
+                              softcap: float = 0.0):
+    """Multi-query ``paged_decode_attention``: q (B,S,HQ,hd), the pool and
+    table as there, kv_lens (B,) int32, the length after each row's last
+    query (not capped: each query's own length is capped at NB * bs);
+    queries as in ``decode_attention_mq``.  Returns (B,S,HQ,hd)."""
+    build.require_placed("paged_decode_attention_mq", q)
+    return _paged_mq_op._opoverload(q, k_pages, v_pages, block_tables,
+                                    kv_lens, float(scale), _window(window),
+                                    float(softcap))
+
+
+@torch.library.custom_op("repro_torch::paged_decode_attention_mq",
+                         mutates_args=(), device_types="cpu")
+def _paged_mq_op(q: torch.Tensor, k_pages: torch.Tensor,
+                 v_pages: torch.Tensor, block_tables: torch.Tensor,
+                 kv_lens: torch.Tensor, scale: float, window: int,
+                 softcap: float) -> torch.Tensor:
+    return paged_decode_attention_mq_ref(
+        q, k_pages, v_pages, block_tables, kv_lens, scale=scale,
+        window=window, softcap=softcap).contiguous()
+
+
+@_paged_mq_op.register_kernel("cuda")
+def _paged_mq_launch(q, k_pages, v_pages, block_tables, kv_lens, scale,
+                     window, softcap):
+    name = "paged_decode_attention_mq"
+    _check_paged_mq(name, q, k_pages, v_pages, block_tables, kv_lens)
+    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise ValueError(f"{name}: q and pages must share one dtype")
+    b, s, hq, hd = q.shape
+    n_pages, bs, hkv, _ = k_pages.shape
+    nb = block_tables.shape[1]
+    out = torch.empty((b, s, hq, hd), dtype=q.dtype, device=q.device)
+    split = _split_buffers(name, q, b, hkv, hq // hkv, hd, nb * bs, n_q=s)
+    fn = build.function("paged_decode_attention_mq_launch", _PAGED_MQ_ARGS)
+    code = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+              out.data_ptr(), block_tables.data_ptr(), kv_lens.data_ptr(),
+              b, s, hq, hkv, hd, n_pages, bs, nb, scale, window, softcap,
+              q.stride(0), q.stride(1), q.stride(2), *k_pages.stride()[:3],
+              *v_pages.stride()[:3], out.stride(0), out.stride(1),
+              out.stride(2), block_tables.stride(0), *_split_args(split),
+              build.dtype_code(q), build.stream_ptr(q))
+    build.check(code, name)
+    paged_decode_attention_mq.launches += 1
+    return out
+
+
+@_paged_mq_op.register_fake
+def _paged_mq_fake(q, k_pages, v_pages, block_tables, kv_lens, scale,
+                   window, softcap):
+    return q.new_empty(q.shape)
+
+
+def _paged_mq_costs(q, k_pages, v_pages, block_tables, kv_lens, scale,
+                    window, softcap):
+    b, s, hq, hd = q.shape
+    nb, bs = block_tables.shape[1], k_pages.shape[1]
+    per = (k_pages[0, 0].numel() * k_pages.element_size()
+           + v_pages[0, 0].numel() * v_pages.element_size())
+    return (4.0 * b * s * hq * nb * bs * hd,
+            _paged_bytes(q, (k_pages,), block_tables, kv_lens, per))
+
+
+def paged_decode_attention_quant_mq(q, k_pages, v_pages, k_scale, v_scale,
+                                    block_tables, kv_lens, *, scale: float,
+                                    window: int = 0, softcap: float = 0.0):
+    """Multi-query ``paged_decode_attention_quant`` (int8 pool, f32
+    scales); queries as in ``paged_decode_attention_mq``."""
+    if k_scale is None or v_scale is None:
+        raise ValueError("paged_decode_attention_quant_mq: needs both "
+                         "k_scale and v_scale")
+    build.require_placed("paged_decode_attention_quant_mq", q)
+    return _quant_mq_op._opoverload(q, k_pages, v_pages, k_scale, v_scale,
+                                    block_tables, kv_lens, float(scale),
+                                    _window(window), float(softcap))
+
+
+@torch.library.custom_op("repro_torch::paged_decode_attention_quant_mq",
+                         mutates_args=(), device_types="cpu")
+def _quant_mq_op(q: torch.Tensor, k_pages: torch.Tensor,
+                 v_pages: torch.Tensor, k_scale: torch.Tensor,
+                 v_scale: torch.Tensor, block_tables: torch.Tensor,
+                 kv_lens: torch.Tensor, scale: float, window: int,
+                 softcap: float) -> torch.Tensor:
+    return paged_decode_attention_quant_mq_ref(
+        q, k_pages, v_pages, k_scale, v_scale, block_tables, kv_lens,
+        scale=scale, window=window, softcap=softcap).contiguous()
+
+
+@_quant_mq_op.register_kernel("cuda")
+def _quant_mq_launch(q, k_pages, v_pages, k_scale, v_scale, block_tables,
+                     kv_lens, scale, window, softcap):
+    name = "paged_decode_attention_quant_mq"
+    _check_paged_mq(name, q, k_pages, v_pages, block_tables, kv_lens,
+                    (k_scale, v_scale))
+    if k_pages.dtype != torch.int8 or v_pages.dtype != torch.int8:
+        raise ValueError(f"{name}: pages must be int8, got {k_pages.dtype}")
+    b, s, hq, hd = q.shape
+    n_pages, bs, hkv, _ = k_pages.shape
+    nb = block_tables.shape[1]
+    out = torch.empty((b, s, hq, hd), dtype=q.dtype, device=q.device)
+    split = _split_buffers(name, q, b, hkv, hq // hkv, hd, nb * bs, n_q=s)
+    fn = build.function("paged_decode_attention_quant_mq_launch",
+                        _PAGED_QUANT_MQ_ARGS)
+    code = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+              k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(),
+              block_tables.data_ptr(), kv_lens.data_ptr(),
+              b, s, hq, hkv, hd, n_pages, bs, nb, scale, window, softcap,
+              q.stride(0), q.stride(1), q.stride(2), *k_pages.stride()[:3],
+              *v_pages.stride()[:3], *k_scale.stride(), *v_scale.stride(),
+              out.stride(0), out.stride(1), out.stride(2),
+              block_tables.stride(0), *_split_args(split),
+              build.dtype_code(q), build.stream_ptr(q))
+    build.check(code, name)
+    paged_decode_attention_quant_mq.launches += 1
+    return out
+
+
+@_quant_mq_op.register_fake
+def _quant_mq_fake(q, k_pages, v_pages, k_scale, v_scale, block_tables,
+                   kv_lens, scale, window, softcap):
+    return q.new_empty(q.shape)
+
+
+def _quant_mq_costs(q, k_pages, v_pages, k_scale, v_scale, block_tables,
+                    kv_lens, scale, window, softcap):
+    b, s, hq, hd = q.shape
+    nb, bs = block_tables.shape[1], k_pages.shape[1]
+    per = sum(t[0, 0].numel() * t.element_size()
+              for t in (k_pages, v_pages, k_scale, v_scale))
+    return (4.0 * b * s * hq * nb * bs * hd,
+            _paged_bytes(q, (k_pages,), block_tables, kv_lens, per))
+
+
+paged_decode_attention_mq.launches = 0
+paged_decode_attention_mq.op = _paged_mq_op._opoverload
+paged_decode_attention_mq.costs = _paged_mq_costs
+paged_decode_attention_quant_mq.launches = 0
+paged_decode_attention_quant_mq.op = _quant_mq_op._opoverload
+paged_decode_attention_quant_mq.costs = _quant_mq_costs

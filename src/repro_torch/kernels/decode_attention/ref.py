@@ -82,3 +82,48 @@ def paged_decode_attention_quant_ref(q, k_pages, v_pages, k_scale, v_scale,
     return paged_decode_attention_ref(q, kf, vf, block_tables, kv_lens,
                                       scale=scale, window=window,
                                       softcap=softcap)
+
+
+def _per_query(single, q, kv_lens, **kw):
+    """``single`` (one of the refs above, with its other operands bound)
+    run for each query j of q (B,S,HQ,hd) at its own length
+    ``kv_lens - (S - 1 - j)``: query j sits at position kv_lens - S + j.
+    Returns (B,S,HQ,hd)."""
+    s = q.shape[1]
+    lens = torch.as_tensor(kv_lens, device=q.device)
+    return torch.stack([single(q[:, j], lens - (s - 1 - j), **kw)
+                        for j in range(s)], dim=1)
+
+
+def decode_attention_mq_ref(q, k, v, kv_lens, *, scale: float,
+                            window: int = 0, softcap: float = 0.0):
+    """Multi-query ``decode_attention_ref``: q (B,S,HQ,hd), k/v
+    (B,HKV,T,hd), kv_lens (B,) the length after the row's last query;
+    query j attends as a single-token step of length kv_lens - (S-1-j)
+    would.  Returns (B,S,HQ,hd)."""
+    return _per_query(
+        lambda qj, lens, **kw: decode_attention_ref(qj, k, v, lens, **kw),
+        q, kv_lens, scale=scale, window=window, softcap=softcap)
+
+
+def paged_decode_attention_mq_ref(q, k_pages, v_pages, block_tables,
+                                  kv_lens, *, scale: float, window: int = 0,
+                                  softcap: float = 0.0):
+    """Multi-query ``paged_decode_attention_ref`` (q (B,S,HQ,hd), queries
+    as in ``decode_attention_mq_ref``)."""
+    return _per_query(
+        lambda qj, lens, **kw: paged_decode_attention_ref(
+            qj, k_pages, v_pages, block_tables, lens, **kw),
+        q, kv_lens, scale=scale, window=window, softcap=softcap)
+
+
+def paged_decode_attention_quant_mq_ref(q, k_pages, v_pages, k_scale,
+                                        v_scale, block_tables, kv_lens, *,
+                                        scale: float, window: int = 0,
+                                        softcap: float = 0.0):
+    """Multi-query ``paged_decode_attention_quant_ref``."""
+    return _per_query(
+        lambda qj, lens, **kw: paged_decode_attention_quant_ref(
+            qj, k_pages, v_pages, k_scale, v_scale, block_tables, lens,
+            **kw),
+        q, kv_lens, scale=scale, window=window, softcap=softcap)

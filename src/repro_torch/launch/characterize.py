@@ -22,8 +22,14 @@ same seeded traffic is served with the block pool driven past capacity on
 each ``--sweep-platforms`` device model (LC/PCIe vs CC/NVLink-C2C),
 printing measured offload traffic, the link-priced offload tax and (on
 the GPU) the offload tier's measured copy time, and writing
-``memory_sweep.json``.  ``--tp-sweep`` and ``--spec-sweep`` raise: they
-need tensor parallelism and speculative decoding (ROADMAP Queue A).
+``memory_sweep.json``.  ``--spec-sweep`` runs the speculative-decoding
+depth sweep: the live engine serves the same seeded traffic at each
+``--spec-ks`` depth (0 = plain decode) and ``--batches`` size, measuring
+acceptance and steps per emitted token, then the port's decode stream is
+priced per ``--sweep-platforms`` row with the draft's serialized dispatch
+stream and the (k+1)x verify work (``--model-batches`` adds batch sizes
+priced, not served), printing each cell and writing ``spec_sweep.json``.
+``--tp-sweep`` raises: it needs tensor parallelism (ROADMAP Queue A).
 
 Weights are random, drawn on the device from a generator seeded 0.  Runs
 on the GPU by default and raises without one; ``--device cpu`` runs the
@@ -90,6 +96,27 @@ def print_memory_sweep(sweep: dict) -> None:
               f"preempt {d['preemptions'][d['baseline']]}->"
               f"{d['preemptions'][d['kv_dtype']]} "
               f"tax_delta={d['offload_tax_delta_us']}us")
+
+
+def print_spec_sweep(sweep: dict) -> None:
+    """One line a measured (k, batch) cell and a modeled (platform, k,
+    batch) cell, then the batches where speculation wins."""
+    for r in sweep["measured"]:
+        print(f"measured k={r['k']:<2d} batch={r['batch']:<3d} "
+              f"accept={r['accept_rate']:<5} "
+              f"steps/tok={r['steps_per_emitted_token']:<5} "
+              f"rounds={r['spec_rounds']:<4d} "
+              f"draft_disp={r['draft_dispatches']}")
+    for r in sweep["modeled"]:
+        print(f"{r['platform']:<12s} {r['coupling']:<3s} "
+              f"k={r['k']:<2d} batch={r['batch']:<5d} "
+              f"base/tok={r['modeled_baseline_per_token_us']}us "
+              f"spec/tok={r['modeled_spec_per_token_us']}us "
+              f"draft_tax={r['modeled_draft_launch_tax_per_round_us']}"
+              f"us win={r['win']}")
+    for plat, by_k in sweep["win_batches"].items():
+        print(f"win_batches[{plat}]: " + ", ".join(
+            f"k={k} -> {bs}" for k, bs in by_k.items()))
 
 
 def print_points(result) -> None:
@@ -176,8 +203,15 @@ def main(argv=None):
     ap.add_argument("--tp-sweep", action="store_true",
                     help="the tensor-parallel sweep (not ported: raises)")
     ap.add_argument("--spec-sweep", action="store_true",
-                    help="the speculative-decoding sweep (not ported: "
-                         "raises)")
+                    help="run the speculative-decoding k x batch sweep "
+                         "(measured acceptance + modeled LC-vs-CC draft "
+                         "launch tax) instead of the measured batch sweep")
+    ap.add_argument("--spec-ks", default="0,2,4,8",
+                    help="comma-separated speculation depths for "
+                         "--spec-sweep (0 = plain decode baseline)")
+    ap.add_argument("--model-batches", default="",
+                    help="extra batch sizes to price (not serve) in "
+                         "--spec-sweep, e.g. 16,64,256")
     ap.add_argument("--attribution-report", action="store_true",
                     help="print the per-operator launch/queue/%%-of-TKLQT "
                          "table for each batch point (needs a launch-plan "
@@ -195,11 +229,29 @@ def main(argv=None):
         cfg = reduced(cfg)
     if args.tp_sweep:
         tp_sweep(cfg, None)
-    if args.spec_sweep:
-        spec_sweep(cfg, None)
     dev = resolve_device(args.device)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          device=dev)
+    if args.spec_sweep:
+        batches = [int(b) for b in args.batches.split(",") if b]
+        mb = [int(b) for b in args.model_batches.split(",") if b]
+        sweep = spec_sweep(
+            cfg, params,
+            ks=[int(k) for k in args.spec_ks.split(",") if k],
+            batches=batches,
+            platforms=[p for p in args.sweep_platforms.split(",") if p],
+            scenario=args.scenario, n_requests=args.requests,
+            seed=args.seed, prompt_cap=args.prompt_cap or None,
+            output_cap=args.output_cap or None, max_len=args.max_len,
+            model_batches=sorted(set(batches) | set(mb)) if mb else None,
+            device=dev)
+        print_spec_sweep(sweep)
+        os.makedirs(args.out_dir, exist_ok=True)
+        path = os.path.join(args.out_dir, "spec_sweep.json")
+        with open(path, "w") as f:
+            json.dump(sweep, f, indent=2)
+        print(json.dumps({"summary": sweep, "artifacts": {"sweep": path}}))
+        return sweep
     if args.memory_sweep:
         sweep = memory_pressure_sweep(
             cfg, params, scenario=args.scenario,

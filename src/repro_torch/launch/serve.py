@@ -5,11 +5,16 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-3.2-1b
     PYTHONPATH=src python -m repro_torch.launch.serve --cache paged \\
         --kv-dtype int8 --num-blocks 12 --prefill-chunk 8 --offload host
+    PYTHONPATH=src python -m repro_torch.launch.serve --speculative \\
+        --spec-k 4
 
 Counterpart of ``repro.launch.serve`` for the flags the port supports
 (``--plan``, ``--cache paged`` with its block, dtype, sharing, offload and
-chunking flags, and ``--platform``, which prices the offload tier and the
-launch plans).  ``--plan jit``, the default as in the reference, replays
+chunking flags, ``--platform``, which prices the offload tier and the
+launch plans, and ``--speculative`` with ``--spec-k``,
+``--spec-inflection`` and ``--draft-layers``: draft-propose /
+batched-verify decoding under ``--plan jit``, whose tokens are plain
+greedy decoding's).  ``--plan jit``, the default as in the reference, replays
 each step as one CUDA graph (``inference.backends.local``); ``eager``,
 ``whole_graph``, ``chain``, ``auto`` and ``fused`` run it through the
 launch-plan runtime (``eager`` op by op; the others one CUDA graph per
@@ -30,8 +35,10 @@ fills (``dispatches_per_decode_step``, ``modeled_tklqt_us`` and
 graphs captured (count, seconds, device memory) and the traces of the
 planned bodies (count, nodes, seconds); under ``--cache
 paged`` also the reference's paged fields and the measured device time of
-the offload copies; and ``boundedness``, the live monitor's verdict over
-the measured decode steps (``telemetry.monitor``).
+the offload copies; the reference's speculative fields (``spec_rounds``,
+``accept_rate``, ``steps_per_emitted_token``, ``draft_dispatches``, ...);
+and ``boundedness``, the live monitor's verdict over the measured decode
+steps (``telemetry.monitor``).
 """
 from __future__ import annotations
 
@@ -49,6 +56,8 @@ from repro_torch.inference.backends import PLANS
 from repro_torch.inference.engine import (CACHE_MODES, OFFLOAD_MODES,
                                           Request, ServeEngine)
 from repro_torch.inference.kv_quant import KV_DTYPES
+from repro_torch.inference.speculative import (default_draft_config,
+                                               validate_draft)
 from repro_torch.models import init_params
 from repro_torch.telemetry.metrics import percentile
 
@@ -130,6 +139,17 @@ def report(eng: ServeEngine, done: list, wall_s: float) -> dict:
         "graph_memory_bytes": graphs.memory_bytes,
         "kernel_launches_per_decode_step": st.kernel_launches_per_decode_step,
         "prefill_kernel_launches": st.prefill_kernel_launches,
+        "speculative": eng.speculative,
+        "spec_k": eng.spec_k if eng.speculative else 0,
+        "draft": eng.draft_cfg.name if eng.speculative else None,
+        "spec_rounds": st.spec_rounds,
+        "proposed": st.proposed,
+        "accepted": st.accepted,
+        "corrections": st.corrections,
+        "accept_rate": st.accept_rate,
+        "steps_per_emitted_token": st.steps_per_emitted_token,
+        "draft_dispatches": st.draft_dispatches,
+        "modeled_draft_launch_tax_us": st.modeled_draft_launch_tax_s * 1e6,
         "boundedness": (eng.monitor.summary() if eng.monitor is not None
                         else None),
     }
@@ -185,6 +205,18 @@ def main(argv=None):
     ap.add_argument("--no-warmup", action="store_true",
                     help="skip the warmup pass; measured fields then include "
                          "the kernels' first build and load")
+    ap.add_argument("--speculative", action="store_true",
+                    help="draft-propose / batched-verify decoding "
+                         "(greedy-lossless; needs --plan jit)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="draft tokens proposed per round (>= 1)")
+    ap.add_argument("--spec-inflection", type=int, default=None,
+                    help="measured CPU->GPU-bound inflection batch for "
+                         "the launch-tax-aware depth policy (from "
+                         "launch.characterize); default: always deep")
+    ap.add_argument("--draft-layers", type=int, default=None,
+                    help="superblocks in the truncated-target draft "
+                         "(default: half the target's)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args(argv)
@@ -196,6 +228,32 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    draft_cfg = None
+    if args.speculative:
+        # actionable CLI validation before any params materialize
+        if args.plan != "jit":
+            ap.error(f"--speculative needs --plan jit, got {args.plan} "
+                     "(the launch-plan runtime replays fixed single-token "
+                     "streams; model the draft/verify trade with "
+                     "launch.characterize --spec-sweep instead)")
+        if args.spec_k < 1:
+            ap.error(f"--spec-k must be >= 1, got {args.spec_k} "
+                     "(drop --speculative to serve without a draft)")
+        if args.draft_layers is not None:
+            if not 1 <= args.draft_layers <= cfg.n_superblocks:
+                ap.error(f"--draft-layers must be in [1, "
+                         f"{cfg.n_superblocks}] for {cfg.name} "
+                         f"({cfg.n_superblocks} superblocks), got "
+                         f"{args.draft_layers}")
+            draft_cfg = cfg.replace(
+                name=f"{cfg.name}-draft{args.draft_layers}sb",
+                n_layers=args.draft_layers * len(cfg.block_pattern))
+        else:
+            draft_cfg = default_draft_config(cfg)
+        try:
+            validate_draft(cfg, draft_cfg, args.spec_k)
+        except ValueError as e:
+            ap.error(str(e))
     dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = init_params(cfg, gen, device=dev)
@@ -206,7 +264,10 @@ def main(argv=None):
                       block_size=args.block_size, num_blocks=args.num_blocks,
                       offload=args.offload, prefill_chunk=args.prefill_chunk,
                       kv_dtype=args.kv_dtype,
-                      share_prefix=args.share_prefix)
+                      share_prefix=args.share_prefix,
+                      speculative=args.speculative, draft_config=draft_cfg,
+                      spec_k=args.spec_k,
+                      spec_inflection=args.spec_inflection)
     if not args.no_warmup:
         eng.run(make_requests(args.requests, cfg.vocab_size, args.max_new))
         eng.reset()

@@ -17,6 +17,12 @@ Contiguous cache, (B,T,HKV,hd) per layer:
     are written at ``lengths[b]`` and ``kernels.decode_attention`` reads the
     cache in place through a transposed view, with per-row
     ``kv_lens = lengths + 1``;
+  * multi-token decode (S > 1 tokens a row at per-row ``positions``,
+    ``lengths[b] + j`` by default: the speculative verify and the draft's
+    catch-up step): token j is written at ``(b, positions[b, j])`` and
+    ``kernels.decode_attention_mq`` places query j at position
+    ``kv_lens - S + j`` with ``kv_lens = positions[:, -1] + 1``, each
+    query attending as a single-token step would;
   * prefill at ``cache_index`` (and a forward without cache): K/V are
     written to ``[cache_index, cache_index + S)`` and
     ``kernels.flash_attention`` attends over the first ``cache_index + S``
@@ -32,7 +38,8 @@ in the reference):
     an int8 pool quantizes on write;
   * decode: ``kernels.paged_decode_attention`` (``_quant`` for an int8
     pool) reads the pool in place with ``kv_lens = lengths + 1`` (capped at
-    NB*bs);
+    NB*bs); multi-token decode (the speculative verify) writes all B*S
+    tokens (quantized on write in int8) and goes to the ``_mq`` forms;
   * prefill chunk at ``cache_index = t0``: the first ceil((t0+C)/bs) pages
     of each row are gathered into a contiguous view (dequantized to the
     compute dtype in int8, as the reference does) and
@@ -143,9 +150,10 @@ def make_paged_self_cache(cfg: ModelConfig, num_pages: int, block_size: int,
 class AttnContext:
     """Per-forward indices shared by all layers."""
     rope: tuple                       # (cos, sin) for the S new tokens
-    decode: bool                      # per-row lengths (one token per row)
+    decode: bool                      # per-row lengths or positions
     start: int = 0                    # prefill write offset
     kv_lens: Optional[torch.Tensor] = None   # (B,) int32, decode only
+    # (S > 1: the length after the row's last token)
     # the writes (int64, so no scatter converts them), one per token, a
     # dropped one to the scratch entry: contiguous decode (row, position);
     # paged (page, offset) over B*S tokens
@@ -168,30 +176,50 @@ def device_ints(x, shape, device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
-def _multi_token_decode() -> NotImplementedError:
-    return NotImplementedError(
-        "multi-token decode with per-row lengths (speculative verify) is "
-        "not ported yet, see ROADMAP Queue A, \"speculative decoding\"")
+def token_positions(b: int, s: int, device, lengths, positions):
+    """(B,S) int32 positions of a multi-token decode: ``positions`` as
+    given, else ``lengths[:, None] + arange(S)`` (the reference's
+    default), on the device."""
+    if positions is not None:
+        return device_ints(positions, (b, s), device)
+    lens = device_ints(lengths, (b,), device)
+    return lens[:, None] + torch.arange(s, dtype=torch.int32, device=device)
 
 
 def attention_context(cfg: ModelConfig, b: int, s: int, device, *,
-                      cache_index: int = 0, lengths=None,
+                      cache_index: int = 0, lengths=None, positions=None,
                       max_len: Optional[int] = None) -> AttnContext:
     """Positions and cache-write indices for one forward.
 
     ``lengths`` (decode): (B,) per-row positions, a device tensor or host
     values.  Row b writes at ``(b, lengths[b])``; a write past ``max_len``
     goes to the hidden scratch row B instead (it drops, as in the
-    reference).
+    reference).  With S > 1 tokens a row (speculative verify, the draft's
+    catch-up step), token j of row b is written at ``(b, positions[b,
+    j])`` (``positions`` (B,S), by default ``lengths[b] + j``), and
+    ``kv_lens = positions[:, -1] + 1`` places the row's queries at the
+    positions before it (``kernels.decode_attention_mq``).  With S = 1,
+    ``positions`` (B,1) stand for ``lengths``.
     """
     if lengths is None:
+        if positions is not None:
+            raise ValueError("positions= needs lengths= (a multi-token "
+                             "decode)")
         positions = torch.arange(cache_index, cache_index + s,
                                  device=device)[None].expand(b, s)
         return AttnContext(rope_tables(positions, cfg.hd, cfg.rope_theta),
                            decode=False, start=cache_index)
     if s != 1:
-        raise _multi_token_decode()
-    lens = device_ints(lengths, (b,), device)
+        pos = token_positions(b, s, device, lengths, positions)
+        ok = pos < max_len
+        rows = torch.where(ok, torch.arange(b, device=device)[:, None], b)
+        return AttnContext(
+            rope_tables(pos, cfg.hd, cfg.rope_theta), decode=True,
+            kv_lens=pos[:, -1] + 1,
+            pos=(rows.reshape(-1).long(),
+                 torch.where(ok, pos, 0).reshape(-1).long()))
+    lens = (device_ints(lengths, (b,), device) if positions is None
+            else device_ints(positions, (b,), device))
     ok = lens < max_len
     rows = torch.where(ok, torch.arange(b, device=device), b)
     return AttnContext(
@@ -201,21 +229,39 @@ def attention_context(cfg: ModelConfig, b: int, s: int, device, *,
 
 def paged_attention_context(cfg: ModelConfig, b: int, s: int, device, *,
                             block_tables, n_pages: int, block_size: int,
-                            cache_index: int = 0,
-                            lengths=None) -> AttnContext:
+                            cache_index: int = 0, lengths=None,
+                            positions=None) -> AttnContext:
     """Positions, page writes and page reads of one forward over the paged
     cache, from the (B,NB) ``block_tables`` and ``lengths`` (decode) or
     ``cache_index`` (prefill chunk), device tensors or host values.  A
     write whose block is past the table or whose page id is outside the
     pool goes to the hidden scratch page ``n_pages`` (it drops).  The
     chunk's ``cache_index`` is a host int: it sets how many pages the
-    prefill gathers and how many positions it attends over."""
+    prefill gathers and how many positions it attends over.  With S > 1
+    tokens a row and ``lengths`` (speculative verify), token j of row b
+    goes to ``(bt[b, p // bs], p % bs)`` at ``p = positions[b, j]``
+    (default ``lengths[b] + j``) and the queries attend through
+    ``kernels.paged_decode_attention_mq`` with ``kv_lens =
+    positions[:, -1] + 1`` (each query's own length is capped at NB * bs
+    in the kernel)."""
     bt = device_ints(block_tables, (b, -1), device)
     nb, bs = bt.shape[1], block_size
+    if lengths is not None and s != 1:
+        pos = token_positions(b, s, device, lengths, positions)
+        blk = pos // bs
+        page = bt.gather(1, blk.clamp(max=nb - 1).long())
+        ok = (blk < nb) & (page >= 0) & (page < n_pages)
+        return AttnContext(
+            rope_tables(pos, cfg.hd, cfg.rope_theta), decode=True,
+            kv_lens=pos[:, -1] + 1,
+            pos=(torch.where(ok, page, n_pages).reshape(-1).long(),
+                 (pos % bs).reshape(-1).long()),
+            paged=True, block_tables=bt)
+    if positions is not None and lengths is None:
+        raise ValueError("positions= needs lengths= (a multi-token decode)")
     if lengths is not None:
-        if s != 1:
-            raise _multi_token_decode()
-        lens = device_ints(lengths, (b,), device)
+        lens = device_ints(lengths if positions is None else positions,
+                           (b,), device)
         blk = lens // bs
         page = bt.gather(1, blk.clamp(max=nb - 1)[:, None].long())[:, 0]
         ok = (blk < nb) & (page >= 0) & (page < n_pages)
@@ -261,6 +307,16 @@ def _paged_attention(q, k, v, cfg: ModelConfig, ctx: AttnContext,
     else:
         with_scratch(kp)[page, off] = k_new.to(kp.dtype)
         with_scratch(vp)[page, off] = v_new.to(vp.dtype)
+    if ctx.decode and s > 1:
+        opts = dict(scale=scale, window=window, softcap=cfg.attn_softcap)
+        if quantized:
+            o = kernels.paged_decode_attention_quant_mq(
+                q, kp, vp, cache["k_scale"], cache["v_scale"],
+                ctx.block_tables, ctx.kv_lens, **opts)
+        else:
+            o = kernels.paged_decode_attention_mq(
+                q, kp, vp, ctx.block_tables, ctx.kv_lens, **opts)
+        return o.reshape(b, s, hq * hd)
     if ctx.decode:
         opts = dict(scale=scale, window=window, softcap=cfg.attn_softcap)
         if quantized:
@@ -324,7 +380,17 @@ def attention_fwd(params, h, q, cfg: ModelConfig, ctx: AttnContext,
     if ctx.paged:
         return _paged_attention(q, k, v, cfg, ctx, cache, scale,
                                 window) @ params["wo"]
-    if ctx.decode:
+    if ctx.decode and s > 1:
+        ck, cv = cache["k"], cache["v"]
+        rows, pos = ctx.pos
+        with_scratch(ck)[rows, pos] = k.reshape(b * s, hkv, hd).to(ck.dtype)
+        with_scratch(cv)[rows, pos] = v.reshape(b * s, hkv, hd).to(cv.dtype)
+        o = kernels.decode_attention_mq(q, ck.transpose(1, 2),
+                                        cv.transpose(1, 2), ctx.kv_lens,
+                                        scale=scale, window=window,
+                                        softcap=cfg.attn_softcap)
+        o = o.reshape(b, s, hq * hd)
+    elif ctx.decode:
         ck, cv = cache["k"], cache["v"]
         rows, pos = ctx.pos
         with_scratch(ck)[rows, pos] = k[:, 0].to(ck.dtype)

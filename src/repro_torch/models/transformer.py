@@ -88,6 +88,27 @@ def check_supported(cfg: ModelConfig) -> None:
             "\"model features\"")
 
 
+def check_speculative(cfg: ModelConfig) -> None:
+    """Raise for a stack whose greedy tokens a speculative verify cannot
+    keep, as the reference's contract (every emitted token is the target's
+    argmax from the true prefix) needs.  The reference speculates on both
+    and its tokens then part from its own plain greedy ones (ROADMAP Queue
+    C); the port refuses them."""
+    if is_recurrent(cfg):
+        raise ValueError(
+            f"{cfg.name}: speculative decoding needs a stack whose verify "
+            "can be rolled back; a recurrent stack's state advances through "
+            "all k+1 verify tokens and a rejected draft token cannot be "
+            "taken back out of it (the reference's speculative tokens part "
+            "from its greedy ones: ROADMAP Queue C)")
+    if cfg.family == "encoder":
+        raise ValueError(
+            f"{cfg.name}: speculative decoding needs causal attention; an "
+            "encoder attends without the causal mask, so a verify query "
+            "would see the draft tokens after it (the reference's "
+            "speculative tokens part from its greedy ones: ROADMAP Queue C)")
+
+
 def _layer_init(gen, cfg: ModelConfig, device) -> dict:
     ones = torch.ones(cfg.d_model, dtype=cfg.pdtype, device=device)
     if is_recurrent(cfg):
@@ -165,7 +186,8 @@ def layer_window(cfg: ModelConfig, i: int) -> int:
 
 
 def forward(params, tokens, cfg: ModelConfig, *, cache: Optional[list] = None,
-            cache_index: int = 0, lengths=None, block_tables=None):
+            cache_index: int = 0, lengths=None, block_tables=None,
+            positions=None):
     """Returns (logits f32 (B,S,V), cache).
 
     ``cache``: from ``make_cache`` or ``make_paged_cache``, updated in place
@@ -175,6 +197,14 @@ def forward(params, tokens, cfg: ModelConfig, *, cache: Optional[list] = None,
     device tensor or host values; row b's token is written at
     ``lengths[b]`` and attends to positions ``<= lengths[b]``.  A write
     past the cache is dropped, as in the reference.
+    With S > 1 tokens a row (the speculative verify), row b's tokens are
+    written at ``positions[b]`` (B,S), by default ``lengths[b] + 0..S-1``
+    as in the reference, and token j attends to the row's positions up to
+    its own (``check_speculative`` refuses the stacks where that differs
+    from the reference's function or from its greedy tokens).
+    ``positions``: explicit per-token positions with ``lengths`` (the
+    speculative draft's steps; a padding column at ``max_len`` drops its
+    write).
     ``block_tables``: (B,NB) page ids of a paged cache, a device tensor or
     host values; writes past the table or to the sentinel page drop.
     With ``tokens``, ``lengths`` and ``block_tables`` on the device the
@@ -188,6 +218,8 @@ def forward(params, tokens, cfg: ModelConfig, *, cache: Optional[list] = None,
     b, s = tokens.shape
     if lengths is not None and cache is None:
         raise ValueError("lengths= (decode) needs a cache")
+    if lengths is not None and s > 1:
+        check_speculative(cfg)
     if is_recurrent(cfg):
         if block_tables is not None:
             raise ValueError(f"{cfg.name}: a recurrent stack has no paged "
@@ -201,11 +233,13 @@ def forward(params, tokens, cfg: ModelConfig, *, cache: Optional[list] = None,
         n_pages, bs = cache[0]["k_pages"].shape[:2]
         ctx = attn.paged_attention_context(
             cfg, b, s, dev, block_tables=block_tables, n_pages=n_pages,
-            block_size=bs, cache_index=cache_index, lengths=lengths)
+            block_size=bs, cache_index=cache_index, lengths=lengths,
+            positions=positions)
     else:
         max_len = cache[0]["k"].shape[1] if cache is not None else None
         ctx = attn.attention_context(cfg, b, s, dev, cache_index=cache_index,
-                                     lengths=lengths, max_len=max_len)
+                                     lengths=lengths, positions=positions,
+                                     max_len=max_len)
     eps = cfg.norm_eps
     with scope("embed"):
         x = embed_tokens(embed, tokens, cfg).to(cfg.cdtype)

@@ -25,7 +25,8 @@ from dataclasses import dataclass
 from typing import Optional, Sequence, Union
 
 from repro_torch.core.device_model import (KernelEvent, PLATFORMS,
-                                           PlatformSpec, kernel_duration)
+                                           PlatformSpec, dispatch_fanout_s,
+                                           kernel_duration)
 from repro_torch.core.metrics import SkipReport, report
 from repro_torch.core.tracing import Trace
 from repro_torch.runtime.plan import LaunchPlan, segment_label
@@ -35,8 +36,8 @@ DEFAULT_LENGTHS = (2, 4, 8, 16, 32)
 
 def simulate_plan(kernels: Sequence, plan: LaunchPlan, spec: PlatformSpec, *,
                   batch_scale: float = 1.0,
-                  host_scale: Optional[Sequence[float]] = None
-                  ) -> list[KernelEvent]:
+                  host_scale: Optional[Sequence[float]] = None,
+                  draft_launches: int = 0) -> list[KernelEvent]:
     """In-order queue model over plan segments (one launch per segment).
 
     Rule-tagged segments (``plan.rules``) are priced as ONE fused kernel:
@@ -46,14 +47,29 @@ def simulate_plan(kernels: Sequence, plan: LaunchPlan, spec: PlatformSpec, *,
     segments keep the sum of member durations (one CUDA graph replay
     dispatches them, but the member kernels still round-trip memory).
 
-    The reference's tensor-parallel (``tp``, ``collective_bytes``) and
-    speculative (``draft_launches``) knobs come with the slices that port
-    their callers.
+    ``draft_launches`` prepends that many speculative-draft dispatches to
+    the host timeline: the draft model is its own single-device stream
+    whose kernels are tiny (device time hides behind the queue) but whose
+    LAUNCHES serialize on the host before the batched verify can issue —
+    the launch-tax side of the speculation trade.  Each costs one tp=1
+    ``dispatch_fanout_s`` of host time and no modeled device work.
+
+    The reference's tensor-parallel knobs (``tp``, ``collective_bytes``)
+    come with the slice that ports their callers.
     """
+    if draft_launches < 0:
+        raise ValueError(
+            f"draft_launches must be >= 0, got {draft_launches}")
     rule_segs = {si for si, _ in plan.rules}
     t_host = 0.0
     device_free = 0.0
     events = []
+    draft_cost = dispatch_fanout_s(spec, 1)     # draft runs single-device
+    for di in range(draft_launches):
+        launch_begin = t_host
+        t_host += draft_cost
+        events.append(KernelEvent(f"draft_launch[{di}]", launch_begin,
+                                  t_host, t_host, t_host))
     base_launch = spec.host_cost_ns * 1e-9
     for si, seg in enumerate(plan.segments):
         rel = 1.0

@@ -20,17 +20,30 @@ device sync (``CallAccount.host_time_s``: under ``plan="jit"`` one graph
 replay), so ``classify_measured_sweep``'s queue share is the part of the
 step the host did not spend dispatching.
 
-``tp_sweep`` and ``spec_sweep`` raise: they need tensor parallelism and
-speculative decoding (ROADMAP Queue A).
+``spec_sweep`` sweeps speculation depth x batch: acceptance and steps per
+emitted token measured on the live engine, the launch trade modeled over
+the port's own traced decode stream (aten ops and hand-written kernels,
+so its kernel counts and times are the port's, not the reference's).
+``tp_sweep`` raises: it needs tensor parallelism (ROADMAP Queue A).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
+import torch
+
 from repro_torch.core.boundedness import BoundednessResult, classify_sweep
+from repro_torch.core.device_model import PLATFORMS, dispatch_fanout_s
+from repro_torch.core.tracing import trace_fn
 from repro_torch.inference.backends import NOT_PORTED
+from repro_torch.inference.backends.bodies import make_step_bodies
 from repro_torch.inference.engine import Request, ServeEngine
+from repro_torch.inference.speculative import (default_draft_config,
+                                               draft_params_from_target)
+from repro_torch.models import make_cache
+from repro_torch.runtime.plan import LaunchPlan
+from repro_torch.runtime.planner import simulate_plan
 from repro_torch.kvcache.paged import PagedKVCache
 from repro_torch.telemetry.metrics import LatencySummary, summarize
 from repro_torch.telemetry.spans import SpanRecorder
@@ -425,6 +438,182 @@ def tp_sweep(cfg, params, **kw) -> dict:
     raise ValueError(f"tp_sweep {NOT_PORTED}, \"tensor parallel\"")
 
 
-def spec_sweep(cfg, params, **kw) -> dict:
-    """The reference's speculative-decoding depth x batch sweep."""
-    raise ValueError(f"spec_sweep {NOT_PORTED}, \"speculative decoding\"")
+# ------------------------------------------------------------ spec sweep
+@dataclass
+class SpecSweepPoint:
+    """One (k, batch) cell of the speculative-decoding sweep (measured)."""
+    k: int
+    batch: int
+    accept_rate: float
+    steps_per_emitted_token: float
+    spec_rounds: int
+    proposed: int
+    accepted: int
+    corrections: int
+    draft_dispatches: int
+    tokens_out: int
+    decode_steps: int
+
+    def row(self) -> dict:
+        return {
+            "k": self.k, "batch": self.batch,
+            "accept_rate": round(self.accept_rate, 3),
+            "steps_per_emitted_token":
+                round(self.steps_per_emitted_token, 3),
+            "spec_rounds": self.spec_rounds,
+            "proposed": self.proposed, "accepted": self.accepted,
+            "corrections": self.corrections,
+            "draft_dispatches": self.draft_dispatches,
+            "tokens_out": self.tokens_out,
+            "decode_steps": self.decode_steps,
+        }
+
+
+def _decode_trace(cfg, params, batch: int, max_len: int, device):
+    """The port's decode step at ``batch`` rows, traced (fake tensors: no
+    kernel runs)."""
+    body = make_step_bodies(cfg).decode
+    cache = make_cache(cfg, batch, max_len, device=device)
+    return trace_fn(lambda p, c, t, n: body(p, c, t, n)[0], params, cache,
+                    torch.zeros((batch, 1), dtype=torch.int32, device=device),
+                    torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+def spec_sweep(cfg, params, *, draft_cfg=None, draft_params=None,
+               ks: Sequence[int] = (2, 4, 8),
+               batches: Sequence[int] = (1, 2, 4),
+               platforms: Sequence[str] = ("Intel+H100", "GH200"),
+               scenario: str = "chatbot", n_requests: int = 6,
+               seed: int = 0, prompt_cap: Optional[int] = 16,
+               output_cap: Optional[int] = 12, max_len: int = 128,
+               cache: str = "contiguous", block_size: int = 16,
+               num_blocks=None, warmup: bool = False,
+               model_batches: Optional[Sequence[int]] = None,
+               device="cuda") -> dict:
+    """Sweep speculation depth x batch: measured acceptance, modeled tax.
+
+    The trade speculation makes is the paper's launch-tax axis run in
+    reverse: the draft ADDS k small dispatches per round to REMOVE
+    sequential target steps (the batched verify scores k+1 positions per
+    launch stream).  So it pays off where decode is CPU/dispatch-bound —
+    low batch — and keeps paying on coupled (CC) parts out to larger
+    batches.
+
+    Measured side: the live engine (``plan="jit"``) serves the same seeded
+    workload at every (k, batch) with a fixed depth (``spec_inflection``
+    None pins ``pick_spec_k`` at k; k = 0 is plain decode); acceptance and
+    steps per emitted token are properties of the draft/target pair.
+    Modeled side: the port's decode step is traced per batch
+    (``model_batches`` extends past the measured range) and priced per
+    platform through ``simulate_plan``: the baseline is one decode step
+    per emitted token per sequence; the speculative round scales the
+    stream by ``batch_scale=k+1`` (verify work) and prepends ``k x
+    n_draft_kernels`` serialized draft dispatches, then divides by the
+    MEASURED emitted tokens per sequence per round (taken at the largest
+    measured batch and carried to the extended ones).  A cell "wins"
+    when modeled spec time per token beats the baseline."""
+    if draft_cfg is None:
+        draft_cfg = default_draft_config(cfg)
+    if draft_params is None:
+        draft_params = draft_params_from_target(params, draft_cfg)
+    workload = sample_requests(scenario, n_requests, seed=seed,
+                               vocab_size=cfg.vocab_size,
+                               prompt_cap=prompt_cap, output_cap=output_cap)
+
+    # ---- measured: acceptance + steps/token per (k, batch)
+    points: list[SpecSweepPoint] = []
+    for b in batches:
+        for k in ks:
+            eng = ServeEngine(cfg, params, max_batch=b, max_len=max_len,
+                              cache=cache, block_size=block_size,
+                              num_blocks=num_blocks, device=device,
+                              speculative=k > 0, spec_k=max(k, 1),
+                              draft_config=draft_cfg if k > 0 else None,
+                              draft_params=draft_params if k > 0 else None)
+            if warmup:
+                eng.run(_requests(workload))
+                eng.reset()
+            eng.run(_requests(workload))
+            st = eng.stats
+            points.append(SpecSweepPoint(
+                k=k, batch=b, accept_rate=st.accept_rate,
+                steps_per_emitted_token=st.steps_per_emitted_token,
+                spec_rounds=st.spec_rounds, proposed=st.proposed,
+                accepted=st.accepted, corrections=st.corrections,
+                draft_dispatches=st.draft_dispatches,
+                tokens_out=st.tokens_out, decode_steps=st.decode_steps))
+            dev = eng.backend.device
+            del eng
+    measured = {(p.k, p.batch): p for p in points}
+
+    # emitted tokens per sequence per round: a per-sequence property of the
+    # draft/target pair, carried from the largest measured batch
+    emit_per_seq: dict = {}
+    bmax = max(batches)
+    for k in ks:
+        if k == 0:
+            continue
+        p = measured[(k, bmax)]
+        emitted = p.accepted + p.corrections
+        emit_per_seq[k] = (emitted / (p.spec_rounds * bmax)
+                          if p.spec_rounds else 1.0)
+
+    if model_batches is None:
+        model_batches = sorted(set(batches) | {16, 64, 256})
+    traces = {b: _decode_trace(cfg, params, b, max_len, dev)
+              for b in model_batches}
+    n_draft_kernels = len(_decode_trace(draft_cfg, draft_params, 1, max_len,
+                                        dev).kernels)
+
+    modeled = []
+    win_region: dict = {}
+    for plat in platforms:
+        spec = PLATFORMS[plat]
+        win_region[plat] = {}
+        for b in model_batches:
+            tr = traces[b]
+            plan = LaunchPlan.eager(len(tr.kernels))
+            # one decode step emits one token per sequence
+            base_ev = simulate_plan(tr.kernels, plan, spec)
+            base_per_tok = base_ev[-1].kernel_end if base_ev else 0.0
+            for k in ks:
+                if k == 0:
+                    continue
+                meas = measured.get((k, b))
+                ev = simulate_plan(tr.kernels, plan, spec,
+                                   batch_scale=float(k + 1),
+                                   draft_launches=k * n_draft_kernels)
+                round_s = ev[-1].kernel_end if ev else 0.0
+                spec_per_tok = round_s / emit_per_seq[k]
+                tax = k * n_draft_kernels * dispatch_fanout_s(spec, 1)
+                win = bool(spec_per_tok < base_per_tok)
+                modeled.append({
+                    "platform": plat, "coupling": spec.coupling,
+                    "k": k, "batch": b, "measured": meas is not None,
+                    "accept_rate": round(
+                        (meas or measured[(k, bmax)]).accept_rate, 3),
+                    "emitted_per_seq_per_round":
+                        round(emit_per_seq[k], 3),
+                    "modeled_baseline_per_token_us":
+                        round(base_per_tok * 1e6, 1),
+                    "modeled_spec_per_token_us":
+                        round(spec_per_tok * 1e6, 1),
+                    "modeled_draft_launch_tax_per_round_us":
+                        round(tax * 1e6, 1),
+                    "win": win,
+                })
+                if win:
+                    win_region[plat].setdefault(str(k), []).append(b)
+    return {
+        "arch": cfg.name, "draft": draft_cfg.name,
+        "scenario": workload.scenario, "seed": workload.seed,
+        "n_requests": workload.n, "max_len": max_len, "cache": cache,
+        "ks": list(ks), "batches": list(batches),
+        "model_batches": list(model_batches),
+        "platforms": list(platforms),
+        "n_draft_kernels": n_draft_kernels,
+        "device": str(dev),
+        "measured": [p.row() for p in points],
+        "modeled": modeled,
+        "win_batches": win_region,
+    }

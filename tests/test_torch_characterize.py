@@ -295,10 +295,8 @@ def test_the_cli_writes_its_artifacts(tmp_path, capsys):
     assert "copy=not measured (cpu)" in text and "delta[GH200" in text
     sweep = json.loads((out / "memory_sweep.json").read_text())
     assert len(sweep["points"]) == 4 and len(sweep["kv_dtype_deltas"]) == 2
-    for flag, item in (("--tp-sweep", "tensor parallel"),
-                       ("--spec-sweep", "speculative decoding")):
-        with pytest.raises(ValueError, match=item):
-            cli.main(["--reduced", "--device", "cpu", flag])
+    with pytest.raises(ValueError, match="tensor parallel"):
+        cli.main(["--reduced", "--device", "cpu", "--tp-sweep"])
 
 
 def test_plan_executor_records_a_dispatch_span_per_segment():
@@ -330,5 +328,3 @@ def test_unported_sweeps_name_their_roadmap_items(setup):
     _, cfg, _, params = setup
     with pytest.raises(ValueError, match="ROADMAP.*tensor parallel"):
         char.tp_sweep(cfg, params)
-    with pytest.raises(ValueError, match="ROADMAP.*speculative decoding"):
-        char.spec_sweep(cfg, params)

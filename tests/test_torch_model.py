@@ -123,6 +123,11 @@ def _spy(monkeypatch):
     return calls
 
 
+# the speculative verify's multi-query entries: no call in these forwards
+MQ_ZERO = {"decode_attention_mq": 0, "paged_decode_attention_mq": 0,
+           "paged_decode_attention_quant_mq": 0}
+
+
 def test_forward_calls_the_kernels_where_the_fused_plan_does(setup,
                                                              monkeypatch):
     _, cfg, _, params = setup
@@ -135,7 +140,7 @@ def test_forward_calls_the_kernels_where_the_fused_plan_does(setup,
                      "flash_attention": n, "decode_attention": 0,
                      "paged_decode_attention": 0,
                      "paged_decode_attention_quant": 0, "rmsnorm": 0,
-                     "wkv6": 0}
+                     "wkv6": 0, **MQ_ZERO}
     for name in calls:
         calls[name] = 0
     forward(params, torch.from_numpy(_tokens(3, (2, 1), cfg.vocab_size)),
@@ -144,7 +149,7 @@ def test_forward_calls_the_kernels_where_the_fused_plan_does(setup,
                      "flash_attention": 0, "decode_attention": n,
                      "paged_decode_attention": 0,
                      "paged_decode_attention_quant": 0, "rmsnorm": 0,
-                     "wkv6": 0}
+                     "wkv6": 0, **MQ_ZERO}
 
 
 def test_unported_features_raise():
@@ -159,10 +164,12 @@ def test_unported_features_raise():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             init_params(bad, gen, device="cpu")
     params = init_params(cfg, gen, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        forward(params, torch.zeros((1, 2), dtype=torch.int32), cfg,
-                cache=make_cache(cfg, 1, 8, device="cpu"),
-                lengths=np.array([1]))
+    # multi-token decode with per-row lengths (the speculative verify) is
+    # ported: one logits row a token
+    logits, _ = forward(params, torch.zeros((1, 2), dtype=torch.int32), cfg,
+                        cache=make_cache(cfg, 1, 8, device="cpu"),
+                        lengths=np.array([1]))
+    assert logits.shape == (1, 2, cfg.vocab_size)
     # the reference's MoE layers are not ported; the port's forward refuses
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         forward(params, torch.zeros((1, 2), dtype=torch.int32), moe)
@@ -174,13 +181,12 @@ def test_unported_messages_name_their_roadmap_item():
     number that a renumbering would leave stale."""
     import re
 
-    from repro_torch.inference.backends import LocalBackend, make_backend
+    from repro_torch.inference.backends import make_backend
     from repro_torch.inference.engine import ServeEngine
     from repro_torch.models import check_supported
-    from repro_torch.telemetry.characterize import spec_sweep, tp_sweep
+    from repro_torch.telemetry.characterize import tp_sweep
     cfg = reduced(get_config("smollm-360m"))
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    backend = LocalBackend(cfg, params, max_batch=1, max_len=8, device="cpu")
     calls = [
         ("tensor parallel", lambda: make_backend(cfg, params, max_batch=1,
                                                  max_len=8, tp=2)),
@@ -188,8 +194,6 @@ def test_unported_messages_name_their_roadmap_item():
         ("fleet, router, request tracing", lambda: ServeEngine(
             cfg, params, max_batch=1, max_len=8, device="cpu",
             tracer=object())),
-        ("speculative decoding", lambda: backend.verify(None, None, None)),
-        ("speculative decoding", lambda: spec_sweep(cfg, params)),
         ("model features", lambda: check_supported(
             cfg.replace(n_encoder_layers=2))),
     ]

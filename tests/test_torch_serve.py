@@ -89,12 +89,18 @@ def test_engine_defaults_to_the_gpu(setup):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(cache="paged", speculative=True),
-    dict(cache="paged", tracer=object()), dict(speculative=True),
+    dict(speculative=True, plan="eager"),
+    dict(cache="paged", tracer=object()),
+    dict(speculative=True, greedy=False),
     dict(tp=2), dict(tracer=object())])
 def test_unported_options_raise(setup, kw):
+    """Each unported option raises naming its ROADMAP item; speculation
+    outside ``plan="jit"`` or without greedy decoding raises as the
+    reference's engine does."""
     _, cfg, _, params = setup
-    with pytest.raises(ValueError, match="ROADMAP"):
+    match = ("plan='jit'" if kw.get("plan") == "eager"
+             else "greedy" if "greedy" in kw else "ROADMAP")
+    with pytest.raises(ValueError, match=match):
         ServeEngine(cfg, params, max_batch=2, max_len=MAX_LEN, device="cpu",
                     **kw)
 
@@ -136,5 +142,6 @@ def test_serve_cli_reports_the_engine_fields():
     assert set(rep["kernel_launches_per_decode_step"]) == {
         "decode_attention", "flash_attention", "paged_decode_attention",
         "paged_decode_attention_quant", "residual_rmsnorm", "rmsnorm_matmul",
-        "rmsnorm", "wkv6"}
+        "rmsnorm", "wkv6", "decode_attention_mq", "paged_decode_attention_mq",
+        "paged_decode_attention_quant_mq"}
     assert rep["measured_launch_tax_per_step_us"] > 0
