@@ -157,7 +157,28 @@ Phases (any failure exits non-zero before a result is printed):
      both drafts on both caches equal to plain greedy's; (d)
      Llama-3.2-1B: one ``serve --speculative`` run beside phase 13's jit
      tokens; (e) ``launch.characterize --spec-sweep`` over ks 0, 2, 4 and
-     batches 1, 4, its ``spec_sweep.json`` read back.
+     batches 1, 4, its ``spec_sweep.json`` read back;
+ 17. the serving tier around the engine, SmolLM-360M whole in bf16 under
+     jit: (a) ``serve --metrics-out m.prom --trace-out t.json
+     --slo-ttft-ms 200 --slo-itl-ms 50`` (the Prometheus text parses back
+     to the report's ``engine_*`` fields, the critical-path triage
+     conserves every request, the trace is strict JSON with one track a
+     request and paired flows), then ``--metrics-out m.json`` (reads back
+     as the registry snapshot); (b) ``serve --plan fused --attribution``
+     (complete, its launches the decode step's dispatches, the fused
+     pair's and the attention kernel's operators among its rows, the
+     boundedness summary beside it) and ``--attribution --plan jit``
+     (refused with the reference's error); (c) ``route --replicas 2
+     --policy least-queue-depth`` over 16 chatbot requests, each replica
+     warmed on its own graphs, against one engine of the same shape
+     (tokens equal but at printed near ties, dispatches and queue waits
+     16, conservation, ms a token); (d) the paged fleet with prefix
+     sharing, replica 0 drained after the 4th dispatch and one added after
+     the 8th, under ``prefix-affinity`` (adoptions) and
+     ``least-queue-depth`` (where the added replica serves, its first
+     captures printed); (e) ``characterize --tp-sweep --tps 1,2,4`` on
+     Llama-3.2-1B whole at batches 1, 4, 16, ``tp_sweep.json`` held
+     against the traced step.
 
 Phases 4, 6, 7 and 9 serve with ``--plan eager`` (``plan="eager"``): one
 dispatch a node of the traced step, whose norms are their plain versions,
@@ -175,7 +196,8 @@ steps in one launch (``[t64]``, ``[t1024]``: B 1, H 40, hd 64) and the
 reference's extreme-decay case, which must stay finite.
 
 The ``kernels`` line's ``launches`` are the main paths' jit runs (phase
-11); the multi-query entries', phase 16's speculative runs.
+11); the multi-query entries', phase 16's speculative runs; phase 17's
+runs are in each entry's ``launches_by_path``.
 
 Then it prints the ``{"kernels": [...]}`` line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It needs the repository
@@ -288,12 +310,16 @@ from repro_torch.launch.characterize import (              # noqa: E402
     print_memory_sweep, print_points, write_artifacts)
 from repro_torch.launch.characterize import \
     main as characterize_main                              # noqa: E402
+from repro_torch.launch.route import build_requests        # noqa: E402
+from repro_torch.launch.route import main as route_main    # noqa: E402
 from repro_torch.inference.speculative import (           # noqa: E402
     default_draft_config, draft_params_from_target)
 from repro_torch.runtime.autotune import autotune          # noqa: E402
+from repro_torch.telemetry.attribution import (           # noqa: E402
+    parse_operator, segment_ops)
 from repro_torch.telemetry.characterize import (           # noqa: E402
-    _requests, characterize, memory_pressure_sweep)
-from repro_torch.workload import load_workload             # noqa: E402
+    _decode_trace, _requests, characterize, memory_pressure_sweep)
+from repro_torch.workload import load_workload, sample_requests  # noqa: E402
 from repro_torch.models import (forward, init_params,      # noqa: E402
                                 is_recurrent, make_cache, make_paged_cache)
 
@@ -2558,9 +2584,9 @@ def pressure_sweep(counts: dict) -> dict:
     return sweep
 
 
-def strict_json(text: str, what: str):
+def strict_json(text: str, what: str, phase: int = 15):
     def bad(const):
-        fail(f"phase 15: {what} holds {const}, not strict JSON")
+        fail(f"phase {phase}: {what} holds {const}, not strict JSON")
     return json.loads(text, parse_constant=bad)
 
 
@@ -2924,6 +2950,336 @@ def phase_speculative(jit_rows, jit_done, llama_rows, llama_done) -> tuple:
     return rows, counts
 
 
+# ------------------------------------------------------------------ phase 17
+FLEET_ARGV = ["--arch", ARCH, "--device", "cuda", "--scenario", "chatbot",
+              "--requests", "16", "--seed", "0", "--prompt-cap", "24",
+              "--output-cap", "8", "--time-scale", "100", "--max-batch", "2",
+              "--max-len", str(MAX_LEN), "--plan", "jit"]
+TP_SWEEP = ["--tp-sweep", "--tps", "1,2,4", "--batches", "1,4,16"]
+
+
+def parse_prom(text: str) -> dict:
+    """Sample lines of Prometheus text -> {(name, labels): value}."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            head, val = line.rsplit(" ", 1)
+            name, _, labels = head.partition("{")
+            out[(name, labels.rstrip("}"))] = float(val)
+    return out
+
+
+def check_request_trace(path: str, n: int, what: str) -> int:
+    """A ``--trace-out`` file: strict JSON, one track per request at pid
+    1, and every request flow a matched s/f pair from pid 1 into pid 0.
+    Returns the flow pairs."""
+    trace = strict_json(Path(path).read_text(), what, 17)
+    evs = trace["traceEvents"]
+    tracks = {e["tid"] for e in evs if e.get("pid") == 1 and e["ph"] == "X"}
+    flows = {}
+    for e in evs:
+        if e.get("cat") == "request_flow":
+            flows.setdefault(e["id"], []).append((e["ph"], e["pid"]))
+    if len(tracks) != n or not flows or any(
+            sorted(v) != [("f", 0), ("s", 1)] for v in flows.values()):
+        fail(f"phase 17: {what}: {len(tracks)} request tracks for {n} "
+             f"requests, {len(flows)} flows, unpaired "
+             f"{[k for k, v in flows.items() if len(v) != 2][:4]}")
+    return len(flows)
+
+
+def check_triage(tri: dict, n: int, what: str) -> dict:
+    """Conservation per request (the reference's exact-by-construction
+    check) and the aggregate shares, printed."""
+    bad = [w["rid"] for w in tri["waterfall"] if not w["conserved"]]
+    if tri["n_requests"] != n or bad or not tri["conservation"]["ok"]:
+        fail(f"phase 17: {what}: triage of {tri['n_requests']} requests, "
+             f"not conserved: {bad}")
+    share = {k: v for k, v in tri["aggregate"]["share"].items() if v}
+    print(f"  {what}: conservation holds for {n}/{n} requests (max error "
+          f"{tri['conservation']['max_error_s']:.3g} s); shares "
+          + ", ".join(f"{k} {v:.1%}" for k, v in share.items())
+          + f"; p{tri['tail']['quantile']:.0f} TTFT tail dominant "
+          f"{tri['tail']['dominant']}")
+    return share
+
+
+def export_flags(cfg, tmp: str, counts: dict) -> dict:
+    """(a) ``serve --plan jit --metrics-out m.prom --trace-out t.json
+    --slo-ttft-ms 200 --slo-itl-ms 50``, then ``--metrics-out m.json``."""
+    prom, tpath = str(Path(tmp, "m.prom")), str(Path(tmp, "t.json"))
+    eng, done, rep, counts["serve_export"] = serve_flags(
+        cfg, ["--metrics-out", prom, "--trace-out", tpath, "--slo-ttft-ms",
+              "200", "--slo-itl-ms", "50"], "jit", 17)
+    samples = parse_prom(Path(prom).read_text())
+    for field in ("tokens_out", "decode_steps", "prefills",
+                  "decode_dispatches", "rejected", "preemptions"):
+        if samples.get((f"engine_{field}", "")) != rep[field]:
+            fail(f"phase 17: m.prom engine_{field} "
+                 f"{samples.get((f'engine_{field}', ''))} != report "
+                 f"{rep[field]}")
+    ttft = samples[("engine_ttft_seconds_count", "")]
+    if ttft != N_REQ or ("goodput_ratio", "") not in samples:
+        fail(f"phase 17: m.prom counts {ttft} first tokens, goodput "
+             f"{samples.get(('goodput_ratio', ''))}")
+    share = check_triage(rep["triage"], N_REQ, "serve jit triage")
+    flows = check_request_trace(tpath, N_REQ, "serve t.json")
+    slo = rep["triage"]["slo_report"]
+    print(f"  m.prom: {len(samples)} samples parse back, engine_* equal to "
+          f"the report; goodput {slo['goodput_ratio']:.3f} under TTFT 200 "
+          f"ms / ITL 50 ms (verdicts {slo['verdicts']}); t.json strict "
+          f"JSON, {N_REQ} request tracks, {flows} matched flow pairs")
+    del eng
+    jpath = str(Path(tmp, "m.json"))
+    eng, done, rep2, _ = serve_flags(cfg, ["--metrics-out", jpath], "jit",
+                                     17)
+    snap = strict_json(Path(jpath).read_text(), "m.json", 17)
+    if snap != json.loads(json.dumps(eng.registry.snapshot())) or \
+            snap["engine_tokens_out"]["series"][0]["value"] != \
+            rep2["tokens_out"]:
+        fail("phase 17: m.json does not read back as the registry snapshot")
+    print(f"  m.json reads back as the registry snapshot ({len(snap)} "
+          "families)")
+    del eng
+    torch.cuda.empty_cache()
+    return {"shares": share, "goodput": slo["goodput_ratio"],
+            "verdicts": slo["verdicts"], "flows": flows,
+            "tok_per_s": rep["tok_per_s"],
+            "mean_ttft_ms": rep["mean_ttft_ms"]}
+
+
+def attribution_flags(cfg, counts: dict) -> dict:
+    """(b) ``serve --plan fused --attribution``; ``--attribution --plan
+    jit`` is refused with the reference's error."""
+    eng, done, rep, counts["serve_fused_attribution"] = serve_flags(
+        cfg, ["--attribution"], "fused", 17)
+    att = rep["attribution"]
+    if not (att and att["complete"] and att["accounted_launches"]
+            == att["total_events"] == rep["dispatches_per_decode_step"]):
+        fail(f"phase 17: attribution {att and {k: att[k] for k in ('complete', 'total_events', 'accounted_launches')}}"
+             f" vs {rep['dispatches_per_decode_step']} dispatches a step")
+    if not rep.get("boundedness"):
+        fail("phase 17: no boundedness summary beside the attribution")
+    pd = eng._planned_decode
+    rows = {r["operator"] for r in att["rows"]}
+    named = {}
+    for si, rule in pd.plan.rules:
+        named.setdefault(rule, set()).update(segment_ops(
+            pd.trace.kernels, pd.plan.segments[si]))
+    named["decode_attention"] = {
+        parse_operator(k.operator, k.name).op for k in pd.trace.kernels
+        if "decode_attention" in k.name}
+    for wrapper in ("rmsnorm_matmul", "residual_rmsnorm", "decode_attention"):
+        if not named.get(wrapper) or not named[wrapper] <= rows:
+            fail(f"phase 17: {wrapper}'s operators {named.get(wrapper)} "
+                 f"are not rows of the attribution {sorted(rows)}")
+    print(f"phase 17: fused attribution complete: {att['total_events']} "
+          f"dispatches a decode step accounted, modeled TKLQT "
+          f"{att['tklqt_us']:.1f} us; rows "
+          + ", ".join(f"{r['operator']} {float(r['launches']):.2f} launches "
+                      f"{r['tklqt_pct']:.1f}%" for r in att["rows"]))
+    print("  wrappers by attribution row: " + ", ".join(
+        f"{w} -> {sorted(o)}" for w, o in named.items())
+          + f"; boundedness {json.dumps(rep['boundedness'])}")
+    del eng
+    torch.cuda.empty_cache()
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err), contextlib.redirect_stdout(
+            io.StringIO()):
+        try:
+            serve.main(serve_argv(cfg, ["--attribution"], "jit"))
+        except SystemExit as e:
+            code = e.code
+        else:
+            code = 0
+    if code == 0 or "--attribution needs a launch-plan mode" not in \
+            err.getvalue():
+        fail(f"phase 17: --attribution --plan jit exited {code}: "
+             f"{err.getvalue()[-200:]}")
+    print(f"  --attribution --plan jit exits {code}: "
+          f"{err.getvalue().strip().splitlines()[-1]}")
+    return {"rows": att["rows"], "total_events": att["total_events"],
+            "tklqt_us": att["tklqt_us"]}
+
+
+def run_route(argv, what: str) -> tuple:
+    """``repro_torch.launch.route`` with the launch counts reset just
+    before and read just after; (fleet, router report, JSON report,
+    counts)."""
+    buf = io.StringIO()
+    kernels.reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        fleet, report, out = route_main(argv)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    print(f"phase 17: {what}: route {' '.join(argv)}")
+    print(f"  report {json.dumps({k: v for k, v in out.items() if k != 'triage'})}")
+    for rid, r in out["per_replica"].items():
+        print(f"  replica {rid} ({r['state']}): {r['dispatched']} "
+              f"dispatched, {r['tokens_out']} tokens, clock "
+              f"{r['clock_s']:.4f} s; warm-up {r['warmup_graphs']} graphs "
+              f"{r['warmup_capture_s']:.3f} s capture; in the drain "
+              f"{r['drain_graphs']} graphs {r['drain_capture_s']:.3f} s")
+    return fleet, report, out, counts
+
+
+def fleet_two(cfg, tmp: str, counts: dict) -> dict:
+    """(c) two replicas under least-queue-depth against one engine."""
+    tpath, mpath = str(Path(tmp, "route.json")), str(Path(tmp, "fleet.json"))
+    argv = FLEET_ARGV + ["--replicas", "2", "--policy", "least-queue-depth",
+                         "--trace-out", tpath, "--metrics-out", mpath]
+    fleet, report, out, counts["route_jit"] = run_route(argv, "(c)")
+    n = 16
+    disp = sum(r["dispatched"] for r in out["per_replica"].values())
+    if out["requests_done"] != n or disp != n:
+        fail(f"phase 17 (c): {out['requests_done']} of {n} done, "
+             f"{disp} dispatches")
+    snap = strict_json(Path(mpath).read_text(), "fleet.json", 17)
+    waits = sum(s["value"]["count"] for s in
+                snap["fleet"]["router_queue_wait_seconds"]["series"])
+    if waits != n:
+        fail(f"phase 17 (c): router_queue_wait_seconds counts {waits}")
+    share = check_triage(out["triage"], n, "fleet triage")
+    flows = check_request_trace(tpath, n, "route.json")
+    for name in ("decode_attention", "flash_attention"):
+        if counts["route_jit"][name] <= 0:
+            fail(f"phase 17 (c): {name} not launched by the fleet")
+    # one engine of the same shape on the same requests
+    params = fleet.params
+    wl = sample_requests("chatbot", n, seed=0, vocab_size=cfg.vocab_size,
+                         prompt_cap=24, output_cap=8, time_scale=100.0)
+    eng = ServeEngine(cfg, params, max_batch=2, max_len=MAX_LEN, device=DEV)
+    eng.run(build_requests(wl))
+    eng.reset()
+    reqs = build_requests(wl)
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    single_wall = time.perf_counter() - t0
+    same = check_near_ties(report.completed, reqs, params, cfg,
+                           ("in the fleet", "on one engine"), plain_logits)
+    tok = out["fleet_tokens_out"]
+    row = {"fleet_wall_ms_per_tok": out["wall_s"] / tok * 1e3,
+           "fleet_makespan_ms_per_tok": out["makespan_s"] / tok * 1e3,
+           "single_wall_ms_per_tok": single_wall / eng.stats.tokens_out
+           * 1e3,
+           "single_clock_ms_per_tok": eng.now / eng.stats.tokens_out * 1e3,
+           "tokens": tok, "same": same, "shares": share, "flows": flows,
+           "warmup_capture_s": {k: r["warmup_capture_s"] for k, r in
+                                out["per_replica"].items()},
+           "drain_capture_s": {k: r["drain_capture_s"] for k, r in
+                               out["per_replica"].items()},
+           "ttft_ms": out["ttft_ms"]}
+    print(f"  fleet tokens equal one engine's in {same}/{n} requests (the "
+          f"rest part at a printed near tie); {tok} tokens: fleet "
+          f"{row['fleet_wall_ms_per_tok']:.3f} ms a token of wall "
+          f"(replicas serialized on one card), "
+          f"{row['fleet_makespan_ms_per_tok']:.3f} ms a token of makespan "
+          f"(the simulated two-device clock); one engine "
+          f"{row['single_wall_ms_per_tok']:.3f} ms wall, "
+          f"{row['single_clock_ms_per_tok']:.3f} ms clock; "
+          f"router_queue_wait_seconds counts {waits}; route.json "
+          f"{flows} matched flow pairs")
+    del fleet, eng, report
+    torch.cuda.empty_cache()
+    return row
+
+
+def fleet_elastic(cfg, tmp: str, counts: dict, policy: str,
+                  key: str) -> dict:
+    """(d) the paged fleet with prefix sharing, replica 0 drained after
+    the 4th dispatch and a replica added after the 8th."""
+    mpath = str(Path(tmp, f"{key}.json"))
+    argv = FLEET_ARGV + ["--cache", "paged", "--block-size", str(BLOCK),
+                         "--share-prefix", "--policy", policy,
+                         "--shared-prefix-tokens", "16", "--replicas", "2",
+                         "--remove-at", "4", "--add-at", "8",
+                         "--metrics-out", mpath]
+    fleet, report, out, counts[key] = run_route(argv, f"(d) {policy}")
+    snap = strict_json(Path(mpath).read_text(), f"{key}.json", 17)["fleet"]
+    added = snap["fleet_replicas_added_total"]["series"][0]["value"]
+    retired = snap["fleet_replicas_retired_total"]["series"][0]["value"]
+    if out["requests_done"] != 16 or added != 3 or retired != 1:
+        fail(f"phase 17 (d) {policy}: {out['requests_done']} of 16 done, "
+             f"{added} added, {retired} retired")
+    if policy == "prefix-affinity" and out["prefix_adoptions"] <= 0:
+        fail("phase 17 (d): no prefix adoption")
+    check_triage(out["triage"], 16, f"{policy} elastic triage")
+    new = out["per_replica"].get("2", {})
+    print(f"  (d) {policy}: 16/16 requests done, requeued "
+          f"{out['requeued']}; fleet_replicas_added_total {added:.0f}, "
+          f"retired {retired:.0f}; {out['prefix_adoptions']} prefix "
+          f"adoptions; the added replica 2: {new.get('dispatched', 0)} "
+          f"dispatched, {new.get('drain_graphs', 0)} graphs captured in the "
+          f"drain in {new.get('drain_capture_s', 0.0):.3f} s (charged to its "
+          "clock)")
+    del fleet, report
+    torch.cuda.empty_cache()
+    return {"adoptions": out["prefix_adoptions"], "requeued": out["requeued"],
+            "added_replica": new, "ttft_ms": out["ttft_ms"]}
+
+
+def tp_sweep_check(tmp: str) -> dict:
+    """(e) ``characterize --tp-sweep --tps 1,2,4`` on Llama-3.2-1B whole,
+    read back from ``tp_sweep.json`` and held against the traced step."""
+    lcfg = get_config(LLAMA)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        sweep = characterize_main(["--arch", LLAMA, *TP_SWEEP,
+                                   "--out-dir", tmp])
+    back = strict_json(Path(tmp, "tp_sweep.json").read_text(),
+                       "tp_sweep.json", 17)
+    if back != json.loads(json.dumps(sweep)):
+        fail("phase 17: tp_sweep.json does not read back as the sweep")
+    params = model_params(lcfg, 17)
+    n_kernels = {b: len(_decode_trace(lcfg, params, b, sweep["max_len"],
+                                      DEV).kernels)
+                 for b in sweep["batches"]}
+    del params
+    torch.cuda.empty_cache()
+    for p in sweep["points"]:
+        want = (2 * lcfg.n_layers * p["batch"] * lcfg.d_model
+                * lcfg.cdtype.itemsize if p["tp"] > 1 else 0)
+        if p["per_device_dispatches"] != n_kernels[p["batch"]] or \
+                p["collective_bytes"] != want:
+            fail(f"phase 17 (e): {p} vs {n_kernels[p['batch']]} kernels, "
+                 f"{want} B")
+    print(f"phase 17: characterize --arch {LLAMA} {' '.join(TP_SWEEP)}: "
+          f"tp_sweep.json read back equal; per-device dispatches = the "
+          f"traced step's kernels {n_kernels}; collective bytes 2 L B d "
+          f"{lcfg.cdtype.itemsize}")
+    for line in buf.getvalue().strip().splitlines()[:-1]:
+        print(f"  {line}")
+    return {"inflection_batch": sweep["inflection_batch"],
+            "n_kernels": n_kernels,
+            "points": [{k: p[k] for k in ("platform", "tp", "batch",
+                                          "modeled_tklqt_us",
+                                          "modeled_step_us",
+                                          "modeled_collective_tax_us")}
+                       for p in sweep["points"]]}
+
+
+def phase_serving_tier() -> tuple:
+    """Phase 17: the serving tier around the engine (see the module
+    docstring).  Returns ({part: numbers}, {path: launch counts})."""
+    t0 = time.perf_counter()
+    cfg = get_config(ARCH)
+    rows, counts = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        rows["export"] = export_flags(cfg, tmp, counts)
+        rows["attribution"] = attribution_flags(cfg, counts)
+        rows["fleet"] = fleet_two(cfg, tmp, counts)
+        rows["elastic"] = fleet_elastic(cfg, tmp, counts, "prefix-affinity",
+                                        "route_paged_elastic")
+        rows["elastic_lqd"] = fleet_elastic(cfg, tmp, counts,
+                                            "least-queue-depth",
+                                            "route_paged_elastic_lqd")
+        rows["tp_sweep"] = tp_sweep_check(tmp)
+    secs = time.perf_counter() - t0
+    print(f"phase 17: {secs:.1f} s")
+    print("phase 17: " + json.dumps({"rows": rows, "seconds": secs}))
+    return rows, counts
+
+
 # ------------------------------------------------------------------ main
 # which main path (its jit run, phase 11; the multi-query entries: their
 # phase-16 speculative run) each kernel's ``launches`` is read from
@@ -2974,7 +3330,8 @@ def main() -> None:
     _, char_counts = phase_characterize()
     _, spec_counts = phase_speculative(jit_rows, jit_done, llama_rows,
                                        llama_done)
-    print(f"chip_smoke: phases 1-16 in {time.perf_counter() - t0:.1f} s")
+    _, tier_counts = phase_serving_tier()
+    print(f"chip_smoke: phases 1-17 in {time.perf_counter() - t0:.1f} s")
 
     entries = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -2994,6 +3351,7 @@ def main() -> None:
         by_path.update({p: c[name] for p, c in other_counts.items()})
         by_path.update({p: c[name] for p, c in char_counts.items()})
         by_path.update({p: c[name] for p, c in spec_counts.items()})
+        by_path.update({p: c[name] for p, c in tier_counts.items()})
         entries.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "launches_by_path": by_path, **row})

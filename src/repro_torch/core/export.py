@@ -3,13 +3,12 @@ host lane (launch calls) + device lane (kernel execution), so the
 CPU-bound launch trains and GPU-bound queue pileups of the paper's Fig. 4
 are visually inspectable.
 
-Copy of ``repro/core/export.py`` but its request traces, which come with
-request tracing (ROADMAP Queue A, "fleet, router, request tracing"): the
-modeled timeline of one call (``to_chrome_trace``) and the merged
-timeline of a measured run (``merged_chrome_trace``: the engine's
-measured host spans over the modeled device lane).  Files are written as
-strict JSON (no NaN or Infinity), which Perfetto and ``json.loads`` both
-read.
+Copy of ``repro/core/export.py``: the modeled timeline of one call
+(``to_chrome_trace``), the merged timeline of a measured run
+(``merged_chrome_trace``: the engine's measured host spans over the
+modeled device lane) and the per-request critical paths of a serving run
+(``request_trace``).  Files are written as strict JSON (no NaN or
+Infinity), which Perfetto and ``json.loads`` both read.
 """
 from __future__ import annotations
 
@@ -154,4 +153,104 @@ def save_merged_trace(spans, platform: str, path: str, *,
                                       device_anchors=device_anchors,
                                       metadata=metadata), f,
                   allow_nan=False)
+    return path
+
+
+# --------------------------------------------------------------- requests
+# request critical-path tracks live in their own trace process so per-rid
+# tids never collide with the host/device lanes of pid 0
+REQUEST_PID = 1
+_EXEC_SEGMENTS = ("prefill_exec", "decode_exec", "launch_tax")
+
+
+def _flow_pair_xpid(name: str, flow_id: int,
+                    src_pid: int, src_tid: int, src_ts_us: float,
+                    dst_pid: int, dst_tid: int, dst_ts_us: float) -> list:
+    """Cross-process flow arrow (request track -> engine host lane);
+    same s/f contract as ``_flow_pair`` but each end names its own pid,
+    and ``cat`` namespaces the id space away from dispatch flows."""
+    return [
+        {"name": name, "ph": "s", "pid": src_pid, "tid": src_tid,
+         "ts": src_ts_us, "id": flow_id, "cat": "request_flow"},
+        {"name": name, "ph": "f", "pid": dst_pid, "tid": dst_tid,
+         "ts": dst_ts_us, "id": flow_id, "cat": "request_flow",
+         "bp": "e"},
+    ]
+
+
+def request_trace(analysis, platform: str = "",
+                  host_spans=(), metadata: dict | None = None) -> dict:
+    """Chrome/Perfetto trace of per-request critical paths.
+
+    One track per request (pid ``REQUEST_PID``, tid = rid) whose slices
+    are the breakdown's ordered segment pieces — the waterfall a triage
+    reader scrubs.  Engine execution lanes live at pid 0, one tid per
+    replica, rebuilt from the exec pieces themselves (deduped: a batched
+    decode step shared by four requests is one host slice), and every
+    exec piece carries a flow arrow from its request track into the host
+    slice that ran it.  ``host_spans`` optionally merges a measured
+    ``SpanRecorder`` dump (tids 0/1/2) into pid 0 as well, lining the
+    request tracks up over the kernel lanes of ``merged_chrome_trace``.
+
+    ``analysis`` is a ``repro_torch.telemetry.critical_path``
+    ``CriticalPathAnalysis`` (duck-typed: anything with ``breakdowns``).
+    """
+    out = [{"name": "process_name", "ph": "M", "pid": REQUEST_PID,
+            "args": {"name": "requests (critical path)"}},
+           {"name": "process_name", "ph": "M", "pid": 0,
+            "args": {"name": "engine host lanes"}}]
+    host_seen = set()
+    flow_id = 0
+    for b in analysis.breakdowns:
+        host_tid = b.replica if b.replica is not None else 0
+        out.append({"name": "thread_name", "ph": "M", "pid": REQUEST_PID,
+                    "tid": b.rid, "args": {"name": f"request {b.rid}"}})
+        for seg, t0, t1 in b.pieces:
+            is_exec = seg in _EXEC_SEGMENTS
+            dur = max((t1 - t0) * 1e6, 0.01)
+            ev = {"name": seg, "ph": "X", "pid": REQUEST_PID,
+                  "tid": b.rid, "ts": t0 * 1e6, "dur": dur,
+                  "cat": "request_exec" if is_exec else "request_wait",
+                  "args": {"rid": b.rid, "segment": seg}}
+            if b.replica is not None:
+                ev["args"]["replica"] = b.replica
+            out.append(ev)
+            if not is_exec or seg == "launch_tax":
+                continue
+            hkey = (host_tid, round(t0 * 1e6, 3), round(t1 * 1e6, 3))
+            if hkey not in host_seen:
+                host_seen.add(hkey)
+                out.append({"name": seg, "ph": "X", "pid": 0,
+                            "tid": host_tid, "ts": t0 * 1e6, "dur": dur,
+                            "cat": "host_step",
+                            "args": {"replica": host_tid}})
+            # arrow from inside the request slice into the host slice
+            out.extend(_flow_pair_xpid(
+                f"{seg}[rid={b.rid}]", flow_id,
+                REQUEST_PID, b.rid, t0 * 1e6 + 0.5 * dur,
+                0, host_tid, t0 * 1e6 + 0.5 * dur))
+            flow_id += 1
+    out.extend(spans_to_chrome_events(host_spans, pid=0))
+    meta = {"platform": platform} if platform else {}
+    if metadata:
+        meta.update(metadata)
+    return {
+        "traceEvents": out,
+        "displayTimeUnit": "ms",
+        "metadata": meta,
+        "otherData": {
+            "thread_names": {
+                str(b.rid): f"request {b.rid}"
+                for b in analysis.breakdowns},
+        },
+    }
+
+
+def save_request_trace(analysis, path: str, *, platform: str = "",
+                       host_spans=(), metadata: dict | None = None) -> str:
+    """Write ``request_trace`` to ``path`` as strict JSON."""
+    with open(path, "w") as f:
+        json.dump(request_trace(analysis, platform,
+                                host_spans=host_spans, metadata=metadata),
+                  f, allow_nan=False)
     return path

@@ -28,6 +28,17 @@ def json_safe(value):
     return value
 
 
+def json_sanitize(obj):
+    """Recursive ``json_safe``: walk dicts/lists/tuples and sanitize every
+    leaf, so whole report payloads (bench artifacts, serve CLI JSON) can be
+    dumped with ``allow_nan=False`` — the shared strict-JSON export path."""
+    if isinstance(obj, dict):
+        return {k: json_sanitize(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [json_sanitize(v) for v in obj]
+    return json_safe(obj)
+
+
 @dataclass
 class FusionOutcome:
     length: int

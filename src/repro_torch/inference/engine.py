@@ -47,9 +47,18 @@ follows ``pick_spec_k`` and ``spec_inflection``.  On the paged pool the
 verify window's blocks are grown first and the blocks of rejected
 positions trimmed after.  A recurrent stack and an encoder are refused
 (``models.check_speculative``): the reference speculates on both and its
-tokens then part from its greedy ones.  Tensor parallelism and the request
-tracer are not ported yet: asking for either raises ``ValueError`` naming
-its ROADMAP Queue A item rather than being ignored.
+tokens then part from its greedy ones.
+
+``tracer=`` (a ``telemetry.tracing.RequestTracer``) stamps each request's
+lifecycle on the serving clock, at the reference's points: ingress,
+admission or rejection, every (chunked) prefill and decode interval with
+the measured launch tax of its backend call (under ``plan="jit"`` the host
+time of the graph replay), preemption, first token and completion.  A
+speculative round is one decode interval charged to each of its rows.  A
+fleet shares one tracer across its replicas, so ``reset()`` keeps it.
+
+Tensor parallelism is not ported yet: asking for it raises ``ValueError``
+naming its ROADMAP Queue A item rather than being ignored.
 """
 from __future__ import annotations
 
@@ -63,8 +72,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device_model import PLATFORMS
-from repro_torch.inference.backends import (NOT_PORTED, CallAccount,
-                                            SpeculativeBackend, make_backend)
+from repro_torch.inference.backends import (CallAccount, SpeculativeBackend,
+                                            make_backend)
 from repro_torch.inference.kv_quant import KV_DTYPES
 from repro_torch.inference.speculative import (default_draft_config,
                                                draft_params_from_target,
@@ -320,9 +329,6 @@ class ServeEngine:
                  draft_config=None, draft_params=None, spec_k: int = 4,
                  spec_inflection: Optional[int] = None,
                  monitor=True, tracer=None):
-        if tracer is not None:
-            raise ValueError(f"tracer= {NOT_PORTED}, \"fleet, router, "
-                             "request tracing\"")
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch} "
                              "(an engine with no slots can never admit)")
@@ -450,6 +456,11 @@ class ServeEngine:
         self.registry = MetricsRegistry()
         self.stats = EngineStats(plan=self.plan_label, registry=self.registry)
         self.telemetry = telemetry          # Optional[SpanRecorder]
+        # request-scoped lifecycle tracer (Optional[RequestTracer]); a
+        # fleet shares ONE instance across replicas so a trace follows
+        # its request through re-queue and re-dispatch — reset() leaves
+        # it alone for the same reason
+        self.tracer = tracer
         # live boundedness monitor: True -> create one, False/None -> off,
         # or pass a BoundednessMonitor instance to share across engines
         if monitor is True:
@@ -611,6 +622,8 @@ class ServeEngine:
             self.stats.rejected += 1
             self.timings.setdefault(
                 req.rid, RequestTiming(req.rid, arrival_s=req.arrival_s))
+            if self.tracer is not None:
+                self.tracer.reject(req.rid, self.now)
             return True
         if self.cache_mode == "paged":
             return self._admit_paged(req)
@@ -632,11 +645,19 @@ class ServeEngine:
         self.stats.prefills += 1
         self.stats.tokens_out += 1
         timing = self._note_first_token(req)
+        if self.tracer is not None:
+            self.tracer.admit(req.rid, t_begin)
+            self.tracer.prefill(req.rid, t_begin, self.now,
+                                tax_s=acct.host_time_s)
+            self.tracer.first_token(req.rid, self.now)
         if len(req.generated) >= req.max_new_tokens:
             # single-token budget: done at prefill, never occupies a slot
             req.done = True
             req.status = "done"
             timing.done_s = self.now
+            if self.tracer is not None:
+                self.tracer.done(req.rid, self.now,
+                                 n_tokens=len(req.generated))
         else:
             req.status = "active"
             self.slots[slot] = req
@@ -680,6 +701,8 @@ class ServeEngine:
         shared = self._adopt_prefix(req, toks) if self.share_prefix else 0
         self._prefill_tasks[slot] = _PrefillTask(
             req=req, slot=slot, toks=toks, pos=shared, replay=replay)
+        if self.tracer is not None:
+            self.tracer.admit(req.rid, self.now, resume=resume is not None)
         return True
 
     # bound on live donor candidates tracked per prefix key
@@ -781,6 +804,9 @@ class ServeEngine:
         self._admit_seq += 1
         self.slots[slot] = req
         self.lengths[slot] = entries
+        if self.tracer is not None:
+            self.tracer.admit(req.rid, self.now, resume=True,
+                              restore_bytes=nbytes, restore_tax_s=tax)
         if self.speculative:
             # the target KV came back byte-exact from host memory, but the
             # draft cache was not kept: rebuild it from the known tokens
@@ -812,6 +838,7 @@ class ServeEngine:
         ids = self.kv.pool.owned(req.rid)
         mid_prefill = self._prefill_tasks.pop(slot, None) is not None
         tier = self.offload_tier
+        nbytes, tax = 0, 0.0
         if tier is not None and not mid_prefill:
             host = self.kv.gather_host(
                 self.cache, ids, timer=tier.copy_timer(self.backend.device))
@@ -822,6 +849,9 @@ class ServeEngine:
             req._resume = ("host", entries)
         else:
             req._resume = ("recompute", None)
+        if self.tracer is not None:
+            self.tracer.preempt(req.rid, self.now, mode=req._resume[0],
+                                offload_bytes=nbytes, offload_tax_s=tax)
         freed = self.kv.pool.free(req.rid)
         self.cache = self.kv.zero_pages(self.cache, freed)
         self.slots[slot] = None
@@ -870,6 +900,10 @@ class ServeEngine:
         self.stats.prefill_chunks += 1
         t_begin = self.now
         self.now += time.perf_counter() - t_start
+        if self.tracer is not None:
+            self.tracer.prefill(task.req.rid, t_begin, self.now,
+                                tax_s=acct.host_time_s, replay=task.replay,
+                                chunk=chunk_len)
         if self.telemetry is not None:
             self.telemetry.add(f"prefill_chunk[{chunk_len}]", "prefill",
                                t_begin, self.now, rid=task.req.rid,
@@ -895,11 +929,16 @@ class ServeEngine:
         self.stats.prefills += 1
         self.stats.tokens_out += 1
         timing = self._note_first_token(req)
+        if self.tracer is not None:
+            self.tracer.first_token(req.rid, self.now)
         if len(req.generated) >= req.max_new_tokens:
             req.done = True
             req.status = "done"
             timing.done_s = self.now
             self._release_slot(slot, req)
+            if self.tracer is not None:
+                self.tracer.done(req.rid, self.now,
+                                 n_tokens=len(req.generated))
         elif self.speculative:
             self._draft_prefill_slot(slot, task.toks)
 
@@ -972,7 +1011,7 @@ class ServeEngine:
         self.now += dt
         self.stats.step_times_s.append(dt)
         self._note_step(len(active), dt, acct)
-        self._record_decode(len(active), t_begin, acct)
+        self._record_decode(active, t_begin, acct)
         for i in active:
             req = self.slots[i]
             self.lengths[i] += 1
@@ -987,10 +1026,21 @@ class ServeEngine:
                 if timing is not None:
                     timing.done_s = self.now
                 self._release_slot(i, req)
+                if self.tracer is not None:
+                    self.tracer.done(req.rid, self.now,
+                                     n_tokens=len(req.generated))
         return True
 
-    def _record_decode(self, batch: int, t_begin: float,
+    def _record_decode(self, active: list, t_begin: float,
                        acct: CallAccount) -> None:
+        """One decode interval into the request tracer (charged to every
+        row of the step) and the span recorder."""
+        batch = len(active)
+        if self.tracer is not None:
+            self.tracer.decode([self.slots[i].rid for i in active],
+                               t_begin, self.now, tax_s=acct.host_time_s,
+                               batch=batch,
+                               modeled_tklqt_s=acct.modeled_tklqt_s)
         if self.telemetry is not None:
             self.telemetry.add(f"decode[b={batch}]", "decode", t_begin,
                                self.now, batch=batch)
@@ -1116,6 +1166,12 @@ class ServeEngine:
         if paged:
             self.stats.block_pool_utilization.append(
                 self.kv.pool.utilization)
+        if self.tracer is not None:
+            # one interval covering the whole draft-propose + verify round
+            self.tracer.decode([self.slots[i].rid for i in active],
+                               t_begin, self.now, tax_s=acct.host_time_s,
+                               batch=len(active),
+                               modeled_tklqt_s=acct.modeled_tklqt_s)
         if self.telemetry is not None:
             self.telemetry.add(f"spec_verify[b={len(active)},k={k}]",
                                "decode", t_begin, self.now,
@@ -1152,6 +1208,9 @@ class ServeEngine:
                 req.status = "done"
                 if timing is not None:
                     timing.done_s = self.now
+                if self.tracer is not None:
+                    self.tracer.done(req.rid, self.now,
+                                     n_tokens=len(req.generated))
                 if paged:
                     self._release_slot(i, req)
                 else:
@@ -1202,7 +1261,7 @@ class ServeEngine:
         self.now += dt
         self.stats.step_times_s.append(dt)
         self._note_step(len(active), dt, acct)
-        self._record_decode(len(active), t_begin, acct)
+        self._record_decode(active, t_begin, acct)
         for i in active:
             req = self.slots[i]
             self.lengths[i] += 1
@@ -1218,11 +1277,19 @@ class ServeEngine:
                 self.lengths[i] = 0
                 if timing is not None:
                     timing.done_s = self.now
+                if self.tracer is not None:
+                    self.tracer.done(req.rid, self.now,
+                                     n_tokens=len(req.generated))
 
     # ------------------------------------------------------------ run loop
     def submit(self, req: Request) -> None:
         """Enqueue one request; ``tick()`` admits it once the engine clock
-        reaches ``req.arrival_s`` and a slot is free."""
+        reaches ``req.arrival_s`` and a slot is free.  This is the entry
+        point a router uses to feed a replica."""
+        if self.tracer is not None:
+            # idempotent: a router-fed replica already minted this trace
+            # at fleet ingress; engine-only runs mint it here
+            self.tracer.ingress(req.rid, req.arrival_s)
         self._pending.append(req)
         self._pending.sort(key=lambda r: r.arrival_s)   # stable
 
@@ -1238,6 +1305,19 @@ class ServeEngine:
         preempted + active slots)."""
         return (len(self._pending) + len(self._preempted)
                 + sum(1 for s in self.slots if s is not None))
+
+    @property
+    def outstanding_tokens(self) -> int:
+        """Un-served work in tokens: full prompt+budget for queued
+        requests, remaining decode budget for admitted ones.  Routing
+        tie-breaker — two replicas with equal request counts can hold
+        very different amounts of work."""
+        n = sum(len(r.prompt) + r.max_new_tokens for r in self._pending)
+        n += sum(r.max_new_tokens - len(r.generated)
+                 for r in self._preempted)
+        n += sum(s.max_new_tokens - len(s.generated)
+                 for s in self.slots if s is not None)
+        return n
 
     def tick(self) -> bool:
         """One scheduling round: fast-forward over an idle gap, admit every

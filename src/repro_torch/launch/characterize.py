@@ -29,7 +29,13 @@ acceptance and steps per emitted token, then the port's decode stream is
 priced per ``--sweep-platforms`` row with the draft's serialized dispatch
 stream and the (k+1)x verify work (``--model-batches`` adds batch sizes
 priced, not served), printing each cell and writing ``spec_sweep.json``.
-``--tp-sweep`` raises: it needs tensor parallelism (ROADMAP Queue A).
+``--tp-sweep`` models the tensor-parallel launch story: the port's decode
+stream is traced once per ``--batches`` size and priced per
+(``--sweep-platforms`` row, ``--tps`` degree) with one launch per device
+stream (launch tax x tp), 1/tp of the device work and per-layer
+all-reduce payloads over each platform's coupling link, printing how the
+modeled CPU->GPU-bound inflection batch moves with tp and writing
+``tp_sweep.json``; nothing executes sharded, so it needs one device.
 
 Weights are random, drawn on the device from a generator seeded 0.  Runs
 on the GPU by default and raises without one; ``--device cpu`` runs the
@@ -96,6 +102,22 @@ def print_memory_sweep(sweep: dict) -> None:
               f"preempt {d['preemptions'][d['baseline']]}->"
               f"{d['preemptions'][d['kv_dtype']]} "
               f"tax_delta={d['offload_tax_delta_us']}us")
+
+
+def print_tp_sweep(sweep: dict) -> None:
+    """One line a modeled (platform, tp, batch) cell, then the inflection
+    batch per (platform, tp)."""
+    for r in sweep["points"]:
+        print(f"{r['platform']:<12s} {r['coupling']:<3s} "
+              f"tp={r['tp']:<2d} batch={r['batch']:<3d} "
+              f"tklqt={r['modeled_tklqt_us']}us "
+              f"step={r['modeled_step_us']}us "
+              f"launch={r['launch_tax_us']}us "
+              f"coll={r['collective_bytes']}B "
+              f"coll_tax={r['modeled_collective_tax_us']}us")
+    for plat, by_tp in sweep["inflection_batch"].items():
+        print(f"inflection[{plat}]: " + ", ".join(
+            f"tp={t} -> {b}" for t, b in by_tp.items()))
 
 
 def print_spec_sweep(sweep: dict) -> None:
@@ -189,7 +211,7 @@ def main(argv=None):
                          "CC offload tax) instead of the batch sweep")
     ap.add_argument("--sweep-platforms", default="Intel+H100,GH200",
                     help="comma-separated device models for "
-                         "--memory-sweep")
+                         "--memory-sweep / --spec-sweep / --tp-sweep")
     ap.add_argument("--pool-fracs", default="1.0,0.5,0.33",
                     help="pool sizes as fractions of the no-pressure pool")
     ap.add_argument("--block-size", type=int, default=4,
@@ -201,7 +223,12 @@ def main(argv=None):
                          "so int8 cells fit proportionally more blocks")
     ap.add_argument("--sweep-max-batch", type=int, default=4)
     ap.add_argument("--tp-sweep", action="store_true",
-                    help="the tensor-parallel sweep (not ported: raises)")
+                    help="model the tensor-parallel dispatch/collective "
+                         "sweep (inflection batch vs tp on LC vs CC) "
+                         "instead of the measured batch sweep")
+    ap.add_argument("--tps", default="1,2,4,8",
+                    help="comma-separated tensor-parallel degrees for "
+                         "--tp-sweep")
     ap.add_argument("--spec-sweep", action="store_true",
                     help="run the speculative-decoding k x batch sweep "
                          "(measured acceptance + modeled LC-vs-CC draft "
@@ -227,11 +254,25 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    if args.tp_sweep:
-        tp_sweep(cfg, None)
     dev = resolve_device(args.device)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          device=dev)
+    if args.tp_sweep:
+        # trace-only: the decode stream is traced with fake tensors, so no
+        # kernel runs; every (platform, tp) cell is priced, not served
+        sweep = tp_sweep(
+            cfg, params,
+            batches=[int(b) for b in args.batches.split(",") if b],
+            tps=[int(t) for t in args.tps.split(",") if t],
+            platforms=[p for p in args.sweep_platforms.split(",") if p],
+            max_len=args.max_len, device=dev)
+        print_tp_sweep(sweep)
+        os.makedirs(args.out_dir, exist_ok=True)
+        path = os.path.join(args.out_dir, "tp_sweep.json")
+        with open(path, "w") as f:
+            json.dump(sweep, f, indent=2)
+        print(json.dumps({"summary": sweep, "artifacts": {"sweep": path}}))
+        return sweep
     if args.spec_sweep:
         batches = [int(b) for b in args.batches.split(",") if b]
         mb = [int(b) for b in args.model_batches.split(",") if b]

@@ -7,6 +7,10 @@
         --kv-dtype int8 --num-blocks 12 --prefill-chunk 8 --offload host
     PYTHONPATH=src python -m repro_torch.launch.serve --speculative \\
         --spec-k 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --metrics-out m.prom \\
+        --trace-out t.json --slo-ttft-ms 200 --slo-itl-ms 50
+    PYTHONPATH=src python -m repro_torch.launch.serve --plan fused \\
+        --attribution
 
 Counterpart of ``repro.launch.serve`` for the flags the port supports
 (``--plan``, ``--cache paged`` with its block, dtype, sharing, offload and
@@ -14,7 +18,14 @@ chunking flags, ``--platform``, which prices the offload tier and the
 launch plans, and ``--speculative`` with ``--spec-k``,
 ``--spec-inflection`` and ``--draft-layers``: draft-propose /
 batched-verify decoding under ``--plan jit``, whose tokens are plain
-greedy decoding's).  ``--plan jit``, the default as in the reference, replays
+greedy decoding's, and the observability flags: ``--metrics-out``
+writes the engine's registry after the measured run, Prometheus text when
+the path ends in ``.prom`` and a JSON snapshot otherwise; ``--trace-out``
+writes one Perfetto track per request (its critical path) over the
+engine's host lanes; ``--slo-ttft-ms`` / ``--slo-itl-ms`` set the SLO the
+goodput accounting classifies each request against; ``--attribution``
+adds the per-operator launch/queue/exec attribution of one decode step,
+which needs a launch plan).  ``--plan jit``, the default as in the reference, replays
 each step as one CUDA graph (``inference.backends.local``); ``eager``,
 ``whole_graph``, ``chain``, ``auto`` and ``fused`` run it through the
 launch-plan runtime (``eager`` op by op; the others one CUDA graph per
@@ -37,8 +48,11 @@ planned bodies (count, nodes, seconds); under ``--cache
 paged`` also the reference's paged fields and the measured device time of
 the offload copies; the reference's speculative fields (``spec_rounds``,
 ``accept_rate``, ``steps_per_emitted_token``, ``draft_dispatches``, ...);
-and ``boundedness``, the live monitor's verdict over the measured decode
-steps (``telemetry.monitor``).
+``boundedness``, the live monitor's verdict over the measured decode
+steps (``telemetry.monitor``); and ``triage``, the critical-path
+decomposition of every request's latency (``telemetry.critical_path``:
+the segments sum to each request's end-to-end time) with the SLO verdicts
+when an SLO is set.
 """
 from __future__ import annotations
 
@@ -51,6 +65,8 @@ import torch
 
 from repro_torch.configs import get_config, list_configs, reduced
 from repro_torch.core.device_model import PLATFORMS
+from repro_torch.core.export import save_request_trace
+from repro_torch.core.fusion import json_sanitize
 from repro_torch.device import resolve_device
 from repro_torch.inference.backends import PLANS
 from repro_torch.inference.engine import (CACHE_MODES, OFFLOAD_MODES,
@@ -59,7 +75,10 @@ from repro_torch.inference.kv_quant import KV_DTYPES
 from repro_torch.inference.speculative import (default_draft_config,
                                                validate_draft)
 from repro_torch.models import init_params
+from repro_torch.telemetry.critical_path import (SLO, analyze, record_goodput,
+                                                 triage)
 from repro_torch.telemetry.metrics import percentile
+from repro_torch.telemetry.tracing import RequestTracer
 
 
 def make_requests(n: int, vocab: int, max_new: int) -> list:
@@ -217,9 +236,33 @@ def main(argv=None):
     ap.add_argument("--draft-layers", type=int, default=None,
                     help="superblocks in the truncated-target draft "
                          "(default: half the target's)")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write the engine's MetricsRegistry here after "
+                         "the measured run: Prometheus text exposition "
+                         "when the path ends in .prom, else a JSON "
+                         "snapshot")
+    ap.add_argument("--trace-out", default=None,
+                    help="write the per-request critical-path trace "
+                         "(Perfetto/chrome JSON, one track per request)")
+    ap.add_argument("--slo-ttft-ms", type=float, default=None,
+                    help="TTFT SLO in ms for goodput accounting "
+                         "(0 disables; unset = no TTFT bound)")
+    ap.add_argument("--slo-itl-ms", type=float, default=None,
+                    help="mean-ITL SLO in ms for goodput accounting "
+                         "(0 disables; unset = no ITL bound)")
+    ap.add_argument("--attribution", action="store_true",
+                    help="include the per-operator launch/queue/exec "
+                         "attribution of one decode step plus the live "
+                         "boundedness verdict in the report (needs a "
+                         "launch-plan mode, not --plan jit)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args(argv)
+    if args.attribution and args.plan == "jit":
+        ap.error("--attribution needs a launch-plan mode (--plan eager/"
+                 "chain/auto/whole_graph/fused): plan=jit dispatches one "
+                 "whole-step executable with no kernel-level provenance "
+                 "to attribute")
     if args.cache != "paged" and (args.kv_dtype != "bf16"
                                   or args.share_prefix):
         ap.error("--kv-dtype/--share-prefix need --cache paged (the "
@@ -257,7 +300,8 @@ def main(argv=None):
     dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = init_params(cfg, gen, device=dev)
-    eng = ServeEngine(cfg, params, max_batch=args.max_batch,
+    tracer = RequestTracer()
+    eng = ServeEngine(cfg, params, max_batch=args.max_batch, tracer=tracer,
                       max_len=args.max_len, plan=args.plan, device=dev,
                       platform=args.platform, plan_table=args.plan_table,
                       cache=args.cache,
@@ -271,11 +315,48 @@ def main(argv=None):
     if not args.no_warmup:
         eng.run(make_requests(args.requests, cfg.vocab_size, args.max_new))
         eng.reset()
+        # reset() keeps the tracer; drop the warmup's lifecycles so the
+        # triage covers the measured run only
+        tracer.clear()
     reqs = make_requests(args.requests, cfg.vocab_size, args.max_new)
     t0 = time.perf_counter()
     done = eng.run(reqs)
     wall = time.perf_counter() - t0
-    print(json.dumps(report(eng, done, wall)))
+    out = report(eng, done, wall)
+    if args.attribution:
+        pd = eng._planned_decode
+        rep = pd.attribution if pd is not None else None
+        out["attribution"] = None if rep is None else {
+            "complete": rep.complete,
+            "total_events": rep.total_events,
+            "accounted_launches": float(rep.accounted_launches),
+            "tklqt_us": round(rep.tklqt_s * 1e6, 3),
+            "rows": rep.as_dicts(),
+        }
+    # critical-path decomposition + goodput BEFORE the registry export,
+    # so --metrics-out snapshots carry the goodput families
+    slo = SLO.resolve(None, args.slo_ttft_ms, args.slo_itl_ms)
+    analysis = analyze(tracer)
+    tri = triage(analysis, slo)
+    if "slo_report" in tri:
+        record_goodput(eng.registry, tri["slo_report"])
+    out["triage"] = tri
+    if args.trace_out:
+        save_request_trace(
+            analysis, args.trace_out, platform=args.platform,
+            host_spans=(eng.telemetry.spans
+                        if eng.telemetry is not None else ()))
+        out["trace_out"] = args.trace_out
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as fh:
+            if args.metrics_out.endswith(".prom"):
+                fh.write(eng.registry.to_prometheus())
+            else:
+                json.dump(json_sanitize(eng.registry.snapshot()), fh,
+                          indent=2, allow_nan=False)
+        out["metrics_out"] = args.metrics_out
+    # strict JSON even when a measured field degenerates to inf/nan
+    print(json.dumps(json_sanitize(out), allow_nan=False))
     return eng, done
 
 

@@ -25,7 +25,8 @@ from dataclasses import dataclass
 from typing import Optional, Sequence, Union
 
 from repro_torch.core.device_model import (KernelEvent, PLATFORMS,
-                                           PlatformSpec, dispatch_fanout_s,
+                                           PlatformSpec, allreduce_cost_s,
+                                           dispatch_fanout_s,
                                            kernel_duration)
 from repro_torch.core.metrics import SkipReport, report
 from repro_torch.core.tracing import Trace
@@ -37,6 +38,8 @@ DEFAULT_LENGTHS = (2, 4, 8, 16, 32)
 def simulate_plan(kernels: Sequence, plan: LaunchPlan, spec: PlatformSpec, *,
                   batch_scale: float = 1.0,
                   host_scale: Optional[Sequence[float]] = None,
+                  tp: int = 1,
+                  collective_bytes: Union[float, Sequence, None] = None,
                   draft_launches: int = 0) -> list[KernelEvent]:
     """In-order queue model over plan segments (one launch per segment).
 
@@ -47,19 +50,44 @@ def simulate_plan(kernels: Sequence, plan: LaunchPlan, spec: PlatformSpec, *,
     segments keep the sum of member durations (one CUDA graph replay
     dispatches them, but the member kernels still round-trip memory).
 
+    ``tp`` prices a tensor-parallel execution of the same stream: the host
+    issues every segment's launch once PER DEVICE STREAM (launch cost x
+    tp — the multi-GPU widening of the CPU-bound region), while each
+    device runs 1/tp of the segment's flops/bytes.  ``collective_bytes``
+    adds all-reduce payload on top, priced over the platform's coupling
+    link via ``allreduce_cost_s`` and serialized on the device timeline
+    (decode-size payloads are latency-floor dominated, so overlap is not
+    assumed).  Pass a per-segment sequence to localize payloads at their
+    all-reduce sites (each nonzero entry pays its own ring-latency floor),
+    or one scalar total priced as a single aggregate all-reduce after the
+    final segment (no per-site latency knowledge).  Nothing executes
+    sharded: this is the model the ``tp_sweep`` prices.
+
     ``draft_launches`` prepends that many speculative-draft dispatches to
     the host timeline: the draft model is its own single-device stream
     whose kernels are tiny (device time hides behind the queue) but whose
     LAUNCHES serialize on the host before the batched verify can issue —
     the launch-tax side of the speculation trade.  Each costs one tp=1
     ``dispatch_fanout_s`` of host time and no modeled device work.
-
-    The reference's tensor-parallel knobs (``tp``, ``collective_bytes``)
-    come with the slice that ports their callers.
     """
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
     if draft_launches < 0:
         raise ValueError(
             f"draft_launches must be >= 0, got {draft_launches}")
+    n_segs = len(plan.segments)
+    if collective_bytes is None:
+        coll = [0.0] * n_segs
+    elif isinstance(collective_bytes, (int, float)):
+        coll = [0.0] * n_segs
+        if n_segs:
+            coll[-1] = float(collective_bytes)
+    else:
+        if len(collective_bytes) != n_segs:
+            raise ValueError(
+                f"collective_bytes has {len(collective_bytes)} entries "
+                f"for {n_segs} plan segments")
+        coll = list(collective_bytes)
     rule_segs = {si for si, _ in plan.rules}
     t_host = 0.0
     device_free = 0.0
@@ -70,7 +98,8 @@ def simulate_plan(kernels: Sequence, plan: LaunchPlan, spec: PlatformSpec, *,
         t_host += draft_cost
         events.append(KernelEvent(f"draft_launch[{di}]", launch_begin,
                                   t_host, t_host, t_host))
-    base_launch = spec.host_cost_ns * 1e-9
+    base_launch = dispatch_fanout_s(spec, tp)   # one launch per device stream
+    work_scale = batch_scale / tp
     for si, seg in enumerate(plan.segments):
         rel = 1.0
         if host_scale is not None and len(seg) == 1:
@@ -82,12 +111,14 @@ def simulate_plan(kernels: Sequence, plan: LaunchPlan, spec: PlatformSpec, *,
         if si in rule_segs:
             dur = kernel_duration(
                 spec,
-                sum(kernels[i].flops for i in seg) * batch_scale,
-                max(kernels[i].bytes for i in seg) * batch_scale)
+                sum(kernels[i].flops for i in seg) * work_scale,
+                max(kernels[i].bytes for i in seg) * work_scale)
         else:
-            dur = sum(kernel_duration(spec, kernels[i].flops * batch_scale,
-                                      kernels[i].bytes * batch_scale)
+            dur = sum(kernel_duration(spec, kernels[i].flops * work_scale,
+                                      kernels[i].bytes * work_scale)
                       for i in seg)
+        if coll[si]:                # zero-byte sites pay no latency floor
+            dur += allreduce_cost_s(spec, coll[si], tp)
         start = max(t_host, device_free)
         end = start + dur
         device_free = end
@@ -130,12 +161,22 @@ class Planner:
     def __init__(self, trace: Trace,
                  platform: Union[str, PlatformSpec] = "TPU-v5e", *,
                  batch_scale: float = 1.0,
-                 host_scale: Optional[Sequence[float]] = None):
+                 host_scale: Optional[Sequence[float]] = None,
+                 tp: int = 1,
+                 collective_bytes: Union[float, Sequence, None] = None,
+                 draft_launches: int = 0):
         self.trace = trace
         self.spec = (PLATFORMS[platform] if isinstance(platform, str)
                      else platform)
         self.batch_scale = batch_scale
         self.host_scale = host_scale
+        # tensor-parallel pricing: launch streams multiply, per-device
+        # work divides, collective payload rides the coupling link
+        self.tp = tp
+        self.collective_bytes = collective_bytes
+        # speculative pricing: the draft's dispatches serialize before
+        # the verify stream (see simulate_plan)
+        self.draft_launches = draft_launches
 
     # ------------------------------------------------------------ plans
     def eager(self) -> LaunchPlan:
@@ -186,7 +227,9 @@ class Planner:
     def evaluate(self, plan: LaunchPlan) -> SkipReport:
         ev = simulate_plan(self.trace.kernels, plan, self.spec,
                            batch_scale=self.batch_scale,
-                           host_scale=self.host_scale)
+                           host_scale=self.host_scale, tp=self.tp,
+                           collective_bytes=self.collective_bytes,
+                           draft_launches=self.draft_launches)
         return report(ev, self.spec.name, self.spec.launch_overhead_ns * 1e-9)
 
     def compare(self, plans: Sequence[LaunchPlan],

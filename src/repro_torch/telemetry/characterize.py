@@ -24,7 +24,10 @@ step the host did not spend dispatching.
 emitted token measured on the live engine, the launch trade modeled over
 the port's own traced decode stream (aten ops and hand-written kernels,
 so its kernel counts and times are the port's, not the reference's).
-``tp_sweep`` raises: it needs tensor parallelism (ROADMAP Queue A).
+``tp_sweep`` models tensor parallelism the same way: the port's decode
+stream is traced once per batch and priced per (platform, tp) with one
+launch per device stream, 1/tp of the device work and the per-layer
+all-reduce payloads on the coupling link.  Nothing executes sharded.
 """
 from __future__ import annotations
 
@@ -34,9 +37,10 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch.core.boundedness import BoundednessResult, classify_sweep
-from repro_torch.core.device_model import PLATFORMS, dispatch_fanout_s
+from repro_torch.core.device_model import (PLATFORMS, allreduce_cost_s,
+                                           dispatch_fanout_s)
+from repro_torch.core.metrics import report
 from repro_torch.core.tracing import trace_fn
-from repro_torch.inference.backends import NOT_PORTED
 from repro_torch.inference.backends.bodies import make_step_bodies
 from repro_torch.inference.engine import Request, ServeEngine
 from repro_torch.inference.speculative import (default_draft_config,
@@ -431,11 +435,118 @@ def _kv_dtype_deltas(points, kv_dtypes) -> list:
     return rows
 
 
-# ------------------------------------------------------------ not ported
-def tp_sweep(cfg, params, **kw) -> dict:
-    """The reference's tensor-parallel launch sweep (modeled per-device
-    dispatch streams and psum payloads)."""
-    raise ValueError(f"tp_sweep {NOT_PORTED}, \"tensor parallel\"")
+# ------------------------------------------------------------ tp sweep
+@dataclass
+class TPSweepPoint:
+    """One (platform, tp, batch) cell of the tensor-parallel sweep."""
+    platform: str
+    coupling: str                  # LC (PCIe) | CC (C2C)
+    tp: int
+    batch: int
+    n_kernels: int                 # eager stream length (one decode step)
+    per_device_dispatches: int     # launches issued per device stream
+    modeled_tklqt_s: float
+    modeled_step_s: float          # end of the simulated device timeline
+    launch_tax_s: float            # host-side launch time of the step
+    collective_bytes: int          # all-reduce payload per step (all layers)
+    modeled_collective_tax_s: float
+
+    def row(self) -> dict:
+        return {
+            "platform": self.platform, "coupling": self.coupling,
+            "tp": self.tp, "batch": self.batch,
+            "n_kernels": self.n_kernels,
+            "per_device_dispatches": self.per_device_dispatches,
+            "modeled_tklqt_us": round(self.modeled_tklqt_s * 1e6, 1),
+            "modeled_step_us": round(self.modeled_step_s * 1e6, 1),
+            "launch_tax_us": round(self.launch_tax_s * 1e6, 1),
+            "collective_bytes": self.collective_bytes,
+            "modeled_collective_tax_us":
+                round(self.modeled_collective_tax_s * 1e6, 1),
+        }
+
+
+def decode_collective_sites(cfg, batch: int, n_segments: int) -> list:
+    """Per-segment all-reduce payloads of ONE tensor-parallel decode step.
+
+    Every layer reduces its attention output and its MLP output — two
+    (B, 1, d_model) activations in the compute dtype.  The ``2 *
+    n_layers`` sites are spread uniformly across the segment stream (the
+    layer structure is periodic), so each all-reduce pays its own
+    ring-latency floor in the queue model instead of one smeared
+    aggregate."""
+    n_sites = 2 * cfg.n_layers
+    per_site = batch * cfg.d_model * cfg.cdtype.itemsize
+    coll = [0.0] * n_segments
+    if not n_segments:
+        return coll
+    for s in range(n_sites):
+        # last segment of each uniform span: the reduce closes a layer half
+        idx = min(((s + 1) * n_segments) // n_sites, n_segments) - 1
+        coll[max(idx, 0)] += per_site
+    return coll
+
+
+def tp_sweep(cfg, params, *, batches: Sequence[int] = (1, 2, 4, 8),
+             tps: Sequence[int] = (1, 2, 4, 8),
+             platforms: Sequence[str] = ("Intel+H100", "GH200"),
+             max_len: int = 64, device="cuda") -> dict:
+    """Model how tensor parallelism shifts the CPU->GPU-bound transition.
+
+    The port's decode step is traced ONCE per batch (fake tensors: no
+    kernel runs; on the GPU the stream holds the hand-written kernels),
+    then priced per (platform, tp) through ``simulate_plan``: the host
+    issues every launch once per device stream (launch tax x tp), each
+    device runs 1/tp of the flops/bytes, and the per-layer all-reduce
+    payloads ride the platform's coupling link (``allreduce_cost_s``).
+    The per-(platform, tp) TKLQT-vs-batch curve is classified with the
+    same inflection rule as the measured sweep, so the output shows how
+    the inflection batch moves with tp.  The port's trace holds other
+    kernels than the reference's XLA trace, so its inflections are its
+    own.  Nothing executes sharded, so one device serves every tp.
+    """
+    traces = {b: _decode_trace(cfg, params, b, max_len, device)
+              for b in batches}
+    points: list[TPSweepPoint] = []
+    inflection: dict = {}
+    for plat in platforms:
+        spec = PLATFORMS[plat]
+        inflection[plat] = {}
+        for tp in tps:
+            reports = []
+            for b in batches:
+                tr = traces[b]
+                n = len(tr.kernels)
+                plan = LaunchPlan.eager(n)
+                coll = (decode_collective_sites(cfg, b, n)
+                        if tp > 1 else None)
+                # one queue-model walk per cell: the SkipReport is
+                # derived from the same event list the point exposes
+                ev = simulate_plan(tr.kernels, plan, spec, tp=tp,
+                                   collective_bytes=coll)
+                rep = report(ev, spec.name,
+                             spec.launch_overhead_ns * 1e-9)
+                reports.append(rep)
+                points.append(TPSweepPoint(
+                    platform=plat, coupling=spec.coupling, tp=tp, batch=b,
+                    n_kernels=n,
+                    per_device_dispatches=n,
+                    modeled_tklqt_s=rep.tklqt,
+                    modeled_step_s=ev[-1].kernel_end if ev else 0.0,
+                    launch_tax_s=sum(e.t_launch for e in ev),
+                    collective_bytes=int(sum(coll)) if coll else 0,
+                    modeled_collective_tax_s=sum(
+                        allreduce_cost_s(spec, c, tp)
+                        for c in (coll or []) if c)))
+            bound = classify_sweep(batches, reports)
+            inflection[plat][str(tp)] = bound.inflection_batch
+    return {
+        "arch": cfg.name, "max_len": max_len,
+        "batches": list(batches), "tps": list(tps),
+        "platforms": list(platforms),
+        "inflection_batch": inflection,
+        "points": [p.row() for p in points],
+    }
 
 
 # ------------------------------------------------------------ spec sweep

@@ -1,10 +1,11 @@
-"""Metrics registry: labeled Counter/Gauge/Histogram.
+"""Metrics registry: labeled Counter/Gauge/Histogram + Prometheus export.
 
-Copy of ``repro/telemetry/registry.py`` without the Prometheus exporter
-and the fleet merge path, which the port's engine does not use yet.  The
-registry is the single live store serving telemetry writes into:
-``EngineStats`` scalars delegate here, backends register their own
-families, and ``snapshot()`` reads it out as plain JSON.
+The registry is the single live store serving telemetry writes into —
+``EngineStats`` scalars delegate here, backends/pools/monitors register
+their own families — and reads come out two ways: ``snapshot()`` (a
+plain-JSON dict for artifacts and tests) and ``to_prometheus()`` (the
+text exposition format, so ``serve --metrics-out metrics.prom`` drops a
+scrape-ready file).
 
 Design constraints, in order: recording must be allocation-light (one
 dict lookup + float add per observation — it sits on the decode hot
@@ -16,6 +17,7 @@ same default grid so their distributions compare bucket-for-bucket).
 """
 from __future__ import annotations
 
+import math
 from collections import OrderedDict
 from typing import Optional, Sequence
 
@@ -96,6 +98,11 @@ class Gauge(_Family):
         """Overwrite the labeled series with ``value``."""
         self._values[self._key(labels)] = float(value)
 
+    def add(self, amount: float, **labels) -> None:
+        """Shift the labeled series by ``amount`` (either sign)."""
+        key = self._key(labels)
+        self._values[key] = self._values.get(key, 0.0) + amount
+
     def value(self, **labels) -> float:
         """Current value of the labeled series (0 if never set)."""
         return self._values.get(self._key(labels), 0.0)
@@ -142,6 +149,53 @@ class Histogram(_Family):
             counts[-1] += 1
         self._sums[key] += value
         self._totals[key] += 1
+
+    def count(self, **labels) -> int:
+        """Total observations recorded for the labeled series."""
+        return self._totals.get(self._key(labels), 0)
+
+    def sum(self, **labels) -> float:
+        """Sum of all observed values for the labeled series."""
+        return self._sums.get(self._key(labels), 0.0)
+
+    def quantile(self, q: float, **labels) -> float:
+        """Bucket-resolution quantile estimate (upper bound of the
+        bucket holding the q-th observation; math.inf when it landed
+        in the overflow bucket, 0.0 when empty)."""
+        if not 0.0 <= q <= 1.0:
+            raise ValueError(f"q must be in [0, 1], got {q}")
+        key = self._key(labels)
+        total = self._totals.get(key, 0)
+        if not total:
+            return 0.0
+        rank = q * total
+        seen = 0
+        for i, c in enumerate(self._counts[key]):
+            seen += c
+            if seen >= rank and c:
+                return (self.bounds[i] if i < len(self.bounds)
+                        else math.inf)
+        return math.inf
+
+    def merge_series(self, count: int, sum: float, buckets,
+                     **labels) -> None:
+        """Fold an already-bucketed series (another registry's snapshot
+        of a same-bounds family) into the labeled series — the fleet
+        aggregation path, where re-observing raw values is impossible."""
+        if len(buckets) != len(self.bounds) + 1:
+            raise ValueError(
+                f"histogram {self.name!r} has {len(self.bounds) + 1} "
+                f"buckets (incl. overflow), got {len(buckets)}")
+        key = self._key(labels)
+        counts = self._counts.get(key)
+        if counts is None:
+            counts = self._counts[key] = [0] * (len(self.bounds) + 1)
+            self._sums[key] = 0.0
+            self._totals[key] = 0
+        for i, c in enumerate(buckets):
+            counts[i] += c
+        self._sums[key] += sum
+        self._totals[key] += count
 
     def series(self) -> dict:
         """All series as {key: {count, sum, buckets}}."""
@@ -192,6 +246,14 @@ class MetricsRegistry:
         return self._get_or_create(Histogram, name, help, labels,
                                    buckets=buckets)
 
+    def get(self, name: str):
+        """The named family, or None."""
+        return self._families.get(name)
+
+    def names(self) -> list:
+        """Family names in registration order."""
+        return list(self._families)
+
     # ------------------------------------------------------------ export
     def snapshot(self) -> dict:
         """Plain-JSON view: family -> {type, help, labels, series}."""
@@ -212,3 +274,68 @@ class MetricsRegistry:
             if fam.kind == "histogram":
                 out[name]["buckets"] = list(fam.bounds)
         return out
+
+    def to_prometheus(self) -> str:
+        """Text exposition format (counters get a _total suffix only if
+        the family name already carries one — names here are explicit)."""
+        lines = []
+        for name, fam in self._families.items():
+            if fam.help:
+                lines.append(f"# HELP {name} {fam.help}")
+            lines.append(f"# TYPE {name} {fam.kind}")
+            if fam.kind == "histogram":
+                for key, s in fam.series().items():
+                    base = _label_str(fam.label_names, key)
+                    cum = 0
+                    for b, c in zip(fam.bounds, s["buckets"]):
+                        cum += c
+                        lines.append(
+                            f"{name}_bucket{_merge(base, _fmt(b))} "
+                            f"{cum}")
+                    cum += s["buckets"][-1]
+                    lines.append(
+                        f"{name}_bucket{_merge(base, '+Inf')}"
+                        f" {cum}")
+                    lines.append(f"{name}_sum{_wrap(base)} {_fmt(s['sum'])}")
+                    lines.append(f"{name}_count{_wrap(base)} {s['count']}")
+            else:
+                for key, val in fam.series().items():
+                    base = _label_str(fam.label_names, key)
+                    lines.append(f"{name}{_wrap(base)} {_fmt(val)}")
+        return "\n".join(lines) + "\n"
+
+
+def _fmt(v: float) -> str:
+    """Prometheus-safe number formatting (ints bare, +/-Inf named)."""
+    if v == math.inf:
+        return "+Inf"
+    if v == -math.inf:
+        return "-Inf"
+    f = float(v)
+    return repr(int(f)) if f.is_integer() else repr(f)
+
+
+def _escape_label_value(v: str) -> str:
+    """Escape a label value per the Prometheus text-exposition spec:
+    backslash, double-quote, and newline must be backslash-escaped
+    (order matters — backslash first, or the others double-escape)."""
+    return (v.replace("\\", "\\\\")
+             .replace('"', '\\"')
+             .replace("\n", "\\n"))
+
+
+def _label_str(names, key) -> str:
+    """Render a label set as name="value" pairs (values escaped)."""
+    return ",".join(f'{n}="{_escape_label_value(v)}"'
+                    for n, v in zip(names, key))
+
+
+def _wrap(base: str) -> str:
+    """Brace a label string, or nothing when unlabeled."""
+    return f"{{{base}}}" if base else ""
+
+
+def _merge(base: str, le_value: str) -> str:
+    """Brace a label string with the histogram ``le=`` pair appended."""
+    extra = f'le="{_escape_label_value(le_value)}"'
+    return f"{{{base},{extra}}}" if base else f"{{{extra}}}"

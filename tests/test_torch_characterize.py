@@ -295,8 +295,13 @@ def test_the_cli_writes_its_artifacts(tmp_path, capsys):
     assert "copy=not measured (cpu)" in text and "delta[GH200" in text
     sweep = json.loads((out / "memory_sweep.json").read_text())
     assert len(sweep["points"]) == 4 and len(sweep["kv_dtype_deltas"]) == 2
-    with pytest.raises(ValueError, match="tensor parallel"):
-        cli.main(["--reduced", "--device", "cpu", "--tp-sweep"])
+    # the modeled tensor-parallel sweep is ported: it writes its sweep
+    cli.main(["--reduced", "--device", "cpu", "--tp-sweep", "--tps", "1,2",
+              "--batches", "1", "--sweep-platforms", "GH200",
+              "--out-dir", str(out)])
+    assert "inflection[GH200]: tp=1 -> " in capsys.readouterr().out
+    tp = json.loads((out / "tp_sweep.json").read_text())
+    assert [p["tp"] for p in tp["points"]] == [1, 2]
 
 
 def test_plan_executor_records_a_dispatch_span_per_segment():
@@ -325,6 +330,14 @@ def test_plan_executor_records_a_dispatch_span_per_segment():
 
 
 def test_unported_sweeps_name_their_roadmap_items(setup):
+    """``tp_sweep`` is ported (modeled: it prices the traced step per tp,
+    ``test_torch_tp_sweep.py``); measuring at tp > 1 still refuses, naming
+    its ROADMAP item."""
     _, cfg, _, params = setup
+    sweep = char.tp_sweep(cfg, params, batches=(1,), tps=(1, 2),
+                          platforms=("Intel+H100",), max_len=32,
+                          device="cpu")
+    assert [p["tp"] for p in sweep["points"]] == [1, 2]
     with pytest.raises(ValueError, match="ROADMAP.*tensor parallel"):
-        char.tp_sweep(cfg, params)
+        ServeEngine(cfg, params, max_batch=1, max_len=32, device="cpu",
+                    tp=2)

@@ -183,17 +183,21 @@ def test_unported_messages_name_their_roadmap_item():
 
     from repro_torch.inference.backends import make_backend
     from repro_torch.inference.engine import ServeEngine
+    from repro_torch.inference.fleet import ReplicaFleet
     from repro_torch.models import check_supported
-    from repro_torch.telemetry.characterize import tp_sweep
     cfg = reduced(get_config("smollm-360m"))
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     calls = [
         ("tensor parallel", lambda: make_backend(cfg, params, max_batch=1,
                                                  max_len=8, tp=2)),
-        ("tensor parallel", lambda: tp_sweep(cfg, params)),
-        ("fleet, router, request tracing", lambda: ServeEngine(
+        # the fleet and the tracer are ported; a tensor-parallel replica or
+        # paged engine still refuses
+        ("tensor parallel", lambda: ReplicaFleet(
+            cfg, params, replicas=2, tp=2, max_batch=1, max_len=8,
+            device="cpu")),
+        ("tensor parallel", lambda: ServeEngine(
             cfg, params, max_batch=1, max_len=8, device="cpu",
-            tracer=object())),
+            cache="paged", tp=2)),
         ("model features", lambda: check_supported(
             cfg.replace(n_encoder_layers=2))),
     ]

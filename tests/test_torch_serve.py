@@ -90,13 +90,14 @@ def test_engine_defaults_to_the_gpu(setup):
 
 @pytest.mark.parametrize("kw", [
     dict(speculative=True, plan="eager"),
-    dict(cache="paged", tracer=object()),
+    dict(cache="paged", tp=2),
     dict(speculative=True, greedy=False),
-    dict(tp=2), dict(tracer=object())])
+    dict(tp=2), dict(cache="paged", kv_dtype="int8", tp=4)])
 def test_unported_options_raise(setup, kw):
-    """Each unported option raises naming its ROADMAP item; speculation
-    outside ``plan="jit"`` or without greedy decoding raises as the
-    reference's engine does."""
+    """Each unported option (tensor parallelism, on every cache) raises
+    naming its ROADMAP item; speculation outside ``plan="jit"`` or without
+    greedy decoding raises as the reference's engine does.  The request
+    tracer is ported (``test_torch_tracing.py``)."""
     _, cfg, _, params = setup
     match = ("plan='jit'" if kw.get("plan") == "eager"
              else "greedy" if "greedy" in kw else "ROADMAP")
