@@ -92,7 +92,7 @@ Phases (any failure exits non-zero before a result is printed):
      each kernel joined to the runtime call that launched it by its
      correlation id (a kernel of a graph replay takes the
      ``cudaGraphLaunch``; a profile whose clocks put a kernel before its
-     call is discarded and taken again, up to 12 profiles; the median of
+     call is discarded and taken again, up to 8 profiles; the median of
      the (up to three) kept, or "not measured" if none is left), fed to
      ``core.metrics.report`` (TKLQT, AKD, IL, GPU idle) beside the
      modeled TKLQT of the same trace, and
@@ -114,7 +114,8 @@ Phases (any failure exits non-zero before a result is printed):
      4 x 512 tokens, kernels against plain versions.  Each model is freed
      before the next is built;
  15. the measured characterization and the plan autotuner on Llama-3.2-1B
-     at full width and depth (random bf16 weights): (a)
+     at full width, its depth cut to CHAR_LAYERS = 2 of 16 (random bf16
+     weights; deeper, the script nears its time limit with phase 18): (a)
      ``telemetry.characterize`` over the closed-loop ``code-completion``
      scenario (64 requests, seed 0, prompts capped at 64 tokens, outputs at
      8, ``max_len`` 256) at batches 1-64 under ``eager`` and ``jit``,
@@ -129,8 +130,9 @@ Phases (any failure exits non-zero before a result is printed):
      saved plan table (each entry's region, candidates and pick), then the
      workload served at each batch under ``plan="autotuned"``, whose
      tokens must equal an engine's built with the picked plan by name;
-     (c) ``memory_pressure_sweep`` on paged SmolLM-360M at full width
-     (64 uncapped ``code-completion`` requests on 32 slots, ``max_len``
+     (c) ``memory_pressure_sweep`` on paged SmolLM-360M at full width,
+     4 of its 32 layers (SWEEP_LAYERS; each page moves an eighth of the
+     bytes of a whole model's) (64 uncapped ``code-completion`` requests on 32 slots, ``max_len``
      512, pages of 16; ``Intel+H100`` and ``GH200``, pools at 1.0 / 0.5 /
      0.33 of the no-pressure size, bf16 and int8 pages), each row beside
      the offload tier's measured copy time; a 0.33 pool must preempt; (d)
@@ -178,7 +180,34 @@ Phases (any failure exits non-zero before a result is printed):
      ``least-queue-depth`` (where the added replica serves, its first
      captures printed); (e) ``characterize --tp-sweep --tps 1,2,4`` on
      Llama-3.2-1B whole at batches 1, 4, 16, ``tp_sweep.json`` held
-     against the traced step.
+     against the traced step;
+ 18. the mixture-of-experts and Mamba stacks at full width (random bf16
+     weights; each model freed before the next is built): Moonlight-16B-
+     A3B's f32 logits at 2 layers, kernels against plain versions (a
+     prefill and 3 decode steps); Moonlight whole (48 layers, 57.8 GB)
+     through ``serve --arch moonshot-v1-16b-a3b`` under eager and jit,
+     contiguous and ``--cache paged --block-size 16``, checked and traced
+     as phase 13's cells (launches 49 / 48 / 48 a decode step under jit:
+     the untied head's final norm is a ``rmsnorm_matmul`` with the
+     unembed).  The bf16 routing through the kernels is held against the
+     plain versions on the served prompts (every MoE layer's set of
+     experts): the largest router-logit difference of the token-layers
+     that route alike must stay within 2^-4 of the logits' rms, the
+     kernels' logits regressed on the plain ones must have a slope within
+     2^-8 of 1, and every flip must sit at a plain top-k margin below
+     twice that largest difference, the tie.  Where
+     jit's tokens part from eager's past a logit near tie, that request's
+     own prefix, replayed alone through the kernels and through eager's
+     arithmetic, must first route a token apart at a margin below the tie.
+     Each jit cell's first tokens are held against the plain versions,
+     the contiguous graph replays against the same bodies run directly
+     (every token equal) and the paged jit tokens against the contiguous
+     ones (every token equal); then the parameter bytes, the peak memory
+     and one decode step's device time split by operator scope (moe /
+     mamba / attention / ...); then Kimi K2 at full width and 1 layer (hd
+     112, group 8) and Jamba at full width as one 8-layer superblock with
+     4 of its 16 experts, each under jit over the serve CLI's requests
+     with the same routing, first-token and split checks.
 
 Phases 4, 6, 7 and 9 serve with ``--plan eager`` (``plan="eager"``): one
 dispatch a node of the traced step, whose norms are their plain versions,
@@ -195,9 +224,23 @@ bf16, WKV6 (f32) at decode (B 4, T 1), a 12-token prefill, 64 and 1024
 steps in one launch (``[t64]``, ``[t1024]``: B 1, H 40, hd 64) and the
 reference's extreme-decay case, which must stay finite.
 
+Phase 2 holds the kernels at phase 18's shapes too (``moe_cases``): the
+decode entries at Moonlight's (16/16 heads of 128), Kimi K2's (64/8 of
+112) and Jamba's (64/8 of 128) decode shapes, ``flash_attention`` over a
+16-token prefill of each beside SDPA, ``rmsnorm_matmul`` at 7168 x 7168,
+8192 x 32768 (Jamba's Mamba ``in_proj``) and each untied head's final norm
+with the unembed (``[unembed_moonlight|kimi|jamba]``: 2048 x 163840, 7168
+x 163840, 8192 x 65536), and ``residual_rmsnorm`` at D 7168 and 8192.
+
 The ``kernels`` line's ``launches`` are the main paths' jit runs (phase
 11); the multi-query entries', phase 16's speculative runs; phase 17's
-runs are in each entry's ``launches_by_path``.
+and 18's runs are in each entry's ``launches_by_path``.
+
+Order: 1-3, then 18 (the newest phase, so that a fault there ends the run
+early), then 4-17.  Phase 2 times the kernels in
+bf16 (f32 only for the f32-only ``wkv6``; the f32 cases check the error),
+each time the median of 20 calls; a trace (phases 5-18) times and profiles
+3 decode steps (Moonlight's eager step: 1).
 
 Then it prints the ``{"kernels": [...]}`` line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  It needs the repository
@@ -321,7 +364,9 @@ from repro_torch.telemetry.characterize import (           # noqa: E402
     _decode_trace, _requests, characterize, memory_pressure_sweep)
 from repro_torch.workload import load_workload, sample_requests  # noqa: E402
 from repro_torch.models import (forward, init_params,      # noqa: E402
-                                is_recurrent, make_cache, make_paged_cache)
+                                is_recurrent, layer_kind,
+                                make_cache, make_paged_cache,
+                                norm_launches)
 
 DEV = torch.device("cuda", 0)
 PLAINS = {"decode_attention": decode_attention_ref,
@@ -336,15 +381,19 @@ PLAINS = {"decode_attention": decode_attention_ref,
           "rmsnorm_matmul": rmsnorm_matmul_ref,
           "rmsnorm": rmsnorm_ref,
           "wkv6": wkv6_ref}
+# the eager plan runs the fused norms as their plain versions, the
+# attention kernels as kernels
+EAGER_PLAINS = ("residual_rmsnorm", "rmsnorm_matmul", "rmsnorm")
 
 
 @contextlib.contextmanager
-def plain_kernels():
-    """Route the model's kernel calls to the plain versions (on the card)."""
-    saved = {name: getattr(kernels, name) for name in PLAINS}
+def plain_kernels(names=tuple(PLAINS)):
+    """Route the model's kernel calls (those in ``names``) to the plain
+    versions (on the card)."""
+    saved = {name: getattr(kernels, name) for name in names}
     try:
-        for name, fn in PLAINS.items():
-            setattr(kernels, name, fn)
+        for name in names:
+            setattr(kernels, name, PLAINS[name])
         yield
     finally:
         for name, fn in saved.items():
@@ -355,7 +404,7 @@ def plain_kernels():
 _FLUSH = None
 
 
-def time_ms(fn, iters: int = 50) -> tuple:
+def time_ms(fn, iters: int = 20) -> tuple:
     """(device ms, host ms) of one call.
 
     Device: the median over ``iters`` calls, each with the L2 flushed first
@@ -400,6 +449,13 @@ def bound_ms(n_bytes: float, flops: float, dtype) -> tuple:
 def randn(shape, dtype, seed, scale=1.0):
     a = np.random.default_rng(seed).standard_normal(shape) * scale
     return torch.from_numpy(a.astype(np.float32)).to(DEV, dtype)
+
+
+def randn_on_card(shape, dtype, seed, scale=1.0):
+    """``randn`` drawn on the card (a seeded CUDA generator), for weights of
+    a billion elements that numpy would take seconds to draw."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    return (torch.randn(shape, generator=gen, device=DEV) * scale).to(dtype)
 
 
 def max_err(out, ref) -> float:
@@ -774,7 +830,7 @@ def mq_entry_cases(tag, s, hq, hkv, hd, window, cap, scale, dtype, lens,
     table_bytes = 4 * b * nb + 4 * b
     flops = 4 * pairs * hq * hd
     sfx = f"[{tag}]" if tag else ""
-    common = dict(flops=flops, untimed_f32=True)
+    common = dict(flops=flops)
     return {
         f"decode_attention_mq{sfx}": dict(
             call=lambda: kernels.decode_attention_mq(q, kt, vt, lens_t,
@@ -858,7 +914,7 @@ def dense_cases(dtype):
         x = randn((MAX_BATCH, 1, d), dtype, 140)
         r = randn((MAX_BATCH, 1, d), dtype, 141)
         w = randn((d,), dtype, 142) + 1.0
-        wq = randn((d, f), dtype, 143, scale=0.02)
+        wq = randn_on_card((d, f), dtype, 143, scale=0.02)
         rows = MAX_BATCH
         cases[f"rmsnorm_matmul[d{d}]"] = dict(
             call=lambda x=x, w=w, wq=wq: kernels.rmsnorm_matmul(x, w, wq),
@@ -868,6 +924,75 @@ def dense_cases(dtype):
                 F.rms_norm(x, (d,), w, eps=1e-5), wq),
             bytes=(2 * rows * d + d + d * f + rows * f) * es,
             flops=2 * rows * d * f + 4 * rows * d)
+        cases[f"residual_rmsnorm[d{d}]"] = dict(
+            call=lambda x=x, w=w, r=r: kernels.residual_rmsnorm(x, w, r),
+            plain=lambda x=x, w=w, r=r: residual_rmsnorm_ref(x, w, r),
+            library=None,
+            bytes=(4 * rows * d + d) * es, flops=5 * rows * d)
+    return cases
+
+
+# phase 18's decode shapes: (HQ, HKV, hd, window, softcap, scale):
+# Moonlight (group 1 at hd 128), Kimi K2 (group 8 at hd 112, not a power
+# of two), Jamba's attention slot (group 8 at hd 128)
+MOE_DECODE = {"moonlight": (16, 16, 128, 0, 0.0, 128 ** -0.5),
+              "kimi": (64, 8, 112, 0, 0.0, 112 ** -0.5),
+              "jamba": (64, 8, 128, 0, 0.0, 128 ** -0.5)}
+# their fused-norm products (D, F): Kimi's wq, Jamba's Mamba in_proj (a
+# superblock's first norm1); Moonlight's wq is 2048 x 2048 (``[d2048]``)
+MOE_WIDTHS = ((7168, 7168), (8192, 32768))
+
+
+def moe_cases(dtype):
+    """The kernels at phase 18's shapes: the decode entries at Moonlight's,
+    Kimi K2's and Jamba's decode shapes (lengths 28/21/17/13, the
+    contiguous one beside SDPA with the length mask), ``flash_attention``
+    over a slot's 16-token prefill of each (beside SDPA; hd 112 runs the
+    hd-128 instance zero-padded), ``rmsnorm_matmul`` at Kimi's 7168 x 7168,
+    Jamba's 8192 x 32768 and each head's final norm with the unembed
+    (``[unembed_<model>]``, D x V) and ``residual_rmsnorm`` at D 7168 and
+    8192, at the decode rows (4 x 1)."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    cases = {}
+    for i, (tag, (hq, hkv, hd, window, cap, scale)) in enumerate(
+            MOE_DECODE.items()):
+        cases.update(decode_entry_cases(tag, hq, hkv, hd, window, cap, scale,
+                                        dtype, [28, 21, 17, 13], MAX_LEN,
+                                        200 + 10 * i))
+        n = BUCKET
+        q, k, v = (randn((1, n, h, hd), dtype, seed).transpose(1, 2)
+                   for h, seed in ((hq, 205 + 10 * i), (hkv, 206 + 10 * i),
+                                   (hkv, 207 + 10 * i)))
+        cases[f"flash_attention[{tag}]"] = dict(
+            call=lambda q=q, k=k, v=v, sc=scale: kernels.flash_attention(
+                q, k, v, scale=sc),
+            plain=lambda q=q, k=k, v=v, sc=scale: attention_ref(q, k, v,
+                                                                scale=sc),
+            library=lambda q=q, k=k, v=v, sc=scale:
+                F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               scale=sc, enable_gqa=True),
+            bytes=(2 * n * hq * hd + 2 * n * hkv * hd) * es,
+            flops=4 * (n * (n + 1) // 2) * hq * hd)
+    heads = {"moonlight": MOONLIGHT, "kimi": KIMI, "jamba": JAMBA}
+    widths = [(f"d{d}x{f}", d, f) for d, f in MOE_WIDTHS] + [
+        (f"unembed_{tag}", get_config(a).d_model, get_config(a).vocab_size)
+        for tag, a in heads.items()]
+    for tag, d, f in widths:
+        x = randn((MAX_BATCH, 1, d), dtype, 240)
+        r = randn((MAX_BATCH, 1, d), dtype, 241)
+        w = randn((d,), dtype, 242) + 1.0
+        wq = randn_on_card((d, f), dtype, 243, scale=0.02)
+        rows = MAX_BATCH
+        cases[f"rmsnorm_matmul[{tag}]"] = dict(
+            call=lambda x=x, w=w, wq=wq: kernels.rmsnorm_matmul(x, w, wq),
+            plain=lambda x=x, w=w, wq=wq: rmsnorm_matmul_ref(x, w, wq),
+            library=None,
+            unfused=lambda x=x, w=w, wq=wq, d=d: torch.matmul(
+                F.rms_norm(x, (d,), w, eps=1e-5), wq),
+            bytes=(2 * rows * d + d + d * f + rows * f) * es,
+            flops=2 * rows * d * f + 4 * rows * d)
+        if tag.startswith("unembed"):
+            continue
         cases[f"residual_rmsnorm[d{d}]"] = dict(
             call=lambda x=x, w=w, r=r: kernels.residual_rmsnorm(x, w, r),
             plain=lambda x=x, w=w, r=r: residual_rmsnorm_ref(x, w, r),
@@ -953,7 +1078,8 @@ def phase_kernels(cfg, rcfg) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         cases = {**main_path_cases(cfg, dtype), **flash_cases(cfg, dtype),
                  **decode_long_cases(cfg, dtype), **rwkv_cases(rcfg, dtype),
-                 **dense_cases(dtype), **mq_cases(cfg, dtype)}
+                 **dense_cases(dtype), **mq_cases(cfg, dtype),
+                 **moe_cases(dtype)}
         for name, c in cases.items():
             out, ref = c["call"](), c["plain"]()
             err = max_err(out, ref)
@@ -974,7 +1100,9 @@ def phase_kernels(cfg, rcfg) -> dict:
                       f" (<= {bound:.3g})")
                 rows.setdefault(name, {})[
                     f"vs_contiguous_max_abs_err_{str(dtype)[6:]}"] = c_err
-            if dtype == torch.float32 and c.get("untimed_f32"):
+            # f32: the error only (the rows keep bf16 times), unless the
+            # kernel is f32 only
+            if dtype == torch.float32 and not c.get("f32_only"):
                 print(f"phase 2: {name:38s} float32   max_err {err:.3g} "
                       f"(<= {bound:.3g})")
                 rows.setdefault(name, {})["max_abs_err_f32"] = err
@@ -1160,33 +1288,63 @@ def want_launches(cfg, attention: str = "", plan: str = "jit") -> tuple:
     L = cfg.n_layers
     zero = {name: 0 for name in kernels.WRAPPERS}
     norms = plan in ("jit", "fused")
-    if is_recurrent(cfg):
+    if tuple(cfg.block_pattern) == ("rwkv6",):
         name = "rmsnorm" if plan == "jit" else "residual_rmsnorm"
         per = {**zero, "wkv6": L, **({name: 2 * L + 1} if norms else {})}
         return per, dict(per)
-    fused = ({"residual_rmsnorm": L + 1, "rmsnorm_matmul": L} if norms
-             else {})
-    return ({**zero, **fused, attention: L},
-            {**zero, **fused, "flash_attention": L})
+    fused = norm_launches(cfg) if norms else {}
+    n_attn = sum(layer_kind(cfg, i) != "mamba" for i in range(L))
+    return ({**zero, **fused, attention: n_attn},
+            {**zero, **fused, "flash_attention": n_attn})
 
 
-def check_first_tokens(eng, done, cfg) -> int:
+def check_first_tokens(eng, done, cfg, route_tie=None) -> int:
     """The served first tokens against the plain versions on the same bf16
     weights: they may differ only where the plain top-2 gap is below
-    LOGIT_TOL_BF16.  Returns how many agree."""
-    width = max(len(r.prompt) for r in done)
-    prompts = np.zeros((len(done), width), np.int64)
+    LOGIT_TOL_BF16.  A MoE stack's capacity couples the tokens of a call,
+    so there each prompt runs alone, as the engine's prefill row (padded to
+    its bucket unless the stack prefills exactly); a wider gap is allowed
+    there only where that row's prefill first routes a token to other
+    experts at a plain top-k margin below ``route_tie`` (``check_routing``).
+    Returns how many agree."""
     order = sorted(done, key=lambda r: r.rid)
-    for i, r in enumerate(order):
-        prompts[i, :len(r.prompt)] = r.prompt
     first = torch.tensor([r.generated[0] for r in order], device=DEV)
-    with plain_kernels():
-        logits, _ = forward(eng.params, torch.from_numpy(prompts), cfg)
     last = torch.tensor([len(r.prompt) - 1 for r in order], device=DEV)
-    plain = logits[torch.arange(len(order), device=DEV), last]
+    if cfg.moe is None:
+        width = max(len(r.prompt) for r in done)
+        rows = [np.zeros(width, np.int64) for _ in order]
+        groups = [list(range(len(order)))]
+    else:
+        rows = [np.zeros(len(r.prompt) if eng.exact_prefill
+                         else eng._bucket(len(r.prompt)), np.int64)
+                for r in order]
+        groups = [[i] for i in range(len(order))]
+    for row, r in zip(rows, order):
+        row[:len(r.prompt)] = r.prompt
+    plain = []
+    with plain_kernels():
+        for g in groups:
+            logits, _ = forward(eng.params, torch.from_numpy(
+                np.stack([rows[i] for i in g])), cfg)
+            plain.append(logits[torch.arange(len(g), device=DEV), last[g]])
+    plain = torch.cat(plain)
     top2 = plain.topk(2, dim=-1).values
     flips = (plain.argmax(-1) != first) & (top2[:, 0] - top2[:, 1]
                                            >= LOGIT_TOL_BF16)
+    for i in flips.nonzero().flatten().tolist() if cfg.moe else ():
+        # routing is discontinuous: a set flip at a near tie in the row's
+        # prefill moves its logits past any logit tolerance
+        row = torch.from_numpy(rows[i][None])
+        hit = first_set_flip(routed_experts(eng.params, cfg, row),
+                             routed_experts(eng.params, cfg, row,
+                                            tuple(PLAINS)))
+        if hit is not None and hit[2] < route_tie:
+            print(f"  routing near tie: request {order[i].rid}'s first "
+                  f"token; its prefill routes position {hit[1]} of MoE call "
+                  f"{hit[0]} to experts {hit[3]} through the kernels and "
+                  f"{hit[4]} through the plain versions, plain top-k margin "
+                  f"{hit[2]:.3g} < {route_tie:.3g}")
+            flips[i] = False
     if flips.any():
         fail(f"{int(flips.sum())} served first tokens disagree with the "
              f"plain bf16 forward where its top-2 gap >= {LOGIT_TOL_BF16}")
@@ -1246,6 +1404,10 @@ def phase_serve(cfg, phase: int, extra=()) -> tuple:
 
 
 # ------------------------------------------------------------------ phase 5
+# decode steps (and prefills) a trace times and profiles: the per-step
+# numbers are means over them, and an eager step's profile (thousands of
+# kernels and host ops) takes seconds to collect and read back
+TRACE_STEPS = 3
 # device kernel names of the hand-written kernels (csrc/*.cu)
 HAND_KERNELS = ("flash_attention", "residual_rmsnorm_kernel",
                 "rmsnorm_matmul", "decode_attention", "wkv6")
@@ -1292,7 +1454,8 @@ def events_busy_ms(step, steps: int) -> float:
     return total / steps
 
 
-def phase_trace(eng, label: str, prefill: bool = False) -> dict:
+def phase_trace(eng, label: str, prefill: bool = False,
+                steps: int = TRACE_STEPS) -> dict:
     """Decode-step wall time, device time by kernel from torch.profiler
     (kernels run in order on one stream, so their sum is the busy time) and
     the host ops with the most self time, for the engine's cache (a paged
@@ -1306,7 +1469,6 @@ def phase_trace(eng, label: str, prefill: bool = False) -> dict:
     toks = torch.from_numpy(rng.integers(0, eng.cfg.vocab_size,
                                          (MAX_BATCH, 1)))
     lens = np.array([20, 20, 20, 20])
-    steps = 10
     if eng.kv is None:
         def step():
             return eng.backend.decode(eng.cache, toks, lens)
@@ -1427,12 +1589,19 @@ def plain_logits(params, cfg, toks) -> torch.Tensor:
 
 
 def check_near_ties(done, ref_done, params, cfg, names,
-                    plain=plain_int8_logits) -> int:
+                    plain=plain_int8_logits, route_tie=None,
+                    ref_plains=tuple(PLAINS)) -> int:
     """One run's tokens against another's of the same requests (the
     pressured int8 run against an unpressured one; jit against eager).  A
     request may diverge only where the plain versions (``plain``: over
     int8 pages by default) put the two tokens within LOGIT_TOL_BF16 of
-    each other; its later tokens are then not compared.  ``names`` label
+    each other, or, in a MoE stack, where that request's own prefix (its
+    prompt and the tokens both runs served) replayed alone routes a token
+    to other experts through the kernels than with ``ref_plains`` run as
+    their plain versions (the other run's arithmetic), its first such flip
+    at a plain top-k margin below ``route_tie`` (``check_routing``):
+    routing is discontinuous, so one flip moves the logits past any logit
+    tolerance.  Its later tokens are then not compared.  ``names`` label
     the two runs.  Returns how many requests agree entirely."""
     ref = {r.rid: r for r in ref_done}
     same = 0
@@ -1445,6 +1614,29 @@ def check_near_ties(done, ref_done, params, cfg, names,
             continue
         logits = plain(params, cfg, r.prompt + want[:i])
         gap = (logits[want[i]] - logits[r.generated[i]]).abs().item()
+        if cfg.moe is not None and not gap < LOGIT_TOL_BF16:
+            prefix = torch.tensor([r.prompt + want[:i]], device=DEV)
+            hit = first_set_flip(
+                routed_experts(params, cfg, prefix),
+                routed_experts(params, cfg, prefix, ref_plains))
+            if hit is None or not hit[2] < route_tie:
+                fail(f"{names}: request {r.rid} token {i} is "
+                     f"{r.generated[i]} {names[0]} and {want[i]} {names[1]} "
+                     f"(plain logits {gap:.3g} apart), and its prefix "
+                     "replayed alone "
+                     + ("routes every token alike" if hit is None else
+                        f"first routes position {hit[1]} of MoE call "
+                        f"{hit[0]} apart at a plain top-k margin "
+                        f"{hit[2]:.3g} >= {route_tie:.3g}"))
+            print(f"  routing near tie: request {r.rid} token {i} is "
+                  f"{r.generated[i]} {names[0]} and {want[i]} {names[1]} "
+                  f"(plain logits {gap:.3g} apart); its {len(r.prompt) + i}"
+                  f"-token prefix replayed alone first routes position "
+                  f"{hit[1]} of MoE call {hit[0]} to experts {hit[3]} "
+                  f"through the kernels and {hit[4]} through the other "
+                  f"run's arithmetic, plain top-k margin {hit[2]:.3g} < "
+                  f"{route_tie:.3g}")
+            continue
         if not gap < LOGIT_TOL_BF16:
             fail(f"{names}: request {r.rid} token {i} is "
                  f"{r.generated[i]} {names[0]} and {want[i]} {names[1]}; "
@@ -1762,11 +1954,13 @@ def check_launches(cell, plan, eng, rep) -> None:
              f"{sum(want_pre.values())}")
 
 
-def check_jit(cell, rep, erep, done, edone, params, cfg) -> None:
+def check_jit(cell, rep, erep, done, edone, params, cfg,
+              route_tie=None) -> None:
     """The jit run against the eager run of the same cell: the same
     requests finished, one dispatch per decode step, the jit path's
     launches; tokens equal eager's except at a near tie (eager runs the
-    norms as their plain bf16 versions: other arithmetic)."""
+    norms as their plain bf16 versions: other arithmetic; in a MoE stack
+    a routing near tie below ``route_tie``)."""
     if len(done) != len(edone) or any(r.status != "done" for r in done):
         fail(f"{cell} jit: finished {len(done)} of {len(edone)} requests")
     if rep["dispatches_per_decode_step"] != 1.0:
@@ -1778,7 +1972,8 @@ def check_jit(cell, rep, erep, done, edone, params, cfg) -> None:
     plain = (plain_int8_logits if cell == "paged_int8_pressure"
              else plain_logits)
     same = check_near_ties(done, edone, params, cfg,
-                           ("under jit", "under eager"), plain)
+                           ("under jit", "under eager"), plain, route_tie,
+                           EAGER_PLAINS)
     print(f"  {cell}: jit tokens equal eager's in {same}/{len(done)} "
           f"requests (the rest part at a printed near tie); 1 dispatch per "
           f"decode step (eager {erep['dispatches_per_decode_step']:.0f}); "
@@ -1867,7 +2062,7 @@ EQ1_BATCHES = (1, 2, 4)
 # launch call), and such a profile is discarded.  How often varies from
 # process to process on an H100, from a few profiles to nearly all; a
 # point with no profile left is printed as not measured
-EQ1_PROFILES, EQ1_ATTEMPTS = 3, 12
+EQ1_PROFILES, EQ1_ATTEMPTS = 3, 8
 
 
 def planned(eng, decode: bool) -> list:
@@ -1927,21 +2122,24 @@ def check_fused(cell, eng, done, jit_done) -> None:
         fail(f"{cell} fused: requests {bad} served other tokens than "
              f"under jit ({len(done)} of {len(jit_done)} finished)")
     L = eng.cfg.n_layers
+    want = norm_launches(eng.cfg)
+    if eng.cfg.tie_embeddings:      # the final norm bare: no product reads
+        want = {"rmsnorm_matmul": want["rmsnorm_matmul"], "rmsnorm": 1,
+                "residual_rmsnorm": want["residual_rmsnorm"] - 1}
     for hits in rule_hits_per_call(planned(eng, True) + planned(eng, False)):
-        ok = (sum(hits.values()) == 2 * L + 1 if is_recurrent(eng.cfg) else
-              hits == {"residual_rmsnorm": L, "rmsnorm": 1,
-                       "rmsnorm_matmul": L})
+        ok = (sum(hits.values()) == 2 * L + 1
+              if tuple(eng.cfg.block_pattern) == ("rwkv6",) else hits == want)
         if not ok:
             fail(f"{cell} fused: rule hits per call {hits}")
 
 
-def measured_events(run) -> list:
-    """The Eq. 1 timeline of ``run`` from torch.profiler: each device
-    kernel joined by its correlation id to the runtime call that launched
-    it (a kernel of a CUDA graph replay carries the ``cudaGraphLaunch``'s)
-    as ``KernelEvent``s, in seconds from the first launch; an event's
-    ``operator`` names its launch call.  Returns (events, how many kernels
-    start before the call joined to them began); no events where the
+def profiled_kernels(run) -> tuple:
+    """``run`` under torch.profiler: each device kernel event paired with
+    the runtime call that launched it, joined by correlation id (a kernel
+    of a CUDA graph replay carries the ``cudaGraphLaunch``'s; should an id
+    recur in one trace, the call nearest in time; None where the trace has
+    no such call), and the ``user_annotation`` spans (the operator
+    scopes).  Returns ([(kernel, call)], [span]); no pairs where the
     profiler recorded no device kernel (it loses the device activity of
     some profiles, as it misplaces the device clock of others)."""
     from torch.profiler import ProfilerActivity, profile
@@ -1952,23 +2150,38 @@ def measured_events(run) -> list:
         path = Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(path))
         events = json.loads(path.read_text())["traceEvents"]
-    calls, kern = {}, []
+    calls, kern, spans = {}, [], []
     for e in events:
-        corr = (e.get("args") or {}).get("correlation")
-        if e.get("ph") != "X" or corr is None:
+        if e.get("ph") != "X":
             continue
-        if e.get("cat") in ("cuda_runtime", "cuda_driver"):
+        corr = (e.get("args") or {}).get("correlation")
+        if e.get("cat") == "user_annotation":
+            spans.append(e)
+        elif corr is None:
+            continue
+        elif e.get("cat") in ("cuda_runtime", "cuda_driver"):
             calls.setdefault(corr, []).append(e)
         elif e.get("cat") == "kernel":
             kern.append(e)
-    if not kern:
+    pairs = [(k, min(calls.get(k["args"]["correlation"], ()),
+                     key=lambda c, k=k: abs(k["ts"] - c["ts"]),
+                     default=None))
+             for k in kern]
+    return pairs, spans
+
+
+def measured_events(run) -> list:
+    """The Eq. 1 timeline of ``run`` from torch.profiler: each device
+    kernel joined to its launch call (``profiled_kernels``) as
+    ``KernelEvent``s, in seconds from the first launch; an event's
+    ``operator`` names its launch call.  Returns (events, how many kernels
+    start before the call joined to them began); no events where the
+    profiler recorded no device kernel."""
+    pairs, _ = profiled_kernels(run)
+    if not pairs:
         return [], 0
     out = []
-    for k in kern:
-        # the call that launched it: of the calls carrying its correlation
-        # id (should an id recur in one trace), the nearest in time
-        c = min(calls.get(k["args"]["correlation"], ()),
-                key=lambda c: abs(k["ts"] - c["ts"]), default=None)
+    for k, c in pairs:
         if c is None:
             fail(f"Eq. 1 timeline: kernel {k['name'][:60]} has no launch "
                  "call in the trace")
@@ -2194,26 +2407,37 @@ def model_params(cfg, seed: int, biases: bool = False) -> dict:
     return params
 
 
-def serve_eager_then_jit(cell, cfg, extra, phase, prefill, params=None):
+def serve_eager_then_jit(cell, cfg, extra, phase, prefill, params=None,
+                         after_jit=None, trace_steps: int = TRACE_STEPS):
     """A cell under eager, then jit (``serve_flags``, or with ``params`` an
     engine on them over ``serve.make_requests``), each checked (launches,
     jit: one dispatch and eager's tokens up to near ties) and its decode
-    step traced.  Returns ({plan: row}, jit's finished requests, jit's
-    launch counts, eager's)."""
+    step traced; ``after_jit(engine, finished requests)`` runs on the jit
+    engine before its tokens are held against eager's, and returns the
+    routing tie for that check (a MoE stack's, ``check_routing``) or None.
+    Returns ({plan: row}, jit's finished requests, jit's launch counts,
+    eager's)."""
     runs = {}
     for plan in ("eager", "jit"):
+        t_plan = time.perf_counter()
         if params is None:
             eng, done, rep, counts = serve_flags(cfg, extra, plan, phase)
         else:
             eng, done, rep, counts = serve_engine(cfg, params, plan, phase)
+        t_served = time.perf_counter() - t_plan
         check_launches(cell, plan, eng, rep)
         if plan == "jit":
+            tie = None if after_jit is None else after_jit(eng, done)
             erep, edone = runs["eager"][1:3]
-            check_jit(cell, rep, erep, done, edone, eng.params, cfg)
+            check_jit(cell, rep, erep, done, edone, eng.params, cfg, tie)
+        t_trace = time.perf_counter()
         trace = phase_trace(eng, f"phase {phase} {cell} {plan} trace",
-                            prefill)
+                            prefill, trace_steps)
+        trace_s = time.perf_counter() - t_trace
         runs[plan] = (cell_row(rep, trace), rep, done, counts)
         print_row(phase, cell, plan, runs[plan][0])
+        print(f"  {cell} {plan}: {time.perf_counter() - t_plan:.1f} s "
+              f"(served in {t_served:.1f} s, traced in {trace_s:.1f} s)")
         del eng
         torch.cuda.empty_cache()
     return ({p: r[0] for p, r in runs.items()}, runs["jit"][2],
@@ -2399,9 +2623,7 @@ def phase_others() -> tuple:
         err, _ = kernel_vs_plain_logits(cfg32, params, prompt, None,
                                         f"phase 14 {name} f32 logits")
         counts[f"{name}:forward"] = kernels.launch_counts()
-        want = {"flash_attention": cfg.n_layers,
-                "rmsnorm_matmul": cfg.n_layers,
-                "residual_rmsnorm": cfg.n_layers + 1}
+        want = {"flash_attention": cfg.n_layers, **norm_launches(cfg)}
         got = {k: v for k, v in counts[f"{name}:forward"].items() if v}
         if got != want:
             fail(f"phase 14 {name}: launches {got} != {want}")
@@ -2419,13 +2641,19 @@ def phase_others() -> tuple:
 
 # ------------------------------------------------------------------ phase 15
 CHAR_BATCHES = (1, 2, 4, 8, 16, 32, 64)
+# of Llama-3.2-1B's 16: each layer costs the phase ~13 s on a slow host
+# (whole 277 s, 8 layers 187 s), and with phase 18 the script at 8 layers
+# already took 1156 s of its 1200 s limit there
+CHAR_LAYERS = 2
 CHAR_KW = dict(scenario="code-completion", n_requests=64, seed=0,
                prompt_cap=64, output_cap=8, max_len=256,
                platform="Intel+H100")
 TUNE_BATCHES = (1, 4, 16)
+SWEEP_LAYERS = 4           # of SmolLM-360M's 32: the sweep serves 12 pools
 # the pool at a serving size: 64 uncapped code-completion requests (prompts
 # 31-128 tokens) on 32 slots, pages of 16, so the full pool is 288 bf16
-# pages (189 MB) and a preemption moves a sequence's pages (up to 9, 5.9 MB)
+# pages (23.6 MB at 4 layers) and a preemption moves a sequence's pages (up
+# to 9, 0.74 MB)
 SWEEP_KW = dict(scenario="code-completion", n_requests=64, max_batch=32,
                 max_len=512, block_size=16, prompt_cap=None, output_cap=None,
                 platforms=("Intel+H100", "GH200"),
@@ -2563,8 +2791,9 @@ def autotuned_serving(cfg, params, eager, tmp: str, counts: dict) -> dict:
 
 
 def pressure_sweep(counts: dict) -> dict:
-    """(c): the paged memory-pressure sweep on full-width SmolLM-360M."""
-    cfg = get_config(ARCH)
+    """(c): the paged memory-pressure sweep on full-width SmolLM-360M at
+    SWEEP_LAYERS."""
+    cfg = get_config(ARCH).replace(n_layers=SWEEP_LAYERS)
     params = model_params(cfg, 15)
     kernels.reset_launch_counts()
     sweep = memory_pressure_sweep(cfg, params, device=DEV, **SWEEP_KW)
@@ -2627,14 +2856,16 @@ def phase_characterize() -> tuple:
     memory-pressure sweep and the trace artifacts (see the module
     docstring).  Returns ({part: numbers}, {path: launch counts})."""
     t0 = time.perf_counter()
-    cfg = get_config(LLAMA)
+    cfg = get_config(LLAMA).replace(n_layers=CHAR_LAYERS)
     params = model_params(cfg, 15)
     counts = {}
     results = characterize_sweeps(cfg, params, counts)
     split = jit_step_split(cfg, params)
+    print(f"phase 15: (a) {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
         table = autotuned_serving(cfg, params, results["eager"], tmp,
                                   counts)
+        print(f"phase 15: (a)-(b) {time.perf_counter() - t0:.1f} s")
         del params
         torch.cuda.empty_cache()
         artifacts = check_artifacts(results["eager"], tmp)
@@ -2661,7 +2892,7 @@ def shifted_draft(cfg, params):
     nearly every round."""
     dcfg = default_draft_config(cfg).replace(tie_embeddings=False)
     dparams = dict(draft_params_from_target(params, dcfg))
-    dparams["lm_head"] = torch.roll(params["embed"], 1, 0).T
+    dparams["lm_head"] = torch.roll(params["embed"], 1, 0).T.contiguous()
     return dict(draft_config=dcfg, draft_params=dparams)
 
 
@@ -3280,6 +3511,330 @@ def phase_serving_tier() -> tuple:
     return rows, counts
 
 
+# ------------------------------------------------------------------ phase 18
+MOONLIGHT = "moonshot-v1-16b-a3b"
+KIMI = "kimi-k2-1t-a32b"
+JAMBA = "jamba-1.5-large-398b"
+MOONLIGHT_CELLS = {"moonlight_contiguous": [], "moonlight_paged_bf16": PAGED}
+# the cuts the card forces (80 GB): Kimi K2 at full width and 1 of its 61
+# layers (19.4 B parameters, 38.8 GB bf16; two layers need 73 GB); Jamba at
+# full width as one 8-layer superblock with 4 of its 16 experts (16.2 B,
+# 32.5 GB; all 16 need 90 GB, and the pattern forbids a shorter stack)
+KIMI_LAYERS = 1
+JAMBA_EXPERTS = 4
+MOONLIGHT_F32_LAYERS = 2
+MOONLIGHT_TRACE_STEPS = 1  # decode steps a trace (eager: ~150 ms, 5.2 k kernels)
+# a decode step's device time by operator scope (models/transformer.py)
+SPLIT_SCOPES = {"attn": "attention", "moe": "moe", "mamba": "mamba",
+                "mlp": "mlp", "norm1": "norm", "norm2": "norm",
+                "final_norm": "norm", "resid": "other", "embed": "other",
+                "unembed": "unembed"}
+# the largest router-logit difference the kernels' arithmetic may make,
+# as a share of the router logits' rms: 16 bf16 ulps (2^-8 each).  The
+# bf16 kernels and plain versions round at other points in every layer
+# before a router; a kernel that moved the router's inputs by more would
+# move the logits past it
+ROUTER_REL = 2.0 ** -4
+# the kernels' router logits regressed on the plain ones may have a slope
+# 1 + s with |s| at most one bf16 ulp: rounding at other points leaves no
+# slope, a kernel that scaled the router's inputs would
+ROUTER_SLOPE = 2.0 ** -8
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def step_split(eng, label: str, tries: int = 3):
+    """One decode step of ``eng``'s model (its weights and contiguous
+    cache, every row at length 20) run directly, so that its operator
+    scopes reach the profiler: each device kernel, joined to the call that
+    launched it (``profiled_kernels``), is filed under the innermost
+    ``SPLIT_SCOPES`` scope around that call.  Returns {kind: device ms} and
+    their sum, or None when no profile recorded a device kernel."""
+    cfg = eng.cfg
+    toks = torch.zeros((eng.B, 1), dtype=torch.int32, device=DEV)
+    lens = torch.full((eng.B,), 20, dtype=torch.int32, device=DEV)
+
+    def run():
+        forward(eng.params, toks, cfg, cache=eng.cache, lengths=lens)
+        torch.cuda.synchronize()
+
+    run()
+    for _ in range(tries):
+        pairs, spans = profiled_kernels(run)
+        if pairs:
+            break
+    else:
+        print(f"{label}: decode step split by operator: not measured (the "
+              "profiler recorded no device kernel)")
+        return None
+    scopes = [sc for sc in spans if sc["name"] in SPLIT_SCOPES]
+    split: dict = {}
+    for k, c in pairs:
+        inner = None if c is None else min(
+            (sc for sc in scopes if sc["tid"] == c["tid"]
+             and sc["ts"] <= c["ts"] <= sc["ts"] + sc["dur"]),
+            key=lambda sc: sc["dur"], default=None)
+        kind = "other" if inner is None else SPLIT_SCOPES[inner["name"]]
+        split[kind] = split.get(kind, 0.0) + k["dur"] * 1e-3
+    total = sum(split.values())
+    print(f"{label}: one decode step (batch {eng.B}, kv len 20) run "
+          f"directly: device {total:.3f} ms, " + ", ".join(
+              f"{k} {v:.3f} ms ({v / total:.1%})"
+              for k, v in sorted(split.items(), key=lambda kv: -kv[1]))
+          + f"; {len(pairs)} device kernels")
+    return {"device_ms": total, **split}
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Record every MoE call's expert ids, its top-k margin (the router
+    logits' gap between the k-th expert and the next) and its f32 router
+    logits into the yielded list, in order."""
+    from repro_torch.layers import moe as moe_layer
+    got, route = [], moe_layer.route
+
+    def spy(x2d, router_w, c, with_aux=True):
+        out = route(x2d, router_w, c, with_aux)
+        logits = x2d.float() @ router_w.float()
+        top = logits.topk(c.moe.top_k + 1, dim=-1).values
+        got.append((out[1].clone(), top[:, -2] - top[:, -1], logits))
+        return out
+    moe_layer.route = spy
+    try:
+        yield got
+    finally:
+        moe_layer.route = route
+
+
+def routed_experts(params, cfg, prompt, plains=()):
+    """``recorded_routes`` of one forward of ``prompt`` through the kernels,
+    those named in ``plains`` run as their plain versions."""
+    with recorded_routes() as got, plain_kernels(plains):
+        forward(params, prompt, cfg)
+    return got
+
+
+def same_experts(a, b):
+    """Per token: the same set of experts (the order of the top k only
+    orders the combine's sum)."""
+    return (a.sort(dim=-1).values == b.sort(dim=-1).values).all(dim=-1)
+
+
+def first_set_flip(a, p):
+    """The first MoE call of two recorded routings (``recorded_routes``,
+    ``p`` the plain one) where a token goes to another set of experts:
+    (call, row, p's top-k margin there, a's experts, p's experts), or
+    None."""
+    for call, ((ea, _, _), (ep, margin, _)) in enumerate(zip(a, p)):
+        if ea.shape != ep.shape:
+            return None
+        diff = ~same_experts(ea, ep)
+        if diff.any():
+            t = int(diff.nonzero()[0])
+            return (call, t, float(margin[t]), ea[t].tolist(),
+                    ep[t].tolist())
+    return None
+
+
+def check_routing(params, cfg, label: str) -> dict:
+    """bf16 routing through the kernels (the jit path's arithmetic) against
+    the plain versions on the served prompts, one forward each, every
+    token-layer compared until its prompt's first flip (its later inputs
+    then differ).  ``delta``: the largest |kernel - plain| router logit of
+    a token-layer that routes alike, the two paths' arithmetic difference
+    at the router; it must stay within ROUTER_REL of the logits' rms, and
+    the kernels' logits regressed on the plain ones over every compared
+    token-layer must have a slope within ROUTER_SLOPE of 1 (a systematic
+    shift of the router's inputs moves it; rounding does not).  A flip of
+    a token's set of experts needs a plain top-k margin below the two
+    logits' difference, at most 2 ``delta``: that is the tie, and every
+    flip must sit below it.  Returns the counts, ``delta``, the slope, the
+    tie, the share of token-layers whose margin is below the tie and the
+    median margin."""
+    prompt = torch.tensor([r.prompt for r in serve.make_requests(
+        N_REQ, cfg.vocab_size, 16)], device=DEV)
+    b, n = prompt.shape
+    a = routed_experts(params, cfg, prompt)
+    p = routed_experts(params, cfg, prompt, tuple(PLAINS))
+    alive = torch.ones(b, dtype=torch.bool, device=DEV)
+    deltas, margins, flip_margins, squares = [], [], [], []
+    cross = norm = 0.0          # the regression's sums: (kernel - plain)
+    for (ea, _, la), (ep, margin, lp) in zip(a, p):   # x plain, plain^2
+        live = alive.repeat_interleave(n)
+        rows = same_experts(ea, ep)
+        deltas.append((la - lp).abs().amax(dim=-1)[rows & live])
+        margins.append(margin[live])
+        squares.append(lp[live].square().mean(dim=-1))
+        cross += float(((la - lp) * lp)[live].sum())
+        norm += float(lp[live].square().sum())
+        bad = ~rows & live
+        flip_margins.append(margin[bad])
+        alive &= ~bad.view(b, n).any(dim=-1)
+    delta = float(torch.cat(deltas).max())
+    rms = float(torch.cat(squares).mean().sqrt())
+    margins, flips = torch.cat(margins), torch.cat(flip_margins)
+    slope = cross / norm
+    tie = 2 * delta
+    total, n_flips = margins.numel(), flips.numel()
+    share = float((margins < tie).float().mean())
+    median = float(margins.median())
+    if not delta <= ROUTER_REL * rms:
+        fail(f"{label}: the kernels move a router logit by {delta:.3g}, "
+             f"more than {ROUTER_REL:.3g} of the logits' rms {rms:.3g}")
+    if not abs(slope) <= ROUTER_SLOPE:
+        fail(f"{label}: the kernels' router logits against the plain ones "
+             f"have a slope 1 + {slope:.3g}, beyond 1 +- {ROUTER_SLOPE:.3g}")
+    if n_flips and not float(flips.max()) < tie:
+        fail(f"{label}: {int((flips >= tie).sum())} tokens routed to other "
+             "experts through the kernels than through the plain versions "
+             f"where the plain top-k margin >= {tie:.3g} (2 x the largest "
+             f"router-logit difference, {delta:.3g}; up to "
+             f"{float(flips.max()):.3g})")
+    print(f"{label}: routing (each token's set of experts) through the "
+          f"kernels equals the plain versions' in {total - n_flips}/{total} "
+          f"token-layers of the {b} served prompts; router logits apart by "
+          f"<= {delta:.3g} ({delta / rms:.2%} of their rms {rms:.3g}; "
+          f"slope 1 + {slope:.2g}), so "
+          f"a tie is a plain top-k margin < {tie:.3g}: {share:.2%} of the "
+          f"token-layers (median margin {median:.3g}); {n_flips} flips, "
+          "each at such a tie"
+          + (f" (widest {float(flips.max()):.3g})" if n_flips else ""))
+    return {"same": total - n_flips, "total": total, "flips": n_flips,
+            "delta": delta, "logit_rms": rms, "slope": slope, "tie": tie,
+            "share_below_tie": share, "median_margin": median}
+
+
+def moe_engine(cfg, label: str, seed: int, counts: dict) -> dict:
+    """A cut full-width model served under jit by ``ServeEngine`` over the
+    serve CLI's requests: launches, routing, first tokens against the
+    plain versions, the step split, parameter bytes and peak memory."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = model_params(cfg, seed)
+    nbytes = tree_bytes(params)
+    eng, done, rep, counts[label] = serve_engine(cfg, params, "jit", 18)
+    check_launches(label, "jit", eng, rep)
+    route = check_routing(params, cfg, f"phase 18 {label}")
+    agree = check_first_tokens(eng, done, cfg, route["tie"])
+    split = step_split(eng, f"phase 18 {label}")
+    peak = torch.cuda.max_memory_allocated()
+    row = dict(layers=cfg.n_layers, param_bytes=nbytes, peak_bytes=peak,
+               first_tokens=agree, routing=route, split=split,
+               step_ms=rep["mean_decode_step_ms"],
+               tok_per_s=rep["tok_per_s"], mean_ttft_ms=rep["mean_ttft_ms"],
+               graphs=rep["graphs_captured"],
+               capture_s=rep["graph_capture_s"])
+    print(f"phase 18: {label} jit: {cfg.n_layers} layers, parameters "
+          f"{nbytes / 1e9:.2f} GB, peak memory {peak / 1e9:.2f} GB; decode "
+          f"step {row['step_ms']:.3f} ms, {row['tok_per_s']:.1f} tok/s, "
+          f"mean TTFT {row['mean_ttft_ms']:.2f} ms; first tokens agree with "
+          f"the plain bf16 forward {agree}/{N_REQ}; {row['graphs']} graphs "
+          f"in {row['capture_s']:.3f} s; {time.perf_counter() - t0:.1f} s")
+    del eng, params
+    torch.cuda.empty_cache()
+    return row
+
+
+def graphs_equal_direct(eng, done, label: str) -> int:
+    """The jit engine's tokens (its step bodies replayed as CUDA graphs)
+    against a second jit engine on the same weights whose bodies run
+    directly: the same kernels on the same inputs, so every token must be
+    equal.  Returns the requests compared."""
+    direct = ServeEngine(eng.cfg, eng.params, max_batch=MAX_BATCH,
+                         max_len=MAX_LEN, plan="jit", device=DEV)
+    direct.backend._capturing = False
+    got = {r.rid: r.generated for r in direct.run(
+        serve.make_requests(N_REQ, eng.cfg.vocab_size, 16))}
+    bad = [r.rid for r in done if got.get(r.rid) != r.generated]
+    if bad or len(got) != len(done):
+        fail(f"{label}: the graph replays' tokens differ from the same "
+             f"bodies run directly in requests {bad}")
+    print(f"  {label}: jit's graph replays serve the tokens of the same "
+          f"step bodies run directly in {len(done)}/{len(done)} requests, "
+          "token for token")
+    del direct
+    torch.cuda.empty_cache()
+    return len(done)
+
+
+def phase_moe() -> tuple:
+    """Phase 18: the mixture-of-experts and Mamba stacks at full width.
+    Moonlight-16B-A3B's f32 logits at 2 layers, kernels against plain
+    versions; Moonlight whole (48 layers, bf16) through
+    ``repro_torch.launch.serve`` under eager and jit, contiguous and paged,
+    checked as phase 13's cells, plus: the routing (which sets the tie the
+    token checks allow), the served first tokens against the plain
+    versions, the contiguous graph replays against the same bodies run
+    directly, the paged jit tokens against the contiguous ones and the
+    step split; then Kimi K2 (1 layer) and Jamba (one 8-layer superblock,
+    4 experts) under jit.  Returns ({cell: row}, {cell:plan: launch
+    counts})."""
+    t0 = time.perf_counter()
+    assert not torch.backends.cuda.matmul.allow_tf32   # the f32 router
+    cfg = get_config(MOONLIGHT)
+    f32_logits_check(cfg.replace(n_layers=MOONLIGHT_F32_LAYERS), 18, 18)
+    rows, counts, served = {}, {}, {}
+    whole: dict = {}
+
+    def moonlight_extra(cell):
+        def extra(eng, done):
+            if "routing" not in whole:
+                whole.update(
+                    param_bytes=tree_bytes(eng.params),
+                    peak_bytes=torch.cuda.max_memory_allocated(),
+                    routing=check_routing(eng.params, cfg,
+                                          f"phase 18 {cell}"),
+                    graphs_equal_direct=graphs_equal_direct(eng, done, cell),
+                    split=step_split(eng, f"phase 18 {cell}"))
+                print(f"phase 18: moonlight whole: {cfg.n_layers} layers, "
+                      f"parameters {whole['param_bytes'] / 1e9:.2f} GB, "
+                      f"peak memory {whole['peak_bytes'] / 1e9:.2f} GB")
+            tie = whole["routing"]["tie"]
+            whole[f"{cell}_first_tokens"] = check_first_tokens(
+                eng, done, cfg, tie)
+            print(f"  {cell} jit: first tokens agree with the plain bf16 "
+                  f"forward {whole[f'{cell}_first_tokens']}/{N_REQ}")
+            return tie
+        return extra
+
+    print(f"phase 18: f32 check {time.perf_counter() - t0:.1f} s")
+    for cell, extra in MOONLIGHT_CELLS.items():
+        torch.cuda.reset_peak_memory_stats()
+        contiguous = cell == "moonlight_contiguous"
+        rows[cell], served[cell], counts[f"{cell}:jit"], \
+            counts[f"{cell}:eager"] = serve_eager_then_jit(
+                cell, cfg, extra, 18, prefill=contiguous,
+                after_jit=moonlight_extra(cell),
+                trace_steps=MOONLIGHT_TRACE_STEPS)
+        print(f"phase 18: {cell} done at {time.perf_counter() - t0:.1f} s")
+    want = {r.rid: r.generated for r in served["moonlight_contiguous"]}
+    bad = [r.rid for r in served["moonlight_paged_bf16"]
+           if r.generated != want.get(r.rid)]
+    if bad:
+        fail(f"phase 18: the paged jit engine served other tokens than the "
+             f"contiguous one in requests {bad}")
+    print(f"phase 18: moonlight paged jit tokens equal contiguous jit's in "
+          f"{len(want)}/{len(want)} requests, token for token")
+    whole["paged_equal_contiguous"] = len(want)
+    rows["moonlight_contiguous"]["whole"] = whole
+    kimi = get_config(KIMI).replace(n_layers=KIMI_LAYERS)
+    rows["kimi"] = moe_engine(kimi, "kimi", 181, counts)
+    jcfg = get_config(JAMBA)
+    jamba = jcfg.replace(n_layers=len(jcfg.block_pattern), moe=dataclasses.
+                         replace(jcfg.moe, n_experts=JAMBA_EXPERTS))
+    rows["jamba"] = moe_engine(jamba, "jamba", 182, counts)
+    secs = time.perf_counter() - t0
+    print(f"phase 18: {secs:.1f} s")
+    print("phase 18: " + json.dumps({"rows": rows, "seconds": secs}))
+    return rows, counts
+
+
 # ------------------------------------------------------------------ main
 # which main path (its jit run, phase 11; the multi-query entries: their
 # phase-16 speculative run) each kernel's ``launches`` is read from
@@ -3298,11 +3853,21 @@ MAIN_PATH = {"decode_attention": "contiguous",
 
 def main() -> None:
     t0 = time.perf_counter()
+
+    def mark(phases: str) -> None:
+        print(f"chip_smoke: phases {phases} done at "
+              f"{time.perf_counter() - t0:.1f} s")
     cfg, rcfg = get_config(ARCH), get_config(RWKV_ARCH)
     phase_build()
     rows = phase_kernels(cfg, rcfg)
+    mark("1-2")
     phase_dispatch_cost(cfg)
     phase_logits_f32(cfg)
+    mark("1-3")
+    # the newest phase right after the kernels' checks, so that a fault
+    # there ends the run early
+    _, moe_counts = phase_moe()
+    mark("1-3, 18")
     eager_counts, eager = {}, {}
     eager_counts["contiguous"], rep, eng, done = phase_serve(cfg, 4)
     eager["contiguous"] = (rep, done, phase_trace(eng, "phase 5",
@@ -3317,13 +3882,16 @@ def main() -> None:
                                     phase_trace(eng, "phase 7 trace"))
     del eng
     torch.cuda.empty_cache()
+    mark("1-7")
     phase_logits_rwkv(rcfg)
     eager_counts["rwkv"], rep, eng, done = phase_serve(rcfg, 9)
     check_rwkv_streams(rcfg)
     eager["rwkv"] = (rep, done, phase_trace(eng, "phase 10", prefill=True))
     del eng
     torch.cuda.empty_cache()
+    mark("1-10")
     jit_rows, jit_done, path_counts = phase_jit(cfg, rcfg, eager)
+    mark("1-11")
     _, plan_counts = phase_plans(cfg, rcfg, eager, jit_done)
     llama_rows, llama_counts, llama_done = phase_llama()
     _, other_counts = phase_others()
@@ -3331,7 +3899,7 @@ def main() -> None:
     _, spec_counts = phase_speculative(jit_rows, jit_done, llama_rows,
                                        llama_done)
     _, tier_counts = phase_serving_tier()
-    print(f"chip_smoke: phases 1-17 in {time.perf_counter() - t0:.1f} s")
+    print(f"chip_smoke: phases 1-18 in {time.perf_counter() - t0:.1f} s")
 
     entries = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -3352,6 +3920,7 @@ def main() -> None:
         by_path.update({p: c[name] for p, c in char_counts.items()})
         by_path.update({p: c[name] for p, c in spec_counts.items()})
         by_path.update({p: c[name] for p, c in tier_counts.items()})
+        by_path.update({p: c[name] for p, c in moe_counts.items()})
         entries.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "launches_by_path": by_path, **row})

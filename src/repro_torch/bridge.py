@@ -4,10 +4,13 @@ The reference keeps parameters as a nested dict whose block leaves are
 stacked on a leading superblock axis.  ``params_from_jax`` takes that tree
 as numpy arrays (``jax.tree.map(np.asarray, params)``, done by the caller:
 this module never imports JAX) and returns the port's layout: the same
-keys (a layer's q/k/v biases ``bq``/``bk``/``bv`` among them), with
+keys (a layer's q/k/v biases ``bq``/``bk``/``bv`` among them; a MoE
+layer's ``moe`` with its f32 ``router`` and (E, d, f) / (E, f, d) expert
+tensors; a Mamba mixer's f32 ``A_log``, ``D`` and ``dt_b``), with
 ``"blocks"`` unstacked into one dict per layer, in execution order
 (superblock-major, then pattern slot: Gemma-2's local slot 0, then its
-global slot 1, of each superblock).
+global slot 1, of each superblock; Jamba's eight slots in order).  Every
+leaf keeps its dtype.
 
 bf16 arrays arrive with the ``ml_dtypes`` bfloat16 dtype, which
 ``torch.from_numpy`` rejects; they are reinterpreted through a ``uint16``

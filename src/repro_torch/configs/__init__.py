@@ -8,7 +8,8 @@ from repro_torch.configs.base import (  # noqa: F401
     register, torch_dtype,
 )
 from repro_torch.configs import (  # noqa: F401
-    codeqwen15_7b, gemma2_27b, internlm2_20b, paper_workloads, rwkv6_3b,
+    codeqwen15_7b, gemma2_27b, internlm2_20b, jamba_15_large_398b,
+    kimi_k2_1t_a32b, moonshot_v1_16b_a3b, paper_workloads, rwkv6_3b,
     smollm_360m,
 )
 

@@ -8,8 +8,12 @@ device model to derive modeled kernel durations on each platform
   * ``mm`` / ``addmm`` / ``bmm`` / ``baddbmm``: 2 · output elements · K
     (``dot_general``'s rule);
   * transcendental ops: 4 · output elements;
-  * reductions: the input's elements;
-  * everything else: the output's elements;
+  * reductions (``sort`` and ``topk`` among them): the input's elements;
+  * ``searchsorted``: a binary search a query, output elements times
+    ceil(log2(n + 1)) over a sorted length n (the MoE dispatch's segment
+    starts);
+  * everything else (``scatter``, ``index_copy``, ``index_put``, the
+    gathers, ``where``): the output's elements;
   * bytes: every tensor input plus every tensor output.
 
 A node of one of the port's hand-written kernels (``repro_torch::*``)
@@ -67,4 +71,7 @@ def op_costs(name: str, args, kwargs, out) -> tuple[float, float]:
         return 4.0 * out_elems, bts
     if name in REDUCTIONS:
         return float(sum(_numel(t) for t in ins[:1])), bts
+    if name == "searchsorted":
+        n = ins[0].shape[-1]            # the sorted sequence's length
+        return float(out_elems * max(1, math.ceil(math.log2(n + 1)))), bts
     return float(out_elems), bts

@@ -7,11 +7,15 @@ once and is refilled from the queue.  Greedy tokens are chosen by argmax
 on the host, as the reference does.
 
 ``cache="contiguous"`` prefills a whole prompt (padded to a power-of-two
-bucket, min 8) into the slot's rows.  A recurrent stack (RWKV-6) and an
-encoder (BERT, XLM-R) are prefilled with exactly the prompt's tokens: a
-pad token would run through a recurrence and token shift and change the
-state decode starts from, and an encoder's non-causal prompt would attend
-to it.  The reference pads both and lets the pads in, and its tokens then
+bucket, min 8) into the slot's rows.  A recurrent stack (RWKV-6, the
+Jamba hybrid's Mamba layers) and an encoder (BERT, XLM-R) are prefilled
+with exactly the prompt's tokens: a pad token would run through a
+recurrence and token shift and change the state decode starts from, and
+an encoder's non-causal prompt would attend to it.  The prefill writes
+into a zeroed row, so a slot's recurrent state starts from zero.  A
+mixture-of-experts layer routes every row of a step together (free slots
+included, fed token 0 as in the reference): its capacity, and so which
+assignments it drops, follow the step's token count.  The reference pads both and lets the pads in, and its tokens then
 differ from an unpadded incremental forward (ROADMAP Queue C).  The paged
 cache refuses a recurrent stack, as the reference's does.
 

@@ -33,9 +33,12 @@ segment, ``fused`` with the norm windows on the hand-written kernels);
 ``--plan autotuned --plan-table plan_table.json`` serves the plan that
 ``repro_torch.launch.autotune`` measured best for ``--max-batch``.
 ``--arch`` takes every registered config (``repro_torch.configs``): the
-dense decoders, Gemma-2's local/global stack, RWKV-6 and the encoder-only
-BERT and XLM-R, which the engine serves greedily as the reference's does,
-their prompts attending each other without the causal mask.
+dense decoders, Gemma-2's local/global stack, RWKV-6, the MoE decoders
+Moonlight-16B-A3B (``moonshot-v1-16b-a3b``, 57.8 GB of bf16 weights) and
+Kimi K2, the Jamba hybrid (contiguous cache only, as RWKV-6) and the
+encoder-only BERT and XLM-R, which the engine serves greedily as the
+reference's does, their prompts attending each other without the causal
+mask.  At full depth Kimi K2 and Jamba hold more weights than one card.
 Weights are random, drawn on the device from a generator seeded 0; prompts
 are 12 tokens from numpy's generator seeded 0, as in the reference.  Runs
 on the GPU by default and raises without one; ``--device cpu`` runs the

@@ -365,7 +365,9 @@ def attention_fwd(params, h, q, cfg: ModelConfig, ctx: AttnContext,
 
     ``h``: the normed input (B,S,D); ``q``: its query projection
     ``h @ wq`` (B,S,HQ*hd) without bias, which the caller's fused
-    RMSNorm+matmul kernel produced together with ``h``.  ``cache``: this
+    RMSNorm+matmul kernel produced together with ``h``, or None (a later
+    slot of a superblock, whose norm fused the residual add instead): the
+    product is taken here.  ``cache``: this
     layer's {"k","v"} (B,T,HKV,hd) or its pages
     (``make_paged_self_cache``, with a paged ``ctx``), updated in place.
     ``window``: the layer's sliding window (0: none).

@@ -1,30 +1,39 @@
-"""Transformer stacks: parameters, KV cache and forward.
+"""Transformer stacks: parameters, cache and forward.
 
-Counterpart of ``repro/models/transformer.py`` for the block patterns
-``("attn",)`` (dense GQA decoders such as SmolLM-360M, Llama-3.2-1B,
-GPT-2, InternLM2 and CodeQwen1.5 with its qkv bias, and the encoder-only
-BERT and XLM-R, which attend without the causal mask),
-``("attn_local", "attn")`` (Gemma-2: sliding-window and global layers in
-turn, soft-capped scores) and ``("rwkv6",)`` (RWKV-6, ``layers/rwkv.py``).
-Layer i is of kind ``block_pattern[i % len(block_pattern)]``, and an
-``attn_local`` layer attends over the last ``sliding_window`` positions.
-The layer stack is a Python loop over per-layer parameter dicts
+Counterpart of ``repro/models/transformer.py`` for every stack of attention
+(``attn``; ``attn_local``: sliding window), Mamba and RWKV-6 layers, with
+a dense or a mixture-of-experts MLP: dense GQA decoders (SmolLM-360M,
+Llama-3.2-1B, GPT-2, InternLM2, CodeQwen1.5 with its qkv bias), the
+encoder-only BERT and XLM-R (no causal mask), Gemma-2 (``("attn_local",
+"attn")``, soft-capped scores), the MoE decoders Moonlight-16B-A3B and
+Kimi K2 (``layers/moe.py``), the Jamba hybrid (Mamba layers, ``layers/
+mamba.py``, around one attention slot, MoE in the odd slots) and RWKV-6
+(``("rwkv6",)``, ``layers/rwkv.py``).  Layer i is of kind
+``block_pattern[i % len(block_pattern)]`` and carries ``moe`` instead of
+``mlp`` when ``i % len(block_pattern)`` is in ``moe_slots``.  The layer
+stack is a Python loop over per-layer parameter dicts
 (``params["blocks"][i]``); ``bridge.params_from_jax`` unstacks the
 reference's superblock axis into that list, superblock-major, then slot.
 
 The forward computes the reference function, with its hot spots routed
 through the hand-written kernels exactly where the reference's fused launch
 plan substitutes its Pallas kernels (``repro/runtime/rules.py``).  Per
-forward at L layers, for both attention patterns:
+forward at L layers, A of them attention and M Mamba:
 
-  * ``rmsnorm_matmul(x, norm1, wq) -> (q, h)``, L times (``h @ wk`` and
-    ``h @ wv`` stay ``torch.matmul``; a q bias is added after the kernel);
+  * ``rmsnorm_matmul(x, norm1, wq) -> (q, h)`` on an attention layer
+    (``h @ wk`` and ``h @ wv`` stay ``torch.matmul``; a q bias is added
+    after the kernel), ``rmsnorm_matmul(x, norm1, in_proj) -> (xz, h)`` on
+    a Mamba layer: A + M times;
   * ``decode_attention`` (decode), ``paged_decode_attention`` (decode over
     the paged pool; ``_quant`` in int8) or ``flash_attention`` (prefill and
-    paged prefill chunks), L times, each with its layer's window and the
+    paged prefill chunks), A times, each with its layer's window and the
     config's softcap;
-  * ``residual_rmsnorm(x, norm2, residual=attn_out)``, L times;
-  * ``residual_rmsnorm(x, final_norm)``, once.
+  * ``residual_rmsnorm(x, norm2, residual=mixer_out)``, L times: before a
+    MoE the norm's output is reshaped to (T, D) first, so no product
+    follows it directly and the reference's plan fuses the residual add;
+  * ``rmsnorm_matmul(x, final_norm, lm_head) -> (logits, h)`` once on an
+    untied stack (the unembed's product), ``residual_rmsnorm(x,
+    final_norm)`` once on a tied one.
 
 An RWKV-6 stack has no norm->single-matmul window; its norm windows sit on
 the residual stream and go through the legacy two-output ``rmsnorm``, 2L+1
@@ -32,16 +41,18 @@ per forward: norm1 of layer 0 (no residual), norm2 with the time mix's
 output as residual, norm1 of layer i > 0 with the previous channel mix's
 output, and the final norm; plus ``wkv6`` L times.
 
-The large plain products (wk, wv, wo, the MLP, the unembed) stay
-``torch.matmul``, as the reference leaves them to XLA.
+The large plain products (wk, wv, wo, the MLP, the experts, Mamba's
+projections, a tied unembed) stay ``torch.matmul``/``bmm``, as the reference
+leaves them to XLA; so do the router, the dispatch and Mamba's conv and
+scan.
 
 Each operator runs inside a ``torch.profiler.record_function`` scope named
 as the reference's ``jax.named_scope`` (``layer{i}``, ``norm1``, ``attn``,
-``rwkv``, ``norm2``, ``mlp``, ``rwkv_channel``, ``resid``, ``embed``,
-``final_norm``, ``unembed``): a trace of the step (``core/tracing.py``)
-reads them as each kernel's operator path, and the profiler tags the
-device kernels with them.  The residual add the fused norm takes in
-(``norm2``) is counted with the norm.
+``mamba``, ``rwkv``, ``norm2``, ``mlp``, ``moe``, ``rwkv_channel``,
+``resid``, ``embed``, ``final_norm``, ``unembed``): a trace of the step
+(``core/tracing.py``) reads them as each kernel's operator path, and the
+profiler tags the device kernels with them.  The residual add the fused
+norm takes in (``norm2``) is counted with the norm.
 """
 from __future__ import annotations
 
@@ -54,34 +65,53 @@ from repro_torch import kernels
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.layers import attention as attn
+from repro_torch.layers import mamba
+from repro_torch.layers import moe
 from repro_torch.layers import rwkv
 from repro_torch.layers.common import (dense_init, embed_tokens, mlp_fwd,
-                                       mlp_init, unembed)
+                                       mlp_init, softcap, unembed)
 
 
-PATTERNS = (("attn",), ("attn_local", "attn"), ("rwkv6",))
+ATTENTION_KINDS = ("attn", "attn_local")
 RECURRENT_KINDS = ("rwkv6", "mamba")
+# the reference's jax.named_scope tag of each mixer kind (_MIXER_SCOPE)
+MIXER_SCOPE = {"attn": "attn", "attn_local": "attn", "mamba": "mamba",
+               "rwkv6": "rwkv"}
+
+
+def layer_kind(cfg: ModelConfig, i: int) -> str:
+    return cfg.block_pattern[i % len(cfg.block_pattern)]
+
+
+def layer_has_moe(cfg: ModelConfig, i: int) -> bool:
+    """Layer i's MLP is a mixture of experts (its pattern slot is in
+    ``moe_slots``), as the reference's ``_slot_init`` decides."""
+    return (cfg.moe is not None
+            and i % len(cfg.block_pattern) in cfg.moe_slots)
 
 
 def is_recurrent(cfg: ModelConfig) -> bool:
-    """True when the stack carries recurrent state (no positions, nothing
-    to page): every token it is given runs through the recurrence."""
+    """True when the stack carries recurrent state (RWKV-6, or Mamba layers
+    in a hybrid): every token it is given runs through the recurrence, so
+    a prefill takes exactly the prompt, nothing pages and no verify rolls
+    back."""
     return any(kind in RECURRENT_KINDS for kind in cfg.block_pattern)
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for model features this slice of the port does not run:
-    mixture-of-experts, an encoder-decoder stack, a frontend, and block
-    patterns other than ``PATTERNS`` (cross-attention, Mamba, mixed
-    stacks)."""
-    if tuple(cfg.block_pattern) not in PATTERNS:
-        raise NotImplementedError(
-            f"{cfg.name}: block pattern {cfg.block_pattern} not ported yet, "
-            "see ROADMAP Queue A, \"model features\"")
+    cross-attention layers, an encoder-decoder stack and a frontend (and
+    RWKV-6 layers mixed with other kinds, which no config has)."""
+    kinds = set(cfg.block_pattern)
     unported = [name for name, on in (
-        ("moe", cfg.moe is not None),
+        ("xattn", "xattn" in kinds),
         ("n_encoder_layers", cfg.n_encoder_layers > 0),
-        ("frontend", cfg.frontend != "none")) if on]
+        ("frontend", cfg.frontend != "none"),
+        ("rwkv6 beside other kinds", "rwkv6" in kinds and len(kinds) > 1),
+    ) if on]
+    unknown = kinds - set(MIXER_SCOPE) - {"xattn"}
+    if unknown:
+        raise ValueError(f"{cfg.name}: unknown block kinds {sorted(unknown)}")
     if unported:
         raise NotImplementedError(
             f"{cfg.name}: {unported} not ported yet, see ROADMAP Queue A, "
@@ -109,16 +139,24 @@ def check_speculative(cfg: ModelConfig) -> None:
             "speculative tokens part from its greedy ones: ROADMAP Queue C)")
 
 
-def _layer_init(gen, cfg: ModelConfig, device) -> dict:
+def _layer_init(gen, cfg: ModelConfig, i: int, device) -> dict:
     ones = torch.ones(cfg.d_model, dtype=cfg.pdtype, device=device)
-    if is_recurrent(cfg):
+    kind = layer_kind(cfg, i)
+    if kind == "rwkv6":
         mixer = rwkv.rwkv_time_init(gen, cfg, device)
-        mlp = rwkv.rwkv_channel_init(gen, cfg, device)
+    elif kind == "mamba":
+        mixer = mamba.mamba_init(gen, cfg, device)
     else:
         mixer = attn.attention_init(gen, cfg, device)
-        mlp = mlp_init(gen, cfg, device)
-    return {"norm1": {"scale": ones.clone()}, "mixer": mixer,
-            "norm2": {"scale": ones.clone()}, "mlp": mlp}
+    p = {"norm1": {"scale": ones.clone()}, "mixer": mixer,
+         "norm2": {"scale": ones.clone()}}
+    if kind == "rwkv6":
+        p["mlp"] = rwkv.rwkv_channel_init(gen, cfg, device)
+    elif layer_has_moe(cfg, i):
+        p["moe"] = moe.moe_init(gen, cfg, device)
+    else:
+        p["mlp"] = mlp_init(gen, cfg, device)
+    return p
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, *,
@@ -130,8 +168,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     p = {
         "embed": dense_init(generator, (cfg.vocab_size, cfg.d_model),
                             cfg.pdtype, dev),
-        "blocks": [_layer_init(generator, cfg, dev)
-                   for _ in range(cfg.n_layers)],
+        "blocks": [_layer_init(generator, cfg, i, dev)
+                   for i in range(cfg.n_layers)],
         "final_norm": {"scale": torch.ones(cfg.d_model, dtype=cfg.pdtype,
                                            device=dev)},
     }
@@ -143,16 +181,18 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=None,
                device="cuda") -> list:
-    """Per-layer contiguous cache: [{"k","v"}: (B, T, HKV, hd)] * L, or for
-    RWKV-6 [{"shift","shift_c"}: (B, D), "s": (B, H, hd, hd) f32] * L."""
+    """Per-layer contiguous cache, one dict a layer: an attention layer's
+    {"k","v"}: (B, T, HKV, hd); a Mamba layer's {"conv": (B, d_conv-1,
+    d_inner), "h": (B, d_inner, d_state) f32}; an RWKV-6 layer's
+    {"shift","shift_c"}: (B, D), "s": (B, H, hd, hd) f32."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = dtype or cfg.cdtype
-    if is_recurrent(cfg):
-        return [rwkv.make_state(cfg, batch, dtype, dev)
-                for _ in range(cfg.n_layers)]
-    return [attn.make_self_cache(cfg, batch, max_len, dtype, dev)
-            for _ in range(cfg.n_layers)]
+    makers = {"rwkv6": lambda: rwkv.make_state(cfg, batch, dtype, dev),
+              "mamba": lambda: mamba.make_state(cfg, batch, dtype, dev)}
+    return [makers.get(layer_kind(cfg, i), lambda: attn.make_self_cache(
+                cfg, batch, max_len, dtype, dev))()
+            for i in range(cfg.n_layers)]
 
 
 def make_paged_cache(cfg: ModelConfig, num_pages: int, block_size: int,
@@ -164,8 +204,9 @@ def make_paged_cache(cfg: ModelConfig, num_pages: int, block_size: int,
     pages (P, bs, HKV, hd).  ``kv_dtype="int8"`` adds per-(token, head) f32
     ``"k_scale"``/``"v_scale"`` (P, bs, HKV) beside int8 pages; ``forward``
     dispatches on them.  ``check_supported`` rejects every stack the port
-    does not run; a recurrent stack raises ``ValueError``, as the
-    reference's does: its state is O(1) per slot and has nothing to page."""
+    does not run; a stack with recurrent layers raises ``ValueError``, as
+    the reference's does: its state is O(1) per slot and has nothing to
+    page."""
     check_supported(cfg)
     if is_recurrent(cfg):
         raise ValueError(
@@ -181,8 +222,44 @@ def make_paged_cache(cfg: ModelConfig, num_pages: int, block_size: int,
 def layer_window(cfg: ModelConfig, i: int) -> int:
     """Layer i's sliding window: ``sliding_window`` on an ``attn_local``
     layer, else 0 (global)."""
-    kind = cfg.block_pattern[i % len(cfg.block_pattern)]
-    return cfg.sliding_window if kind == "attn_local" else 0
+    return cfg.sliding_window if layer_kind(cfg, i) == "attn_local" else 0
+
+
+def norm_launches(cfg: ModelConfig) -> dict:
+    """The fused norm kernels one forward of a non-RWKV stack launches:
+    ``rmsnorm_matmul`` once a superblock (its first slot's norm1 with the
+    mixer's input product), ``residual_rmsnorm`` at every norm2 and at the
+    norm1 of every later slot (the previous layer's output added in); the
+    final norm is a ``rmsnorm_matmul`` with an untied head, else a
+    ``residual_rmsnorm``."""
+    n_sb, tied = cfg.n_superblocks, int(cfg.tie_embeddings)
+    return {"rmsnorm_matmul": n_sb + 1 - tied,
+            "residual_rmsnorm": 2 * cfg.n_layers - n_sb + tied}
+
+
+def _attention_context(cfg, cache, b, s, dev, cache_index, lengths,
+                       block_tables, positions):
+    """The attention layers' shared context (positions, rope tables, the
+    write and read indices), or None for a stack without attention."""
+    first = next((i for i in range(cfg.n_layers)
+                  if layer_kind(cfg, i) in ATTENTION_KINDS), None)
+    paged = cache is not None and first is not None \
+        and "k_pages" in cache[first]
+    if paged != (block_tables is not None):
+        raise ValueError("a paged cache needs block_tables=, and "
+                         "block_tables= needs a paged cache")
+    if first is None:
+        return None
+    if paged:
+        n_pages, bs = cache[first]["k_pages"].shape[:2]
+        return attn.paged_attention_context(
+            cfg, b, s, dev, block_tables=block_tables, n_pages=n_pages,
+            block_size=bs, cache_index=cache_index, lengths=lengths,
+            positions=positions)
+    max_len = cache[first]["k"].shape[1] if cache is not None else None
+    return attn.attention_context(cfg, b, s, dev, cache_index=cache_index,
+                                  lengths=lengths, positions=positions,
+                                  max_len=max_len)
 
 
 def forward(params, tokens, cfg: ModelConfig, *, cache: Optional[list] = None,
@@ -207,6 +284,10 @@ def forward(params, tokens, cfg: ModelConfig, *, cache: Optional[list] = None,
     write).
     ``block_tables``: (B,NB) page ids of a paged cache, a device tensor or
     host values; writes past the table or to the sentinel page drop.
+    A Mamba or RWKV-6 layer runs every row's tokens through its state
+    (free slots step too, as in the reference); positions select nothing
+    there.  A MoE layer routes the B*S tokens of the call together: its
+    capacity, and so its drops, depend on all of them.
     With ``tokens``, ``lengths`` and ``block_tables`` on the device the
     forward derives every index there and issues the same kernels for any
     values (``inference.backends.local`` captures it as a CUDA graph).
@@ -220,51 +301,68 @@ def forward(params, tokens, cfg: ModelConfig, *, cache: Optional[list] = None,
         raise ValueError("lengths= (decode) needs a cache")
     if lengths is not None and s > 1:
         check_speculative(cfg)
-    if is_recurrent(cfg):
-        if block_tables is not None:
-            raise ValueError(f"{cfg.name}: a recurrent stack has no paged "
-                             "cache (block_tables=)")
+    if is_recurrent(cfg) and block_tables is not None:
+        raise ValueError(f"{cfg.name}: a recurrent stack has no paged "
+                         "cache (block_tables=)")
+    if tuple(cfg.block_pattern) == ("rwkv6",):
         return _forward_rwkv(params, tokens, cfg, cache), cache
-    paged = cache is not None and "k_pages" in cache[0]
-    if paged != (block_tables is not None):
-        raise ValueError("a paged cache needs block_tables=, and "
-                         "block_tables= needs a paged cache")
-    if paged:
-        n_pages, bs = cache[0]["k_pages"].shape[:2]
-        ctx = attn.paged_attention_context(
-            cfg, b, s, dev, block_tables=block_tables, n_pages=n_pages,
-            block_size=bs, cache_index=cache_index, lengths=lengths,
-            positions=positions)
-    else:
-        max_len = cache[0]["k"].shape[1] if cache is not None else None
-        ctx = attn.attention_context(cfg, b, s, dev, cache_index=cache_index,
-                                     lengths=lengths, positions=positions,
-                                     max_len=max_len)
+    ctx = _attention_context(cfg, cache, b, s, dev, cache_index, lengths,
+                             block_tables, positions)
     eps = cfg.norm_eps
+    period = len(cfg.block_pattern)
     with scope("embed"):
         x = embed_tokens(embed, tokens, cfg).to(cfg.cdtype)
+    pending = None      # the previous layer's MLP output, not yet added
     for i, bp in enumerate(params["blocks"]):
+        kind = layer_kind(cfg, i)
+        mixer = bp["mixer"]
+        w_in = mixer["in_proj"] if kind == "mamba" else mixer["wq"]
         with scope(f"layer{i}"):
+            # a superblock's first norm1 fuses with the mixer's input
+            # product; a later slot's fuses the residual add before it
             with scope("norm1"):
-                q, h = kernels.rmsnorm_matmul(x, bp["norm1"]["scale"],
-                                              bp["mixer"]["wq"], eps=eps)
-            with scope("attn"):
-                o = attn.attention_fwd(
-                    bp["mixer"], h, q, cfg, ctx,
-                    cache=None if cache is None else cache[i],
-                    window=layer_window(cfg, i))
+                if pending is None:
+                    y, h = kernels.rmsnorm_matmul(x, bp["norm1"]["scale"],
+                                                  w_in, eps=eps)
+                else:
+                    h, x = kernels.residual_rmsnorm(
+                        x, bp["norm1"]["scale"], residual=pending, eps=eps)
+                    y = None
+            state = None if cache is None else cache[i]
+            with scope(MIXER_SCOPE[kind]):
+                if kind == "mamba":
+                    o, _ = mamba.mamba_fwd(mixer, h, cfg, state=state, xz=y)
+                else:
+                    o = attn.attention_fwd(mixer, h, y, cfg, ctx,
+                                           cache=state,
+                                           window=layer_window(cfg, i))
             with scope("norm2"):
                 h, x = kernels.residual_rmsnorm(x, bp["norm2"]["scale"],
                                                 residual=o, eps=eps)
-            with scope("mlp"):
-                m = mlp_fwd(bp["mlp"], h, cfg)
-            with scope("resid"):
-                x = x + m
+            if "moe" in bp:
+                with scope("moe"):
+                    m, _ = moe.moe_fwd(bp["moe"], h, cfg, with_aux=False)
+            else:
+                with scope("mlp"):
+                    m = mlp_fwd(bp["mlp"], h, cfg)
+            if i % period == period - 1:
+                with scope("resid"):
+                    x = x + m
+                pending = None
+            else:
+                pending = m
+    if not cfg.tie_embeddings:
+        # an untied head fuses with the final norm (d x V), as in the
+        # reference's plan; a tied one is read transposed, so no window
+        with scope("final_norm"), scope("unembed"):
+            logits, _ = kernels.rmsnorm_matmul(
+                x, params["final_norm"]["scale"], params["lm_head"], eps=eps)
+        return softcap(logits.float(), cfg.final_softcap), cache
     with scope("final_norm"):
         x, _ = kernels.residual_rmsnorm(x, params["final_norm"]["scale"],
                                         eps=eps)
     with scope("unembed"):
-        return unembed(x, embed, params.get("lm_head"), cfg), cache
+        return unembed(x, embed, None, cfg), cache
 
 
 def _forward_rwkv(params, tokens, cfg: ModelConfig, cache):

@@ -74,7 +74,9 @@ def test_the_paper_workloads_are_registered():
     from repro.configs import PAPER_WORKLOADS as JX_PAPER
     from repro_torch.configs import list_configs
     assert PAPER_WORKLOADS == JX_PAPER
-    assert set(NEW) | {"smollm-360m", "rwkv6-3b"} == set(list_configs())
+    assert set(NEW) | {"smollm-360m", "rwkv6-3b", "moonshot-v1-16b-a3b",
+                       "kimi-k2-1t-a32b", "jamba-1.5-large-398b"} \
+        == set(list_configs())
 
 
 @pytest.mark.parametrize("name", NEW)
@@ -183,8 +185,10 @@ def test_each_layer_passes_its_window_softcap_and_mask(name, monkeypatch):
     assert decode == [dict(window=w, softcap=cfg.attn_softcap)
                       for w in windows]
     names = [nm for nm, _ in calls]
-    assert names.count("rmsnorm_matmul") == 2 * n
-    assert names.count("residual_rmsnorm") == 2 * (n + 1)
+    n_sb = cfg.n_superblocks        # Gemma-2's global slot fuses its add
+    tied = int(cfg.tie_embeddings)  # an untied head fuses the final norm
+    assert names.count("rmsnorm_matmul") == 2 * (n_sb + 1 - tied)
+    assert names.count("residual_rmsnorm") == 2 * (2 * n - n_sb + tied)
 
 
 def _mha_decode(q, k, v, lens, scale, window, cap):

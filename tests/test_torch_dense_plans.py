@@ -2,9 +2,11 @@
 decoders, on reduced configs in f32 on the CPU.
 
 Under ``plan="fused"`` each decoder's every traced call (a slot's prefill,
-a decode step) finds the reference's norm windows: L ``rmsnorm_matmul``
-(a q bias is added after the window, which ends at the product), L
-``residual_rmsnorm`` and the final norm; and its tokens equal the
+a decode step) finds the reference's norm windows: a ``rmsnorm_matmul``
+a superblock (a q bias is added after the window, which ends at the
+product), a ``residual_rmsnorm`` at every other norm of a layer, the
+final norm bare (a tied head) or with the unembed's product (an untied
+one); and its tokens equal the
 ``plan="jit"`` engine's.  The encoders serve the same way.
 """
 import numpy as np
@@ -48,12 +50,18 @@ def test_fused_plan_hits_every_norm_window(name):
     eng = ServeEngine(cfg, params, plan="fused", **kw)
     done = eng.run(_requests(cfg.vocab_size))
     assert [r.generated for r in done] == [r.generated for r in jit]
-    L = cfg.n_layers
+    L, n_sb = cfg.n_layers, cfg.n_superblocks
     fns = list(eng.backend._planned_fns.values())
     # a prefill per bucket (8, 16; an encoder's per prompt length: its
     # prefill is not padded), the decode
     assert len(fns) == (4 if cfg.family == "encoder" else 3)
     for pf in fns:
         hits = {n: pf.rule_names.count(n) for n in set(pf.rule_names)}
-        assert hits == {"rmsnorm_matmul": L, "residual_rmsnorm": L,
-                        "rmsnorm": 1}, hits
+        # the reference's windows: a superblock's first norm1 with its
+        # product, the later slots' norm1 with the residual add before them
+        # (Gemma-2's global slot), every norm2 with its residual add; the
+        # final norm with an untied head's product, a tied one's bare
+        untied = not cfg.tie_embeddings
+        want = {"rmsnorm_matmul": n_sb + untied,
+                "residual_rmsnorm": 2 * L - n_sb, "rmsnorm": 1 - untied}
+        assert hits == {k: v for k, v in want.items() if v}, hits

@@ -152,13 +152,13 @@ def test_forward_calls_the_kernels_where_the_fused_plan_does(setup,
                      "wkv6": 0, **MQ_ZERO}
 
 
-def test_unported_features_raise():
+def test_unported_features_raise(setup):
+    from repro.configs import MoEConfig as JxMoEConfig
     from repro_torch.configs import MoEConfig
+    jcfg = setup[0]
     cfg = reduced(get_config("smollm-360m"))
     gen = torch.Generator().manual_seed(0)
-    moe = cfg.replace(moe=MoEConfig(n_experts=4, top_k=2, d_expert=64),
-                      moe_slots=(0,))
-    for bad in (moe, cfg.replace(n_encoder_layers=2),
+    for bad in (cfg.replace(n_encoder_layers=2),
                 cfg.replace(frontend="vision", n_frontend_tokens=8),
                 cfg.replace(block_pattern=("attn", "xattn"))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -170,10 +170,20 @@ def test_unported_features_raise():
                         cache=make_cache(cfg, 1, 8, device="cpu"),
                         lengths=np.array([1]))
     assert logits.shape == (1, 2, cfg.vocab_size)
-    # the reference's MoE layers are not ported; the port's forward refuses
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        forward(params, torch.zeros((1, 2), dtype=torch.int32), moe)
     assert params["embed"].shape == (cfg.vocab_size, cfg.d_model)
+    # the MoE layer is ported: the same MoE stack's logits are the
+    # reference's
+    moe = cfg.replace(moe=MoEConfig(n_experts=4, top_k=2, d_expert=64),
+                      moe_slots=(0,))
+    jmoe = jcfg.replace(moe=JxMoEConfig(n_experts=4, top_k=2, d_expert=64),
+                        moe_slots=(0,))
+    jparams = jx_init_params(jax.random.PRNGKey(3), jmoe)
+    mparams = bridge.params_from_jax(jax.tree.map(np.asarray, jparams), moe,
+                                     device="cpu")
+    toks = _tokens(9, (2, 6), cfg.vocab_size)
+    jl = jx_forward(jparams, jnp.asarray(toks), jmoe)[0]
+    tl, _ = forward(mparams, torch.from_numpy(toks), moe)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
 
 
 def test_unported_messages_name_their_roadmap_item():

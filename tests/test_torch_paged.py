@@ -286,14 +286,18 @@ def test_block_bytes_and_page_ops(setup, kv_dtype):
 
 
 def test_make_paged_cache_rejects_non_attention(setup):
-    """A recurrent stack the port runs (RWKV-6) raises the reference's
-    ValueError; one it does not run yet raises NotImplementedError."""
+    """A stack with recurrent layers (RWKV-6, Mamba) raises the
+    reference's ValueError; one the port does not run yet (cross
+    attention) raises NotImplementedError."""
     _, cfg, _, _ = setup
     with pytest.raises(ValueError, match="pure-attention"):
         make_paged_cache(cfg.replace(block_pattern=("rwkv6",)), 8, 4,
                          device="cpu")
+    with pytest.raises(ValueError, match="pure-attention"):
+        make_paged_cache(cfg.replace(block_pattern=("mamba", "attn")), 8, 4,
+                         device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
-        make_paged_cache(cfg.replace(block_pattern=("mamba",)), 8, 4,
+        make_paged_cache(cfg.replace(block_pattern=("attn", "xattn")), 8, 4,
                          device="cpu")
 
 

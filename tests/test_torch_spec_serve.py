@@ -60,7 +60,7 @@ def setup():
     jdparams["lm_head"] = jnp.roll(jparams["embed"], 1, axis=0).T
     dcfg = default_draft_config(cfg).replace(tie_embeddings=False)
     dparams = dict(draft_params_from_target(params, dcfg))
-    dparams["lm_head"] = torch.roll(params["embed"], 1, 0).T
+    dparams["lm_head"] = torch.roll(params["embed"], 1, 0).T.contiguous()
     return (jcfg, jparams, jdcfg, jdparams), (cfg, params, dcfg, dparams)
 
 
