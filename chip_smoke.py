@@ -185,11 +185,12 @@ Phases (any failure exits non-zero before a result is printed):
      weights; each model freed before the next is built): Moonlight-16B-
      A3B's f32 logits at 2 layers, kernels against plain versions (a
      prefill and 3 decode steps); Moonlight whole (48 layers, 57.8 GB)
-     through ``serve --arch moonshot-v1-16b-a3b`` under eager and jit,
-     contiguous and ``--cache paged --block-size 16``, checked and traced
-     as phase 13's cells (launches 49 / 48 / 48 a decode step under jit:
-     the untied head's final norm is a ``rmsnorm_matmul`` with the
-     unembed).  The bf16 routing through the kernels is held against the
+     through ``serve --arch moonshot-v1-16b-a3b`` under jit, contiguous
+     and ``--cache paged --block-size 16`` (launches 49 / 48 / 48 a decode
+     step: the untied head's final norm is a ``rmsnorm_matmul`` with the
+     unembed), and its eager cells at 8 of its 48 layers (tracing whole
+     Moonlight's eager bodies took minutes), each checked and traced as
+     phase 13's cells against jit on the same weights.  The bf16 routing through the kernels is held against the
      plain versions on the served prompts (every MoE layer's set of
      experts): the largest router-logit difference of the token-layers
      that route alike must stay within 2^-4 of the logits' rms, the
@@ -207,7 +208,27 @@ Phases (any failure exits non-zero before a result is printed):
      mamba / attention / ...); then Kimi K2 at full width and 1 layer (hd
      112, group 8) and Jamba at full width as one 8-layer superblock with
      4 of its 16 experts, each under jit over the serve CLI's requests
-     with the same routing, first-token and split checks.
+     with the same routing, first-token and split checks;
+ 19. the cross-attention stacks (random bf16 weights, every ``xgate`` set
+     to 0.5: the init's 0 zeroes every vision cross layer): for
+     Llama-3.2-Vision-11B (f32 at one 5-layer superblock of full width;
+     bf16 whole, 40 layers) and SeamlessM4T-medium (whole, 12 encoder and
+     12 decoder layers, in both): f32 logits of a prefill with the cross
+     inputs (1601 patch embeddings, or 4096 frame embeddings through the
+     encoder) and decode steps through the cross caches, kernels against
+     plain versions, the last step against a full forward over the whole
+     sequence; the bf16 model whole under jit over the serve CLI's
+     requests (a one-row zero cross cache, as the reference serves it):
+     launches, graph replays against the same bodies run directly (every
+     token equal), first tokens against the plain versions; the image or
+     frame path at batch 4 (a 12-token prompt, 16 greedy decode steps
+     through the cross caches, held against a full forward and against the
+     plain versions' greedy tokens); a decode step's device time by
+     operator with the served one-row cross cache and with the 1601- or
+     4096-row one; the encoder's time over 4096 frames; parameter bytes and
+     peak memory; eager and fused cells at one superblock (Vision) and 2
+     decoder layers (Seamless), and one ``speculative=True`` cell under
+     jit (tokens equal plain jit's but at printed near ties).
 
 Phases 4, 6, 7 and 9 serve with ``--plan eager`` (``plan="eager"``): one
 dispatch a node of the traced step, whose norms are their plain versions,
@@ -236,8 +257,18 @@ The ``kernels`` line's ``launches`` are the main paths' jit runs (phase
 11); the multi-query entries', phase 16's speculative runs; phase 17's
 and 18's runs are in each entry's ``launches_by_path``.
 
-Order: 1-3, then 18 (the newest phase, so that a fault there ends the run
-early), then 4-17.  Phase 2 times the kernels in
+Phase 2 holds the kernels at phase 19's shapes too (``xattn_cases``):
+``flash_attention`` non-causal at a prefill over Llama-3.2-Vision's 1601
+patches (``[vision_x]``: B 4, 32/8 heads of 128, S 16), at Seamless's
+encoder (``[seamless_enc]``: B 1, 16 heads of 64, S = T = 4096) and at the
+served cross prefill (``[x_t1]``: B 1, S 16 over T 1, S > T), beside SDPA;
+``decode_attention`` over a whole cross cache (``[vision_x1601]``,
+``[seamless_x4096]``, B 4) beside SDPA; ``rmsnorm_matmul`` at the two
+untied heads (``[unembed_vision]`` 4096 x 128256, ``[unembed_seamless]``
+1024 x 256206).
+
+Order: 1-3, then 18 and 19 (the newest phases, so that a fault there ends
+the run early), then 4-17.  Phase 2 times the kernels in
 bf16 (f32 only for the f32-only ``wkv6``; the f32 cases check the error),
 each time the median of 20 calls; a trace (phases 5-18) times and profiles
 3 decode steps (Moonlight's eager step: 1).
@@ -363,10 +394,10 @@ from repro_torch.telemetry.attribution import (           # noqa: E402
 from repro_torch.telemetry.characterize import (           # noqa: E402
     _decode_trace, _requests, characterize, memory_pressure_sweep)
 from repro_torch.workload import load_workload, sample_requests  # noqa: E402
-from repro_torch.models import (forward, init_params,      # noqa: E402
-                                is_recurrent, layer_kind,
-                                make_cache, make_paged_cache,
-                                norm_launches)
+from repro_torch.models import (attention_launches,       # noqa: E402
+                                encode, forward, has_cross,
+                                init_params, is_recurrent, make_cache,
+                                make_paged_cache, norm_launches)
 
 DEV = torch.device("cuda", 0)
 PLAINS = {"decode_attention": decode_attention_ref,
@@ -1079,7 +1110,7 @@ def phase_kernels(cfg, rcfg) -> dict:
         cases = {**main_path_cases(cfg, dtype), **flash_cases(cfg, dtype),
                  **decode_long_cases(cfg, dtype), **rwkv_cases(rcfg, dtype),
                  **dense_cases(dtype), **mq_cases(cfg, dtype),
-                 **moe_cases(dtype)}
+                 **moe_cases(dtype), **xattn_cases(dtype)}
         for name, c in cases.items():
             out, ref = c["call"](), c["plain"]()
             err = max_err(out, ref)
@@ -1293,7 +1324,7 @@ def want_launches(cfg, attention: str = "", plan: str = "jit") -> tuple:
         per = {**zero, "wkv6": L, **({name: 2 * L + 1} if norms else {})}
         return per, dict(per)
     fused = norm_launches(cfg) if norms else {}
-    n_attn = sum(layer_kind(cfg, i) != "mamba" for i in range(L))
+    n_attn = attention_launches(cfg)
     return ({**zero, **fused, attention: n_attn},
             {**zero, **fused, "flash_attention": n_attn})
 
@@ -1324,8 +1355,9 @@ def check_first_tokens(eng, done, cfg, route_tie=None) -> int:
     plain = []
     with plain_kernels():
         for g in groups:
-            logits, _ = forward(eng.params, torch.from_numpy(
-                np.stack([rows[i] for i in g])), cfg)
+            toks = torch.from_numpy(np.stack([rows[i] for i in g]))
+            logits, _ = forward(eng.params, toks, cfg, cache=served_cache(
+                cfg, *toks.shape))
             plain.append(logits[torch.arange(len(g), device=DEV), last[g]])
     plain = torch.cat(plain)
     top2 = plain.topk(2, dim=-1).values
@@ -1580,11 +1612,21 @@ def plain_int8_logits(params, cfg, toks) -> torch.Tensor:
     return logits[0, -1]
 
 
+def served_cache(cfg, b: int, n: int):
+    """The cache a plain forward of ``b`` x ``n`` served tokens needs: none,
+    or for a cross stack one holding the served one-row zero cross cache
+    (the engine's ``src_len=1``)."""
+    return make_cache(cfg, b, n, src_len=1, device=DEV) if has_cross(cfg) \
+        else None
+
+
 def plain_logits(params, cfg, toks) -> torch.Tensor:
     """Next-token logits after ``toks`` through the plain versions, the
-    whole sequence in one forward (bf16, no cache)."""
+    whole sequence in one forward (bf16; no cache, or a cross stack's
+    served one)."""
     with plain_kernels():
-        logits, _ = forward(params, torch.tensor([toks]), cfg)
+        logits, _ = forward(params, torch.tensor([toks]), cfg,
+                            cache=served_cache(cfg, 1, len(toks)))
     return logits[0, -1]
 
 
@@ -2444,11 +2486,12 @@ def serve_eager_then_jit(cell, cfg, extra, phase, prefill, params=None,
             runs["jit"][3], runs["eager"][3])
 
 
-def serve_engine(cfg, params, plan: str, phase: int) -> tuple:
-    """``ServeEngine`` on ``params`` under ``plan`` over the serve CLI's
-    requests (warmup + measured run), counted as ``serve_cell`` does."""
+def serve_engine(cfg, params, plan: str, phase: int, **cache_kw) -> tuple:
+    """``ServeEngine`` on ``params`` under ``plan`` (and the cache options
+    ``cache_kw``) over the serve CLI's requests (warmup + measured run),
+    counted as ``serve_cell`` does."""
     eng = ServeEngine(cfg, params, max_batch=MAX_BATCH, max_len=MAX_LEN,
-                      plan=plan, device=DEV)
+                      plan=plan, device=DEV, **cache_kw)
     eng.run(serve.make_requests(N_REQ, cfg.vocab_size, 16))
     eng.reset()
     reqs = serve.make_requests(N_REQ, cfg.vocab_size, 16)
@@ -3516,6 +3559,15 @@ MOONLIGHT = "moonshot-v1-16b-a3b"
 KIMI = "kimi-k2-1t-a32b"
 JAMBA = "jamba-1.5-large-398b"
 MOONLIGHT_CELLS = {"moonlight_contiguous": [], "moonlight_paged_bf16": PAGED}
+# the same cells' engine options (the eager cells build their engines)
+MOONLIGHT_CACHE = {"moonlight_contiguous": {},
+                   "moonlight_paged_bf16": dict(cache="paged",
+                                                block_size=BLOCK)}
+# depth of the eager cells (and of the jit runs their tokens are held
+# against), on whole Moonlight's first layers: at all 48, make_fx traces
+# 12.7 k nodes a cell and the two cells took 255 s of a 1062 s script on
+# an H100's host (PERF.md section 4); jit serves it whole
+MOONLIGHT_EAGER_LAYERS = 8
 # the cuts the card forces (80 GB): Kimi K2 at full width and 1 of its 61
 # layers (19.4 B parameters, 38.8 GB bf16; two layers need 73 GB); Jamba at
 # full width as one 8-layer superblock with 4 of its 16 experts (16.2 B,
@@ -3528,7 +3580,7 @@ MOONLIGHT_TRACE_STEPS = 1  # decode steps a trace (eager: ~150 ms, 5.2 k kernels
 SPLIT_SCOPES = {"attn": "attention", "moe": "moe", "mamba": "mamba",
                 "mlp": "mlp", "norm1": "norm", "norm2": "norm",
                 "final_norm": "norm", "resid": "other", "embed": "other",
-                "unembed": "unembed"}
+                "unembed": "unembed", "xattn": "xattn", "norm_x": "norm"}
 # the largest router-logit difference the kernels' arithmetic may make,
 # as a share of the router logits' rms: 16 bf16 ulps (2^-8 each).  The
 # bf16 kernels and plain versions round at other points in every layer
@@ -3549,9 +3601,10 @@ def tree_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
-def step_split(eng, label: str, tries: int = 3):
+def step_split(eng, label: str, tries: int = 3, cache=None):
     """One decode step of ``eng``'s model (its weights and contiguous
-    cache, every row at length 20) run directly, so that its operator
+    cache, or ``cache`` of its batch, every row at length 20) run
+    directly, so that its operator
     scopes reach the profiler: each device kernel, joined to the call that
     launched it (``profiled_kernels``), is filed under the innermost
     ``SPLIT_SCOPES`` scope around that call.  Returns {kind: device ms} and
@@ -3560,8 +3613,10 @@ def step_split(eng, label: str, tries: int = 3):
     toks = torch.zeros((eng.B, 1), dtype=torch.int32, device=DEV)
     lens = torch.full((eng.B,), 20, dtype=torch.int32, device=DEV)
 
+    cache = eng.cache if cache is None else cache
+
     def run():
-        forward(eng.params, toks, cfg, cache=eng.cache, lengths=lens)
+        forward(eng.params, toks, cfg, cache=cache, lengths=lens)
         torch.cuda.synchronize()
 
     run()
@@ -3767,13 +3822,14 @@ def phase_moe() -> tuple:
     """Phase 18: the mixture-of-experts and Mamba stacks at full width.
     Moonlight-16B-A3B's f32 logits at 2 layers, kernels against plain
     versions; Moonlight whole (48 layers, bf16) through
-    ``repro_torch.launch.serve`` under eager and jit, contiguous and paged,
-    checked as phase 13's cells, plus: the routing (which sets the tie the
-    token checks allow), the served first tokens against the plain
-    versions, the contiguous graph replays against the same bodies run
-    directly, the paged jit tokens against the contiguous ones and the
-    step split; then Kimi K2 (1 layer) and Jamba (one 8-layer superblock,
-    4 experts) under jit.  Returns ({cell: row}, {cell:plan: launch
+    ``repro_torch.launch.serve`` under jit, contiguous and paged: launches,
+    one dispatch a step, the routing (which sets the tie the token checks
+    allow), the served first tokens against the plain versions, the
+    contiguous graph replays against the same bodies run directly, the
+    paged jit tokens against the contiguous ones and the step split; the
+    eager cells at MOONLIGHT_EAGER_LAYERS, each held against jit on its
+    weights as phase 13's cells; then Kimi K2 (1 layer) and Jamba (one
+    8-layer superblock, 4 experts) under jit.  Returns ({cell: row}, {cell:plan: launch
     counts})."""
     t0 = time.perf_counter()
     assert not torch.backends.cuda.matmul.allow_tf32   # the f32 router
@@ -3803,16 +3859,61 @@ def phase_moe() -> tuple:
             return tie
         return extra
 
+    def eager_cells(params, tie):
+        """The eager cells at MOONLIGHT_EAGER_LAYERS (``params``: whole
+        Moonlight's first layers, so every MoE call routes as the whole
+        model's first ones and ``tie`` holds), each against jit on the
+        same weights: launches, one dispatch a jit step, jit's tokens equal
+        eager's but at a logit or routing near tie."""
+        cut = cfg.replace(n_layers=MOONLIGHT_EAGER_LAYERS)
+        for cell, kw in MOONLIGHT_CACHE.items():
+            t_cell = time.perf_counter()
+            runs = {}
+            for plan in ("eager", "jit"):
+                eng, done, rep, n = serve_engine(cut, params, plan, 18, **kw)
+                check_launches(cell, plan, eng, rep)
+                runs[plan] = (done, rep)
+                if plan == "eager":
+                    counts[f"{cell}:eager"] = n
+                    trace = phase_trace(eng, f"phase 18 {cell} eager trace",
+                                        cell == "moonlight_contiguous",
+                                        MOONLIGHT_TRACE_STEPS)
+                    row = dict(cell_row(rep, trace),
+                               layers=MOONLIGHT_EAGER_LAYERS)
+                    rows.setdefault(cell, {})["eager"] = row
+                    print_row(18, cell, "eager", row)
+                del eng
+                torch.cuda.empty_cache()
+            (edone, erep), (jdone, jrep) = runs["eager"], runs["jit"]
+            check_jit(cell, jrep, erep, jdone, edone, params, cut, tie)
+            print(f"phase 18: {cell} eager at {MOONLIGHT_EAGER_LAYERS} "
+                  f"layers (and jit on its weights) done in "
+                  f"{time.perf_counter() - t_cell:.1f} s")
+
     print(f"phase 18: f32 check {time.perf_counter() - t0:.1f} s")
     for cell, extra in MOONLIGHT_CELLS.items():
         torch.cuda.reset_peak_memory_stats()
         contiguous = cell == "moonlight_contiguous"
-        rows[cell], served[cell], counts[f"{cell}:jit"], \
-            counts[f"{cell}:eager"] = serve_eager_then_jit(
-                cell, cfg, extra, 18, prefill=contiguous,
-                after_jit=moonlight_extra(cell),
-                trace_steps=MOONLIGHT_TRACE_STEPS)
-        print(f"phase 18: {cell} done at {time.perf_counter() - t0:.1f} s")
+        t_cell = time.perf_counter()
+        eng, done, rep, counts[f"{cell}:jit"] = serve_flags(cfg, extra, "jit",
+                                                            18)
+        check_launches(cell, "jit", eng, rep)
+        if rep["dispatches_per_decode_step"] != 1.0:
+            fail(f"{cell} jit: {rep['dispatches_per_decode_step']} "
+                 "dispatches per decode step, not 1")
+        moonlight_extra(cell)(eng, done)
+        trace = phase_trace(eng, f"phase 18 {cell} jit trace", contiguous,
+                            MOONLIGHT_TRACE_STEPS)
+        rows.setdefault(cell, {})["jit"] = cell_row(rep, trace)
+        served[cell] = done
+        print_row(18, cell, "jit", rows[cell]["jit"])
+        print(f"phase 18: {cell} jit done in "
+              f"{time.perf_counter() - t_cell:.1f} s")
+        if contiguous:
+            eager_cells(dict(eng.params, blocks=eng.params["blocks"][
+                :MOONLIGHT_EAGER_LAYERS]), whole["routing"]["tie"])
+        del eng
+        torch.cuda.empty_cache()
     want = {r.rid: r.generated for r in served["moonlight_contiguous"]}
     bad = [r.rid for r in served["moonlight_paged_bf16"]
            if r.generated != want.get(r.rid)]
@@ -3832,6 +3933,355 @@ def phase_moe() -> tuple:
     secs = time.perf_counter() - t0
     print(f"phase 18: {secs:.1f} s")
     print("phase 18: " + json.dumps({"rows": rows, "seconds": secs}))
+    return rows, counts
+
+
+# ------------------------------------------------------------------ phase 19
+VISION = "llama-3.2-vision-11b"
+SEAMLESS = "seamless-m4t-medium"
+# the gate every vision cross layer gets: the init's tanh(0) = 0 would
+# zero them, and every check of the image path would be vacuous
+XGATE = 0.5
+XATTN_PROMPT, XATTN_STEPS = 12, 16     # the image / frame path's greedy run
+# depth of the f32 check and of the eager and fused cells: one superblock
+# of Llama-3.2-Vision (4 self-attention layers and its xattn layer), two
+# of Seamless's decoder layers (f32 runs Seamless whole); a whole 40-layer
+# eager cell would trace for minutes (PERF.md section 7)
+XATTN_CUT = {VISION: 5, SEAMLESS: 2}
+XATTN_LABEL = {VISION: "vision", SEAMLESS: "seamless"}
+
+
+def xattn_cases(dtype):
+    """The kernels at phase 19's shapes: ``flash_attention`` non-causal
+    over Llama-3.2-Vision's 1601 patches (B 4, 32/8 heads of 128, S 16),
+    over Seamless's encoder (B 1, 16 heads of 64, S = T = 4096) and at the
+    served cross prefill (B 1, S 16 over T 1: S > T, the wrapper's query
+    offset negative); ``decode_attention`` over a whole cross cache (T 1601
+    and 4096, B 4); ``rmsnorm_matmul`` at the untied heads (4 x 1 rows)."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    cases = {}
+    for i, (tag, (b, hq, hkv, hd, s, t)) in enumerate((
+            ("vision_x", (MAX_BATCH, 32, 8, 128, BUCKET, 1601)),
+            ("seamless_enc", (1, 16, 16, 64, 4096, 4096)),
+            ("x_t1", (1, 32, 8, 128, BUCKET, 1)))):
+        q = randn((b, s, hq, hd), dtype, 300 + 3 * i).transpose(1, 2)
+        k = randn((b, t, hkv, hd), dtype, 301 + 3 * i).transpose(1, 2)
+        v = randn((b, t, hkv, hd), dtype, 302 + 3 * i).transpose(1, 2)
+        cases[f"flash_attention[{tag}]"] = dict(
+            call=lambda q=q, k=k, v=v, sc=hd ** -0.5: kernels.flash_attention(
+                q, k, v, scale=sc, causal=False),
+            plain=lambda q=q, k=k, v=v, sc=hd ** -0.5: attention_ref(
+                q, k, v, scale=sc, causal=False),
+            library=lambda q=q, k=k, v=v, sc=hd ** -0.5:
+                F.scaled_dot_product_attention(q, k, v, scale=sc,
+                                               enable_gqa=True),
+            bytes=(2 * b * s * hq * hd + 2 * b * t * hkv * hd) * es,
+            flops=4 * b * s * t * hq * hd)
+    for i, (tag, (hq, hkv, hd, t)) in enumerate((
+            ("vision_x1601", (32, 8, 128, 1601)),
+            ("seamless_x4096", (16, 16, 64, 4096)))):
+        b = MAX_BATCH
+        q = randn((b, hq, hd), dtype, 320 + 3 * i)
+        k = randn((b, t, hkv, hd), dtype, 321 + 3 * i).transpose(1, 2)
+        v = randn((b, t, hkv, hd), dtype, 322 + 3 * i).transpose(1, 2)
+        cases[f"decode_attention[{tag}]"] = dict(
+            call=lambda q=q, k=k, v=v, sc=hd ** -0.5: kernels.decode_attention(
+                q, k, v, scale=sc),
+            plain=lambda q=q, k=k, v=v, sc=hd ** -0.5: decode_attention_ref(
+                q, k, v, scale=sc),
+            library=lambda q=q, k=k, v=v, sc=hd ** -0.5:
+                F.scaled_dot_product_attention(q[:, :, None], k, v, scale=sc,
+                                               enable_gqa=True),
+            bytes=(2 * b * hq * hd + 2 * b * t * hkv * hd) * es,
+            flops=4 * b * t * hq * hd)
+    for tag, arch in (("vision", VISION), ("seamless", SEAMLESS)):
+        d, f = get_config(arch).d_model, get_config(arch).vocab_size
+        x = randn((MAX_BATCH, 1, d), dtype, 340)
+        w = randn((d,), dtype, 341) + 1.0
+        wq = randn_on_card((d, f), dtype, 342, scale=0.02)
+        rows = MAX_BATCH
+        cases[f"rmsnorm_matmul[unembed_{tag}]"] = dict(
+            call=lambda x=x, w=w, wq=wq: kernels.rmsnorm_matmul(x, w, wq),
+            plain=lambda x=x, w=w, wq=wq: rmsnorm_matmul_ref(x, w, wq),
+            library=None,
+            unfused=lambda x=x, w=w, wq=wq, d=d: torch.matmul(
+                F.rms_norm(x, (d,), w, eps=1e-5), wq),
+            bytes=(2 * rows * d + d + d * f + rows * f) * es,
+            flops=2 * rows * d * f + 4 * rows * d)
+    return cases
+
+
+def xattn_params(cfg, seed: int) -> dict:
+    """``model_params`` with every ``xgate`` at XGATE."""
+    params = model_params(cfg, seed)
+    for blk in params["blocks"]:
+        if "xgate" in blk:
+            blk["xgate"].fill_(XGATE)
+    return params
+
+
+def cross_inputs(cfg, b: int, seed: int) -> dict:
+    """The stub frontend's seeded states, (B, n_frontend_tokens, D) in the
+    compute dtype: frame embeddings for the encoder, or patch
+    embeddings."""
+    x = randn_on_card((b, cfg.n_frontend_tokens, cfg.d_model), cfg.cdtype,
+                      seed)
+    key = "encoder_tokens" if cfg.n_encoder_layers else "frontend_embeds"
+    return {key: x}
+
+
+def cross_run(params, cfg, prompt, steps: int, inputs: dict,
+              greedy: bool) -> tuple:
+    """A prefill of ``prompt`` (B x n) with the cross inputs into a fresh
+    cache (the cross caches written), then ``steps`` decode steps through
+    the cross caches: each feeding the previous step's argmax (``greedy``)
+    or the given tokens ``steps``.  Returns (the logits of each call, the
+    tokens fed, the cache)."""
+    b, n = prompt.shape
+    n_steps = steps if greedy else len(steps)
+    cache = make_cache(cfg, b, n + n_steps, src_len=cfg.n_frontend_tokens,
+                       device=DEV)
+    logits, cache = forward(params, prompt, cfg, cache=cache, **inputs)
+    got, fed = [logits], []
+    for i in range(n_steps):
+        tok = (got[-1][:, -1].argmax(-1, keepdim=True) if greedy
+               else steps[i].to(DEV))
+        fed.append(tok)
+        lg, cache = forward(params, tok, cfg, cache=cache,
+                            lengths=np.full(b, n + i))
+        got.append(lg)
+    return got, fed, cache
+
+
+def xattn_f32_check(cfg, seed: int) -> float:
+    """f32 at full width (``cfg`` cut in depth): a MAX_BATCH x BUCKET
+    prefill with the cross inputs and 3 decode steps through the cross
+    caches, kernels against plain versions; the last step against a full
+    forward over the whole sequence, through the kernels."""
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    params = xattn_params(cfg32, seed)
+    inputs = cross_inputs(cfg32, MAX_BATCH, seed)
+    rng = np.random.default_rng(seed)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (MAX_BATCH, BUCKET))).to(DEV)
+    steps = [torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (MAX_BATCH, 1))) for _ in range(3)]
+    out = {}
+    for mode in ("kernel", "plain"):
+        ctx = plain_kernels() if mode == "plain" else contextlib.nullcontext()
+        with ctx:
+            out[mode] = cross_run(params, cfg32, prompt, steps, inputs,
+                                  greedy=False)[0]
+    label = f"phase 19 {cfg.name} f32 logits"
+    err = max(compare_logits(a, b_, LOGIT_TOL_F32, f"{label} call {i}")
+              for i, (a, b_) in enumerate(zip(out["kernel"], out["plain"])))
+    whole = torch.cat([prompt] + [t.to(DEV) for t in steps], dim=1)
+    full, _ = forward(params, whole, cfg32, **inputs)
+    d_full = compare_logits(out["kernel"][-1][:, -1], full[:, -1],
+                            LOGIT_TOL_F32, f"{label} decode vs full forward")
+    print(f"phase 19: {cfg.name} f32 at full width, {cfg.n_layers} layers"
+          + (f" (+{cfg.n_encoder_layers} encoder)" if cfg.n_encoder_layers
+             else "") + f", {cfg.n_frontend_tokens} source positions: "
+          f"prefill ({MAX_BATCH} x {BUCKET}) with the cross inputs + 3 decode "
+          f"steps through the cross caches: max |kernel - plain| logits "
+          f"{err:.3g} (<= {LOGIT_TOL_F32}), argmax agrees; the last step "
+          f"against a full forward of the whole sequence {d_full:.3g}")
+    del params, out, full
+    torch.cuda.empty_cache()
+    return max(err, d_full)
+
+
+def cross_path(eng, params, cfg, label: str) -> dict:
+    """The image or frame path at batch MAX_BATCH in bf16: a
+    XATTN_PROMPT-token prefill with the seeded cross inputs, XATTN_STEPS
+    greedy decode steps through the cross caches; the last step's logits
+    against a full forward of the whole sequence (LOGIT_TOL_BF16, argmax
+    outside near ties), the greedy tokens against the plain versions' run
+    (a row may part only at a plain near tie); a decode step split with
+    the full cross cache; the encoder's device ms over its frames."""
+    b = MAX_BATCH
+    inputs = cross_inputs(cfg, b, 191)
+    prompt = torch.from_numpy(np.random.default_rng(191).integers(
+        0, cfg.vocab_size, (b, XATTN_PROMPT))).to(DEV)
+    got, fed, cache = cross_run(params, cfg, prompt, XATTN_STEPS, inputs,
+                                greedy=True)
+    whole = torch.cat([prompt] + fed, dim=1)
+    full, _ = forward(params, whole, cfg, **inputs)
+    with plain_kernels():
+        pgot, pfed, _ = cross_run(params, cfg, prompt, XATTN_STEPS, inputs,
+                                  greedy=True)
+        pwhole = torch.cat([prompt] + pfed, dim=1)
+        pfull, _ = forward(params, pwhole, cfg, **inputs)
+    # bf16: a decode step and a full forward sum in other orders (other
+    # kernels, other row counts for cuBLAS); the plain versions' own
+    # difference between the two measures that, and the kernels' may be
+    # at most twice it (or LOGIT_TOL_BF16)
+    d_plain = float((pgot[-1][:, -1] - pfull[:, -1]).abs().max())
+    tol = max(LOGIT_TOL_BF16, 2 * d_plain)
+    d_full = compare_logits(got[-1][:, -1], full[:, -1], tol,
+                            f"{label} decode vs full forward")
+    rms = float(full[:, -1].float().square().mean().sqrt())
+    toks = torch.cat(fed, dim=1)
+    ptoks = torch.cat(pfed, dim=1)
+    same = 0
+    for r in range(b):
+        diff = (toks[r] != ptoks[r]).nonzero()
+        if not len(diff):
+            same += 1
+            continue
+        i = int(diff[0])
+        lg = pgot[i][r, -1]
+        gap = float((lg[ptoks[r, i]] - lg[toks[r, i]]).abs())
+        if not gap < LOGIT_TOL_BF16:
+            fail(f"{label}: row {r} token {i} is {int(toks[r, i])} through "
+                 f"the kernels and {int(ptoks[r, i])} through the plain "
+                 f"versions, plain logits {gap:.3g} apart")
+        print(f"  near tie: row {r} token {i}: kernels {int(toks[r, i])}, "
+              f"plain {int(ptoks[r, i])}, plain logits {gap:.3g} apart "
+              f"(< {LOGIT_TOL_BF16})")
+    split = step_split(eng, f"{label} ({cfg.n_frontend_tokens}-row cross "
+                       "cache)", cache=cache)
+    row = dict(decode_vs_full=d_full, decode_vs_full_plain=d_plain,
+               logits_rms=rms, greedy_equal_plain=same,
+               split_full_cross=split)
+    if cfg.n_encoder_layers:
+        frames = inputs["encoder_tokens"]
+        enc_ms = time_ms(lambda: encode(params, frames, cfg), iters=5)[0]
+        # the products a layer does: q, k, v and o, the two attention
+        # products over all T x T pairs, the MLP's two (three with a GLU)
+        t, d, hd = cfg.n_frontend_tokens, cfg.d_model, cfg.hd
+        hq, hkv = cfg.n_heads, cfg.n_kv_heads
+        flops = cfg.n_encoder_layers * (
+            2 * b * t * d * (2 * hq + 2 * hkv) * hd
+            + 4 * b * t * t * hq * hd
+            + 2 * b * t * d * cfg.d_ff * (3 if cfg.glu else 2))
+        row.update(encoder_ms=enc_ms, encoder_tflops=flops / enc_ms / 1e9)
+        print(f"  {label}: the encoder ({cfg.n_encoder_layers} layers) over "
+              f"{b} x {cfg.n_frontend_tokens} frames: {enc_ms:.3f} ms device"
+              f" ({flops / 1e12:.2f} TFLOP of products: "
+              f"{flops / enc_ms / 1e9:.0f} TFLOP/s)")
+    print(f"  {label}: the {'frame' if cfg.n_encoder_layers else 'image'} "
+          f"path, batch {b}: prefill {XATTN_PROMPT} tokens with "
+          f"{cfg.n_frontend_tokens} source positions, {XATTN_STEPS} greedy "
+          f"decode steps through the cross caches; the last step against a "
+          f"full forward of the whole sequence: max |diff| {d_full:.3g} "
+          f"(the plain versions' own {d_plain:.3g}; <= {tol:.3g}; logits "
+          f"rms {rms:.3g}), argmax agrees; greedy tokens equal the plain "
+          f"versions' in {same}/{b} rows (the rest part at a printed near "
+          "tie)")
+    del cache, got, pgot, full, pfull
+    torch.cuda.empty_cache()
+    return row
+
+
+def xattn_cut_cells(cfg, seed: int, counts: dict) -> dict:
+    """``cfg`` cut to XATTN_CUT layers: jit, eager and fused engines over
+    the serve CLI's requests; eager's tokens against jit's (near ties
+    printed), fused's equal to jit's with the model's norm windows."""
+    cell = f"{XATTN_LABEL[cfg.name]}_cut"
+    params = xattn_params(cfg, seed)
+    rows, done = {}, {}
+    for plan in ("jit", "eager", "fused"):
+        eng, done[plan], rep, counts[f"{cell}:{plan}"] = serve_engine(
+            cfg, params, plan, 19)
+        check_launches(cell, plan, eng, rep)
+        if plan == "eager":
+            same = check_near_ties(done["eager"], done["jit"], params, cfg,
+                                   ("under eager", "under jit"),
+                                   plain_logits)
+            print(f"  {cell}: eager tokens equal jit's in {same}/{N_REQ} "
+                  "requests (the rest part at a printed near tie)")
+        if plan == "fused":
+            check_fused(cell, eng, done["fused"], done["jit"])
+            print(f"  {cell} fused: tokens equal jit's in {N_REQ}/{N_REQ} "
+                  f"requests; rule hits per call as norm_launches "
+                  f"{norm_launches(cfg)}")
+        rows[plan] = dict(step_ms=rep["mean_decode_step_ms"],
+                          dispatches=rep["dispatches_per_decode_step"],
+                          tok_per_s=rep["tok_per_s"])
+        print(f"phase 19: {cell} {plan}: {cfg.n_layers} layers, decode step "
+              f"{rows[plan]['step_ms']:.3f} ms, "
+              f"{rows[plan]['dispatches']:.0f} dispatches a step")
+        del eng
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return rows
+
+
+def xattn_whole(cfg, seed: int, counts: dict) -> dict:
+    """The bf16 model whole under jit over the serve CLI's requests (the
+    served one-row cross cache): launches, graph replays against the same
+    bodies run directly, first tokens against the plain versions, the step
+    split, then the cross path (``cross_path``), then a speculative engine
+    (k = 4, the default draft) whose tokens must equal plain jit's but at a
+    printed near tie; parameter bytes and peak memory."""
+    label = XATTN_LABEL[cfg.name]
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = xattn_params(cfg, seed)
+    nbytes = tree_bytes(params)
+    eng, done, rep, counts[f"{label}:jit"] = serve_engine(cfg, params, "jit",
+                                                          19)
+    check_launches(label, "jit", eng, rep)
+    direct = graphs_equal_direct(eng, done, label)
+    agree = check_first_tokens(eng, done, cfg)
+    split = step_split(eng, f"phase 19 {label} (served one-row cross cache)")
+    path = cross_path(eng, params, cfg, f"phase 19 {label}")
+    spec = ServeEngine(cfg, params, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                       plan="jit", device=DEV, speculative=True, spec_k=4)
+    kernels.reset_launch_counts()
+    sdone = spec.run(serve.make_requests(N_REQ, cfg.vocab_size, 16))
+    torch.cuda.synchronize()
+    counts[f"{label}:spec_jit"] = kernels.launch_counts()
+    same = check_near_ties(sdone, done, params, cfg,
+                           ("speculative", "plain jit"), plain_logits)
+    st = spec.stats
+    print(f"  {label} speculative (k 4, draft {spec.draft_cfg.n_layers} "
+          f"layers): tokens equal plain jit's in {same}/{N_REQ} requests "
+          f"(the rest part at a printed near tie); accept rate "
+          f"{st.accept_rate:.3f}, {st.spec_rounds} rounds")
+    peak = torch.cuda.max_memory_allocated()
+    row = dict(layers=cfg.n_layers, encoder_layers=cfg.n_encoder_layers,
+               param_bytes=nbytes, peak_bytes=peak, first_tokens=agree,
+               graphs_equal_direct=direct, split_served=split, **path,
+               step_ms=rep["mean_decode_step_ms"], tok_per_s=rep["tok_per_s"],
+               mean_ttft_ms=rep["mean_ttft_ms"],
+               graphs=rep["graphs_captured"], capture_s=rep["graph_capture_s"],
+               spec_same=same, spec_accept_rate=st.accept_rate)
+    print(f"phase 19: {label} jit: {cfg.n_layers} layers"
+          + (f" + {cfg.n_encoder_layers} encoder" if cfg.n_encoder_layers
+             else "") + f", parameters {nbytes / 1e9:.2f} GB, peak memory "
+          f"{peak / 1e9:.2f} GB; decode step {row['step_ms']:.3f} ms, "
+          f"{row['tok_per_s']:.1f} tok/s, mean TTFT {row['mean_ttft_ms']:.2f}"
+          f" ms; first tokens agree with the plain bf16 forward "
+          f"{agree}/{N_REQ}; {row['graphs']} graphs in {row['capture_s']:.3f}"
+          f" s; {time.perf_counter() - t0:.1f} s")
+    del eng, spec, params
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_xattn() -> tuple:
+    """Phase 19: the cross-attention stacks, Llama-3.2-Vision-11B and
+    SeamlessM4T-medium (``xattn_f32_check``, ``xattn_whole``,
+    ``xattn_cut_cells``).  Returns ({cell: row}, {cell:plan: launch
+    counts})."""
+    t0 = time.perf_counter()
+    rows, counts = {}, {}
+    for i, arch in enumerate((VISION, SEAMLESS)):
+        cfg = get_config(arch)
+        label = XATTN_LABEL[arch]
+        f32_cfg = cfg.replace(n_layers=XATTN_CUT[VISION]) if arch == VISION \
+            else cfg
+        rows[f"{label}_f32"] = xattn_f32_check(f32_cfg, 190 + i)
+        rows[label] = xattn_whole(cfg, 192 + i, counts)
+        rows[f"{label}_cut"] = xattn_cut_cells(
+            cfg.replace(n_layers=XATTN_CUT[arch]), 194 + i, counts)
+        print(f"phase 19: {label} done at {time.perf_counter() - t0:.1f} s")
+    secs = time.perf_counter() - t0
+    print(f"phase 19: {secs:.1f} s")
+    print("phase 19: " + json.dumps({"rows": rows, "seconds": secs}))
     return rows, counts
 
 
@@ -3868,6 +4318,8 @@ def main() -> None:
     # there ends the run early
     _, moe_counts = phase_moe()
     mark("1-3, 18")
+    _, xattn_counts = phase_xattn()
+    mark("1-3, 18-19")
     eager_counts, eager = {}, {}
     eager_counts["contiguous"], rep, eng, done = phase_serve(cfg, 4)
     eager["contiguous"] = (rep, done, phase_trace(eng, "phase 5",
@@ -3899,7 +4351,7 @@ def main() -> None:
     _, spec_counts = phase_speculative(jit_rows, jit_done, llama_rows,
                                        llama_done)
     _, tier_counts = phase_serving_tier()
-    print(f"chip_smoke: phases 1-18 in {time.perf_counter() - t0:.1f} s")
+    print(f"chip_smoke: phases 1-19 in {time.perf_counter() - t0:.1f} s")
 
     entries = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -3921,6 +4373,7 @@ def main() -> None:
         by_path.update({p: c[name] for p, c in spec_counts.items()})
         by_path.update({p: c[name] for p, c in tier_counts.items()})
         by_path.update({p: c[name] for p, c in moe_counts.items()})
+        by_path.update({p: c[name] for p, c in xattn_counts.items()})
         entries.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "launches_by_path": by_path, **row})

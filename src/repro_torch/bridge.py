@@ -9,7 +9,10 @@ layer's ``moe`` with its f32 ``router`` and (E, d, f) / (E, f, d) expert
 tensors; a Mamba mixer's f32 ``A_log``, ``D`` and ``dt_b``), with
 ``"blocks"`` unstacked into one dict per layer, in execution order
 (superblock-major, then pattern slot: Gemma-2's local slot 0, then its
-global slot 1, of each superblock; Jamba's eight slots in order).  Every
+global slot 1, of each superblock; Jamba's eight slots in order), and an
+encoder-decoder's ``"enc_blocks"`` unstacked the same way, one dict an
+encoder layer.  A cross layer's scalar f32 ``xgate``, a decoder layer's
+``norm_x`` and ``xattn`` and the ``enc_norm`` cross as they are.  Every
 leaf keeps its dtype.
 
 bf16 arrays arrive with the ``ml_dtypes`` bfloat16 dtype, which
@@ -40,15 +43,23 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _unstack(blocks: dict, n_sb: int, period: int, dev) -> list:
+    """Stacked superblocks -> one dict a layer, superblock-major."""
+    return [
+        _map(blocks[f"slot{i}"], lambda a, sb=sb: tensor_from_numpy(a[sb], dev))
+        for sb in range(n_sb) for i in range(period)
+    ]
+
+
 def params_from_jax(tree: dict, cfg: ModelConfig, *, device="cuda") -> dict:
     """Port parameters from the reference's tree of numpy arrays."""
     dev = resolve_device(device)
+    stacked = ("blocks", "enc_blocks")
     out = {k: _map(v, lambda a: tensor_from_numpy(a, dev))
-           for k, v in tree.items() if k != "blocks"}
-    blocks = tree["blocks"]
-    out["blocks"] = [
-        _map(blocks[f"slot{i}"], lambda a, sb=sb: tensor_from_numpy(a[sb], dev))
-        for sb in range(cfg.n_superblocks)
-        for i in range(len(cfg.block_pattern))
-    ]
+           for k, v in tree.items() if k not in stacked}
+    out["blocks"] = _unstack(tree["blocks"], cfg.n_superblocks,
+                             len(cfg.block_pattern), dev)
+    if "enc_blocks" in tree:
+        out["enc_blocks"] = _unstack(tree["enc_blocks"],
+                                     cfg.n_encoder_layers, 1, dev)
     return out

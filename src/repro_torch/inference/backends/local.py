@@ -265,8 +265,12 @@ class LocalBackend(AccountingMixin):
         self.trace_stats = TraceStats()
 
     def init_contiguous_cache(self):
-        """Fresh per-slot contiguous KV cache on this device."""
-        return make_cache(self.cfg, self.B, self.T, device=self.device)
+        """Fresh per-slot contiguous KV cache on this device.  A cross
+        layer's cache holds one zero row (``src_len=1``), as the
+        reference's: no served body passes encoder or image inputs, so
+        served cross-attention attends over that row."""
+        return make_cache(self.cfg, self.B, self.T, src_len=1,
+                          device=self.device)
 
     def init_paged_cache(self, kv):
         """Fresh pooled KV pages for a ``PagedKVCache`` geometry (built for

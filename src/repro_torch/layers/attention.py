@@ -1,9 +1,10 @@
-"""GQA self-attention over a contiguous or a paged KV cache.
+"""GQA self-attention over a contiguous or a paged KV cache, and
+cross-attention over encoder or image states.
 
-Counterpart of the self-attention paths of ``attention_fwd`` in
-``repro/layers/attention.py`` (cross-attention and sharding come with
-later slices; see ROADMAP).  Where the reference computes attention in
-plain XLA, the port routes it through its hand-written kernels.  As there:
+Counterpart of ``attention_fwd`` in ``repro/layers/attention.py``
+(sharding comes with a later slice; see ROADMAP).  Where the reference
+computes attention in plain XLA, the port routes it through its
+hand-written kernels.  As there:
 q, k and v take their biases after their projections when the config has
 ``qkv_bias`` (q's after the fused RMSNorm+matmul kernel produced it); the
 scores are soft-capped by ``cfg.attn_softcap``; a layer's ``window`` (its
@@ -59,6 +60,24 @@ see (``with_scratch``).  Only dropped writes land there, so they can
 never collide with a valid write in the same scatter, and no visible
 entry changes.
 
+Cross-attention (``cross_attention_fwd``, the reference's ``is_cross``
+path): the queries come from the layer's normed input, K and V from the
+encoder's or the frontend's states (``cross_kv``, (B,T,D)) through the
+layer's ``wk``/``wv``; neither gets RoPE, a cross layer has no q/k/v bias,
+and every query attends over all T source positions, without a mask or a
+window, under the config's softcap.  With ``cross_kv`` and a cache (the
+prefill with real inputs) the projected K/V are written into the layer's
+(B,T,HKV,hd) cross cache; without ``cross_kv`` they are read from it
+(decode, verify, and the served prefill, whose cross cache is one zero
+row as the reference builds it).  ``kernels.decode_attention`` runs a
+decode step's one query a row over all T positions; every other call
+(a prefill, an encoder-fed forward, a speculative verify of k+1 queries)
+runs ``kernels.flash_attention`` non-causal with S != T.  The verify goes
+through flash and not ``decode_attention_mq``: the multi-query entry
+places query j at position ``kv_len - S + j`` and stops it there, while
+every cross query sees all T positions.  A cross cache is written only by
+a prefill, so it carries no scratch row.
+
 The cache is updated in place (the reference returns a new pytree); the
 per-forward index tensors are built once by ``attention_context`` or
 ``paged_attention_context`` and shared by every layer.
@@ -79,7 +98,8 @@ from repro_torch.layers.common import apply_rope, dense_init, rope_tables
 NEG_INF = -2.3819763e38  # large negative, bf16-safe (reference value)
 
 
-def attention_init(gen, cfg: ModelConfig, device) -> dict:
+def attention_init(gen, cfg: ModelConfig, device,
+                   cross: bool = False) -> dict:
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     p = {
         "wq": dense_init(gen, (d, hq * hd), cfg.pdtype, device),
@@ -87,7 +107,7 @@ def attention_init(gen, cfg: ModelConfig, device) -> dict:
         "wv": dense_init(gen, (d, hkv * hd), cfg.pdtype, device),
         "wo": dense_init(gen, (hq * hd, d), cfg.pdtype, device),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         # zeros, as the reference builds them
         for name, width in (("bq", hq * hd), ("bk", hkv * hd),
                             ("bv", hkv * hd)):
@@ -122,6 +142,15 @@ def make_self_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
     shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
     return {"k": _zeros_with_scratch(shape, dtype, device),
             "v": _zeros_with_scratch(shape, dtype, device)}
+
+
+def make_cross_cache(cfg: ModelConfig, batch: int, src_len: int, dtype,
+                     device) -> dict:
+    """A cross layer's {"k","v"} (B, src_len, HKV, hd), zeros: written
+    whole by a prefill with ``cross_kv``, read by every later call."""
+    shape = (batch, src_len, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def make_paged_self_cache(cfg: ModelConfig, num_pages: int, block_size: int,
@@ -360,7 +389,8 @@ def _project(h, params, name: str, heads: int, hd: int, y=None):
 
 
 def attention_fwd(params, h, q, cfg: ModelConfig, ctx: AttnContext,
-                  cache: Optional[dict] = None, window: int = 0):
+                  cache: Optional[dict] = None, window: int = 0,
+                  causal: Optional[bool] = None):
     """Self-attention of one layer; returns its output (B,S,D).
 
     ``h``: the normed input (B,S,D); ``q``: its query projection
@@ -370,8 +400,11 @@ def attention_fwd(params, h, q, cfg: ModelConfig, ctx: AttnContext,
     product is taken here.  ``cache``: this
     layer's {"k","v"} (B,T,HKV,hd) or its pages
     (``make_paged_self_cache``, with a paged ``ctx``), updated in place.
-    ``window``: the layer's sliding window (0: none).
+    ``window``: the layer's sliding window (0: none).  ``causal``: None
+    (the family's, ``is_causal``), or False for an encoder-decoder's
+    encoder.
     """
+    causal = is_causal(cfg) if causal is None else causal
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     scale = cfg.attn_scale or hd ** -0.5
     b, s = h.shape[0], h.shape[1]
@@ -413,7 +446,61 @@ def attention_fwd(params, h, q, cfg: ModelConfig, ctx: AttnContext,
             k, v = cache["k"][:, :end], cache["v"][:, :end]
         o = kernels.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                     v.transpose(1, 2), scale=scale,
-                                    causal=is_causal(cfg),
+                                    causal=causal,
                                     window=window, softcap=cfg.attn_softcap)
+        o = o.transpose(1, 2).reshape(b, s, hq * hd)
+    return o @ params["wo"]
+
+
+def init_cross_cache(params, cfg: ModelConfig, cross_kv) -> dict:
+    """Cross-attention K/V (B,T,HKV,hd) from encoder or image states
+    ``cross_kv`` (B,T,D)."""
+    return {"k": _project(cross_kv, params, "k", cfg.n_kv_heads, cfg.hd),
+            "v": _project(cross_kv, params, "v", cfg.n_kv_heads, cfg.hd)}
+
+
+def cross_attention_fwd(params, h, q, cfg: ModelConfig, *,
+                        cache: Optional[dict] = None, cross_kv=None,
+                        decode: bool = False):
+    """Cross-attention of one layer; returns its output (B,S,D).
+
+    ``h``: the normed input (B,S,D); ``q``: ``h @ wq`` when a fused
+    RMSNorm+matmul kernel produced it, else None.  ``cross_kv``: the
+    encoder's or the frontend's states (B,T,D), or None to read K/V from
+    ``cache`` (this layer's cross {"k","v"} (B,T,HKV,hd)), which a given
+    ``cross_kv`` overwrites in place.  ``decode``: a decode step (one query
+    a row through ``decode_attention``); otherwise ``flash_attention``
+    non-causal over all T positions."""
+    hq, hd = cfg.n_heads, cfg.hd
+    scale = cfg.attn_scale or hd ** -0.5
+    b, s = h.shape[0], h.shape[1]
+    q = _project(h, params, "q", hq, hd, y=q)
+    if cross_kv is not None:
+        kv = init_cross_cache(params, cfg, cross_kv.to(h.dtype))
+        k, v = kv["k"], kv["v"]
+        if cache is not None:
+            if cache["k"].shape != k.shape:
+                raise ValueError(
+                    f"cross cache {tuple(cache['k'].shape)} cannot hold K/V "
+                    f"{tuple(k.shape)}: build it with src_len={k.shape[1]}")
+            cache["k"].copy_(k)
+            cache["v"].copy_(v)
+    elif cache is None:
+        raise ValueError("cross-attn decode needs a cross cache (or "
+                         "cross inputs: encoder_tokens= / frontend_embeds=)")
+    else:
+        k, v = cache["k"], cache["v"]
+    if k.shape[1] == 0:
+        raise ValueError("cross attention over 0 source positions: build "
+                         "the cache with src_len >= 1")
+    if decode and s == 1:
+        o = kernels.decode_attention(q[:, 0], k.transpose(1, 2),
+                                     v.transpose(1, 2), scale=scale,
+                                     softcap=cfg.attn_softcap)
+        o = o.reshape(b, 1, hq * hd)
+    else:
+        o = kernels.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                    v.transpose(1, 2), scale=scale,
+                                    causal=False, softcap=cfg.attn_softcap)
         o = o.transpose(1, 2).reshape(b, s, hq * hd)
     return o @ params["wo"]

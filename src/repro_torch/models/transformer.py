@@ -7,13 +7,23 @@ Llama-3.2-1B, GPT-2, InternLM2, CodeQwen1.5 with its qkv bias), the
 encoder-only BERT and XLM-R (no causal mask), Gemma-2 (``("attn_local",
 "attn")``, soft-capped scores), the MoE decoders Moonlight-16B-A3B and
 Kimi K2 (``layers/moe.py``), the Jamba hybrid (Mamba layers, ``layers/
-mamba.py``, around one attention slot, MoE in the odd slots) and RWKV-6
-(``("rwkv6",)``, ``layers/rwkv.py``).  Layer i is of kind
+mamba.py``, around one attention slot, MoE in the odd slots), RWKV-6
+(``("rwkv6",)``, ``layers/rwkv.py``) and the cross-attention stacks:
+Llama-3.2-Vision (an ``xattn`` layer, gated by ``tanh(xgate)``, every
+fifth layer, over image-patch states) and the SeamlessM4T encoder-decoder
+(``n_encoder_layers`` non-causal encoder layers, ``params["enc_blocks"]``
+and ``enc_norm``; every decoder layer cross-attends to the encoder's
+output after its self-attention, through ``norm_x`` and ``xattn``).
+The frontends are stubs, as in the reference: ``forward`` takes the patch
+embeddings (``frontend_embeds=``) or the frame embeddings
+(``encoder_tokens=``, run through the encoder) as (B,T,D) arrays.
+Layer i is of kind
 ``block_pattern[i % len(block_pattern)]`` and carries ``moe`` instead of
 ``mlp`` when ``i % len(block_pattern)`` is in ``moe_slots``.  The layer
 stack is a Python loop over per-layer parameter dicts
-(``params["blocks"][i]``); ``bridge.params_from_jax`` unstacks the
-reference's superblock axis into that list, superblock-major, then slot.
+(``params["blocks"][i]``, the encoder's ``params["enc_blocks"][i]``);
+``bridge.params_from_jax`` unstacks the reference's superblock axis into
+that list, superblock-major, then slot.
 
 The forward computes the reference function, with its hot spots routed
 through the hand-written kernels exactly where the reference's fused launch
@@ -31,6 +41,16 @@ forward at L layers, A of them attention and M Mamba:
   * ``residual_rmsnorm(x, norm2, residual=mixer_out)``, L times: before a
     MoE the norm's output is reshaped to (T, D) first, so no product
     follows it directly and the reference's plan fuses the residual add;
+  * on an encoder-decoder's decoder layer, ``residual_rmsnorm(x, norm_x,
+    residual=self_attention_out)`` once more (its ``wq`` product plain),
+    and the cross-attention's ``decode_attention`` (decode) or
+    ``flash_attention`` (otherwise, non-causal over all T source
+    positions) beside the self-attention's; an ``xattn`` layer's
+    cross-attention takes its attention kernel the same way;
+  * with ``encoder_tokens``, the encoder: per layer ``rmsnorm_matmul`` (its
+    norm1 with wq), ``flash_attention`` (non-causal, S = T) and
+    ``residual_rmsnorm`` (norm2), and ``residual_rmsnorm(x, enc_norm,
+    residual=last_mlp_out)`` once;
   * ``rmsnorm_matmul(x, final_norm, lm_head) -> (logits, h)`` once on an
     untied stack (the unembed's product), ``residual_rmsnorm(x,
     final_norm)`` once on a tied one.
@@ -48,8 +68,11 @@ scan.
 
 Each operator runs inside a ``torch.profiler.record_function`` scope named
 as the reference's ``jax.named_scope`` (``layer{i}``, ``norm1``, ``attn``,
-``mamba``, ``rwkv``, ``norm2``, ``mlp``, ``moe``, ``rwkv_channel``,
-``resid``, ``embed``, ``final_norm``, ``unembed``): a trace of the step
+``mamba``, ``rwkv``, ``xattn`` (an ``xattn`` layer's mixer, and an
+encoder-decoder layer's cross-attention with its ``norm_x``), ``norm2``,
+``mlp``, ``moe``, ``rwkv_channel``, ``resid``, ``embed``, ``final_norm``,
+``unembed``; the encoder's layers as the decoder's, its ``enc_norm``
+outside any): a trace of the step
 (``core/tracing.py``) reads them as each kernel's operator path, and the
 profiler tags the device kernels with them.  The residual add the fused
 norm takes in (``norm2``) is counted with the norm.
@@ -75,8 +98,8 @@ from repro_torch.layers.common import (dense_init, embed_tokens, mlp_fwd,
 ATTENTION_KINDS = ("attn", "attn_local")
 RECURRENT_KINDS = ("rwkv6", "mamba")
 # the reference's jax.named_scope tag of each mixer kind (_MIXER_SCOPE)
-MIXER_SCOPE = {"attn": "attn", "attn_local": "attn", "mamba": "mamba",
-               "rwkv6": "rwkv"}
+MIXER_SCOPE = {"attn": "attn", "attn_local": "attn", "xattn": "xattn",
+               "mamba": "mamba", "rwkv6": "rwkv"}
 
 
 def layer_kind(cfg: ModelConfig, i: int) -> str:
@@ -98,24 +121,29 @@ def is_recurrent(cfg: ModelConfig) -> bool:
     return any(kind in RECURRENT_KINDS for kind in cfg.block_pattern)
 
 
+def has_cross(cfg: ModelConfig) -> bool:
+    """True when the stack cross-attends: an ``xattn`` layer, or the
+    decoder of an encoder-decoder."""
+    return "xattn" in cfg.block_pattern or cfg.n_encoder_layers > 0
+
+
+def encoder_config(cfg: ModelConfig) -> ModelConfig:
+    """The encoder's config, as the reference builds it: one ``attn`` slot
+    a layer, no MoE."""
+    return cfg.replace(block_pattern=("attn",), moe_slots=())
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for model features this slice of the port does not run:
-    cross-attention layers, an encoder-decoder stack and a frontend (and
-    RWKV-6 layers mixed with other kinds, which no config has)."""
+    """Raise for the model feature this port does not run: RWKV-6 layers
+    mixed with other kinds, which no config has."""
     kinds = set(cfg.block_pattern)
-    unported = [name for name, on in (
-        ("xattn", "xattn" in kinds),
-        ("n_encoder_layers", cfg.n_encoder_layers > 0),
-        ("frontend", cfg.frontend != "none"),
-        ("rwkv6 beside other kinds", "rwkv6" in kinds and len(kinds) > 1),
-    ) if on]
-    unknown = kinds - set(MIXER_SCOPE) - {"xattn"}
+    unknown = kinds - set(MIXER_SCOPE)
     if unknown:
         raise ValueError(f"{cfg.name}: unknown block kinds {sorted(unknown)}")
-    if unported:
+    if "rwkv6" in kinds and len(kinds) > 1:
         raise NotImplementedError(
-            f"{cfg.name}: {unported} not ported yet, see ROADMAP Queue A, "
-            "\"model features\"")
+            f"{cfg.name}: ['rwkv6 beside other kinds'] not ported yet, see "
+            "ROADMAP Queue A, \"model features\"")
 
 
 def check_speculative(cfg: ModelConfig) -> None:
@@ -139,7 +167,8 @@ def check_speculative(cfg: ModelConfig) -> None:
             "speculative tokens part from its greedy ones: ROADMAP Queue C)")
 
 
-def _layer_init(gen, cfg: ModelConfig, i: int, device) -> dict:
+def _layer_init(gen, cfg: ModelConfig, i: int, device,
+                decoder: bool = True) -> dict:
     ones = torch.ones(cfg.d_model, dtype=cfg.pdtype, device=device)
     kind = layer_kind(cfg, i)
     if kind == "rwkv6":
@@ -147,9 +176,18 @@ def _layer_init(gen, cfg: ModelConfig, i: int, device) -> dict:
     elif kind == "mamba":
         mixer = mamba.mamba_init(gen, cfg, device)
     else:
-        mixer = attn.attention_init(gen, cfg, device)
+        mixer = attn.attention_init(gen, cfg, device,
+                                    cross=kind == "xattn")
     p = {"norm1": {"scale": ones.clone()}, "mixer": mixer,
          "norm2": {"scale": ones.clone()}}
+    if kind == "xattn":
+        # tanh(0) = 0, as the reference initialises it: a fresh cross
+        # layer passes its input through unchanged
+        p["xgate"] = torch.zeros((), dtype=torch.float32, device=device)
+    if decoder and cfg.n_encoder_layers and kind != "xattn":
+        # enc-dec decoder: every layer also cross-attends to the encoder
+        p["norm_x"] = {"scale": ones.clone()}
+        p["xattn"] = attn.attention_init(gen, cfg, device, cross=True)
     if kind == "rwkv6":
         p["mlp"] = rwkv.rwkv_channel_init(gen, cfg, device)
     elif layer_has_moe(cfg, i):
@@ -176,23 +214,40 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(generator, (cfg.d_model, cfg.vocab_size),
                                   cfg.pdtype, dev)
+    if cfg.n_encoder_layers:
+        enc = encoder_config(cfg)
+        p["enc_blocks"] = [_layer_init(generator, enc, i, dev, decoder=False)
+                           for i in range(cfg.n_encoder_layers)]
+        p["enc_norm"] = {"scale": torch.ones(cfg.d_model, dtype=cfg.pdtype,
+                                             device=dev)}
     return p
 
 
-def make_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=None,
-               device="cuda") -> list:
+def make_cache(cfg: ModelConfig, batch: int, max_len: int, src_len: int = 0,
+               *, dtype=None, device="cuda") -> list:
     """Per-layer contiguous cache, one dict a layer: an attention layer's
     {"k","v"}: (B, T, HKV, hd); a Mamba layer's {"conv": (B, d_conv-1,
     d_inner), "h": (B, d_inner, d_state) f32}; an RWKV-6 layer's
-    {"shift","shift_c"}: (B, D), "s": (B, H, hd, hd) f32."""
+    {"shift","shift_c"}: (B, D), "s": (B, H, hd, hd) f32.  A layer that
+    cross-attends (an ``xattn`` layer, every decoder layer of an
+    encoder-decoder) also holds {"cross_k","cross_v"}: (B, src_len, HKV,
+    hd), the reference's ``"cross"`` cache."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = dtype or cfg.cdtype
     makers = {"rwkv6": lambda: rwkv.make_state(cfg, batch, dtype, dev),
-              "mamba": lambda: mamba.make_state(cfg, batch, dtype, dev)}
-    return [makers.get(layer_kind(cfg, i), lambda: attn.make_self_cache(
-                cfg, batch, max_len, dtype, dev))()
-            for i in range(cfg.n_layers)]
+              "mamba": lambda: mamba.make_state(cfg, batch, dtype, dev),
+              "xattn": dict}
+
+    def layer(i):
+        kind = layer_kind(cfg, i)
+        c = makers.get(kind, lambda: attn.make_self_cache(
+            cfg, batch, max_len, dtype, dev))()
+        if kind == "xattn" or cfg.n_encoder_layers:
+            cross = attn.make_cross_cache(cfg, batch, src_len, dtype, dev)
+            c["cross_k"], c["cross_v"] = cross["k"], cross["v"]
+        return c
+    return [layer(i) for i in range(cfg.n_layers)]
 
 
 def make_paged_cache(cfg: ModelConfig, num_pages: int, block_size: int,
@@ -206,12 +261,16 @@ def make_paged_cache(cfg: ModelConfig, num_pages: int, block_size: int,
     dispatches on them.  ``check_supported`` rejects every stack the port
     does not run; a stack with recurrent layers raises ``ValueError``, as
     the reference's does: its state is O(1) per slot and has nothing to
-    page."""
+    page.  So do a cross-attention stack (its ``xattn`` layers) and an
+    encoder-decoder, with the reference's words."""
     check_supported(cfg)
-    if is_recurrent(cfg):
+    unsupported = [k for k in cfg.block_pattern if k not in ATTENTION_KINDS]
+    if unsupported:
         raise ValueError(
             "paged KV cache supports pure-attention stacks only; "
-            f"{cfg.name} has block kinds {list(cfg.block_pattern)}")
+            f"{cfg.name} has block kinds {unsupported}")
+    if cfg.n_encoder_layers:
+        raise ValueError("paged KV cache does not support enc-dec models")
     dev = resolve_device(device)
     return [attn.make_paged_self_cache(cfg, num_pages, block_size,
                                        dtype or cfg.cdtype, dev,
@@ -225,16 +284,34 @@ def layer_window(cfg: ModelConfig, i: int) -> int:
     return cfg.sliding_window if layer_kind(cfg, i) == "attn_local" else 0
 
 
-def norm_launches(cfg: ModelConfig) -> dict:
+def norm_launches(cfg: ModelConfig, encoder: bool = False) -> dict:
     """The fused norm kernels one forward of a non-RWKV stack launches:
     ``rmsnorm_matmul`` once a superblock (its first slot's norm1 with the
     mixer's input product), ``residual_rmsnorm`` at every norm2 and at the
     norm1 of every later slot (the previous layer's output added in); the
     final norm is a ``rmsnorm_matmul`` with an untied head, else a
-    ``residual_rmsnorm``."""
+    ``residual_rmsnorm``.  An encoder-decoder's decoder layer adds its
+    ``norm_x`` (a ``residual_rmsnorm``); with ``encoder`` (a forward with
+    ``encoder_tokens``) each encoder layer adds one of each, and its final
+    ``enc_norm`` one ``residual_rmsnorm``."""
     n_sb, tied = cfg.n_superblocks, int(cfg.tie_embeddings)
-    return {"rmsnorm_matmul": n_sb + 1 - tied,
-            "residual_rmsnorm": 2 * cfg.n_layers - n_sb + tied}
+    n = {"rmsnorm_matmul": n_sb + 1 - tied,
+         "residual_rmsnorm": 2 * cfg.n_layers - n_sb + tied}
+    if cfg.n_encoder_layers:
+        n["residual_rmsnorm"] += cfg.n_layers
+        if encoder:
+            n["rmsnorm_matmul"] += cfg.n_encoder_layers
+            n["residual_rmsnorm"] += cfg.n_encoder_layers + 1
+    return n
+
+
+def attention_launches(cfg: ModelConfig) -> int:
+    """The decoder's attention-kernel launches per forward: one a
+    self-attention or ``xattn`` layer, two an encoder-decoder's decoder
+    layer (its self- and its cross-attention)."""
+    n = sum(layer_kind(cfg, i) not in RECURRENT_KINDS
+            for i in range(cfg.n_layers))
+    return n + (cfg.n_layers if cfg.n_encoder_layers else 0)
 
 
 def _attention_context(cfg, cache, b, s, dev, cache_index, lengths,
@@ -262,9 +339,49 @@ def _attention_context(cfg, cache, b, s, dev, cache_index, lengths,
                                   max_len=max_len)
 
 
+def _cross_cache(state: Optional[dict]) -> Optional[dict]:
+    """A layer's cross cache as {"k","v"}, or None without a cache."""
+    if state is None:
+        return None
+    return {"k": state["cross_k"], "v": state["cross_v"]}
+
+
+def encode(params, frames, cfg: ModelConfig) -> torch.Tensor:
+    """The encoder over frame embeddings (B,T,D): non-causal layers over
+    positions 0..T-1 with RoPE, then ``enc_norm``; returns (B,T,D) in the
+    compute dtype, the cross-attention's source."""
+    ecfg = encoder_config(cfg)
+    eps = cfg.norm_eps
+    x = frames.to(cfg.cdtype)
+    b, s = x.shape[0], x.shape[1]
+    ctx = attn.attention_context(ecfg, b, s, x.device)
+    m = None
+    for i, bp in enumerate(params["enc_blocks"]):
+        with scope(f"layer{i}"):
+            if m is not None:
+                with scope("resid"):
+                    x = x + m
+            with scope("norm1"):
+                y, h = kernels.rmsnorm_matmul(x, bp["norm1"]["scale"],
+                                              bp["mixer"]["wq"], eps=eps)
+            with scope("attn"):
+                o = attn.attention_fwd(bp["mixer"], h, y, ecfg, ctx,
+                                       causal=False)
+            with scope("norm2"):
+                h, x = kernels.residual_rmsnorm(x, bp["norm2"]["scale"],
+                                                residual=o, eps=eps)
+            with scope("mlp"):
+                m = mlp_fwd(bp["mlp"], h, ecfg)
+    # the last layer's residual add fuses with enc_norm, as in the
+    # reference's plan (no operator scope there either)
+    out, _ = kernels.residual_rmsnorm(x, params["enc_norm"]["scale"],
+                                      residual=m, eps=eps)
+    return out
+
+
 def forward(params, tokens, cfg: ModelConfig, *, cache: Optional[list] = None,
             cache_index: int = 0, lengths=None, block_tables=None,
-            positions=None):
+            positions=None, encoder_tokens=None, frontend_embeds=None):
     """Returns (logits f32 (B,S,V), cache).
 
     ``cache``: from ``make_cache`` or ``make_paged_cache``, updated in place
@@ -291,6 +408,14 @@ def forward(params, tokens, cfg: ModelConfig, *, cache: Optional[list] = None,
     With ``tokens``, ``lengths`` and ``block_tables`` on the device the
     forward derives every index there and issues the same kernels for any
     values (``inference.backends.local`` captures it as a CUDA graph).
+    ``encoder_tokens``: an encoder-decoder's frame embeddings (B,T,D), run
+    through the encoder; ``frontend_embeds``: a vision stack's patch
+    embeddings (B,T,D), the cross-attention's source as they are.  Either
+    one sets every cross layer's K/V (written into the cache's cross
+    entries, which must hold T positions: ``make_cache(src_len=T)``);
+    without them a cross layer reads its K/V from the cache, as decode
+    steps, verifies and the served prefill do, and a forward without
+    either raises.
     """
     check_supported(cfg)
     embed = params["embed"]
@@ -308,6 +433,13 @@ def forward(params, tokens, cfg: ModelConfig, *, cache: Optional[list] = None,
         return _forward_rwkv(params, tokens, cfg, cache), cache
     ctx = _attention_context(cfg, cache, b, s, dev, cache_index, lengths,
                              block_tables, positions)
+    decode = ctx is not None and ctx.decode
+    encoder_out = None
+    if cfg.n_encoder_layers and encoder_tokens is not None:
+        encoder_out = encode(params, torch.as_tensor(encoder_tokens).to(dev),
+                             cfg)
+    elif frontend_embeds is not None:
+        encoder_out = torch.as_tensor(frontend_embeds).to(dev, cfg.cdtype)
     eps = cfg.norm_eps
     period = len(cfg.block_pattern)
     with scope("embed"):
@@ -332,10 +464,26 @@ def forward(params, tokens, cfg: ModelConfig, *, cache: Optional[list] = None,
             with scope(MIXER_SCOPE[kind]):
                 if kind == "mamba":
                     o, _ = mamba.mamba_fwd(mixer, h, cfg, state=state, xz=y)
+                elif kind == "xattn":
+                    o = attn.cross_attention_fwd(
+                        mixer, h, y, cfg, cache=_cross_cache(state),
+                        cross_kv=encoder_out, decode=decode)
+                    o = o * torch.tanh(bp["xgate"]).to(o.dtype)
                 else:
                     o = attn.attention_fwd(mixer, h, y, cfg, ctx,
                                            cache=state,
                                            window=layer_window(cfg, i))
+            if "xattn" in bp:
+                # enc-dec: cross-attention after the self-attention, its
+                # norm fusing the residual add before it
+                with scope("xattn"):
+                    with scope("norm_x"):
+                        h, x = kernels.residual_rmsnorm(
+                            x, bp["norm_x"]["scale"], residual=o, eps=eps)
+                    o = attn.cross_attention_fwd(
+                        bp["xattn"], h, None, cfg,
+                        cache=_cross_cache(state), cross_kv=encoder_out,
+                        decode=decode)
             with scope("norm2"):
                 h, x = kernels.residual_rmsnorm(x, bp["norm2"]["scale"],
                                                 residual=o, eps=eps)

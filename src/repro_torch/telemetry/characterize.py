@@ -584,7 +584,8 @@ def _decode_trace(cfg, params, batch: int, max_len: int, device):
     """The port's decode step at ``batch`` rows, traced (fake tensors: no
     kernel runs)."""
     body = make_step_bodies(cfg).decode
-    cache = make_cache(cfg, batch, max_len, device=device)
+    # one zero cross row, as every served cache holds
+    cache = make_cache(cfg, batch, max_len, src_len=1, device=device)
     return trace_fn(lambda p, c, t, n: body(p, c, t, n)[0], params, cache,
                     torch.zeros((batch, 1), dtype=torch.int32, device=device),
                     torch.zeros((batch,), dtype=torch.int32, device=device))

@@ -72,11 +72,13 @@ def _tokens(seed, shape, vocab):
 
 def test_the_paper_workloads_are_registered():
     from repro.configs import PAPER_WORKLOADS as JX_PAPER
+    from repro.configs import list_configs as jx_list_configs
     from repro_torch.configs import list_configs
     assert PAPER_WORKLOADS == JX_PAPER
     assert set(NEW) | {"smollm-360m", "rwkv6-3b", "moonshot-v1-16b-a3b",
-                       "kimi-k2-1t-a32b", "jamba-1.5-large-398b"} \
-        == set(list_configs())
+                       "kimi-k2-1t-a32b", "jamba-1.5-large-398b",
+                       "llama-3.2-vision-11b", "seamless-m4t-medium"} \
+        == set(list_configs()) == set(jx_list_configs())
 
 
 @pytest.mark.parametrize("name", NEW)

@@ -286,9 +286,8 @@ def test_block_bytes_and_page_ops(setup, kv_dtype):
 
 
 def test_make_paged_cache_rejects_non_attention(setup):
-    """A stack with recurrent layers (RWKV-6, Mamba) raises the
-    reference's ValueError; one the port does not run yet (cross
-    attention) raises NotImplementedError."""
+    """A stack with recurrent layers (RWKV-6, Mamba), a cross-attention
+    stack and an encoder-decoder raise the reference's ValueError."""
     _, cfg, _, _ = setup
     with pytest.raises(ValueError, match="pure-attention"):
         make_paged_cache(cfg.replace(block_pattern=("rwkv6",)), 8, 4,
@@ -296,8 +295,11 @@ def test_make_paged_cache_rejects_non_attention(setup):
     with pytest.raises(ValueError, match="pure-attention"):
         make_paged_cache(cfg.replace(block_pattern=("mamba", "attn")), 8, 4,
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match=r"block kinds \['xattn'\]"):
         make_paged_cache(cfg.replace(block_pattern=("attn", "xattn")), 8, 4,
+                         device="cpu")
+    with pytest.raises(ValueError, match="does not support enc-dec models"):
+        make_paged_cache(cfg.replace(n_encoder_layers=2), 8, 4,
                          device="cpu")
 
 
