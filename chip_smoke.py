@@ -228,7 +228,23 @@ Phases (any failure exits non-zero before a result is printed):
      4096-row one; the encoder's time over 4096 frames; parameter bytes and
      peak memory; eager and fused cells at one superblock (Vision) and 2
      decoder layers (Seamless), and one ``speculative=True`` cell under
-     jit (tokens equal plain jit's but at printed near ties).
+     jit (tokens equal plain jit's but at printed near ties);
+ 20. tensor-parallel serving, Llama-3.2-1B whole at tp=2 with both ranks
+     on the one card (``ShardedBackend``: rank 0 this process, rank 1 a
+     spawned worker, gloo through host memory; each step CUDA-graph
+     segments cut at its all-reduces): f32 logits of a prefill into every
+     slot and 8 decode steps against tp=1 within TP_LOGIT_TOL, the whole
+     model; then bf16 on the contiguous cache, the paged pool and an int8
+     paged pool (chunked prefill), each beside
+     a tp=1 jit engine on the same weights over the serve CLI's requests:
+     tokens equal tp=1's but at printed near ties, the launches a decode
+     step on each rank those of the local config, 2L + 1 graph replays and
+     2L all-reduces a decode step on each rank, ``collective_bytes_per_
+     decode_step`` = 2L x batch x d x 2, both ranks' launches equal; the
+     decode step timed on the serve clock and directly beside tp=1's, the
+     seconds in the gloo exchange a step on each rank and the modeled
+     ``Intel+H100`` collective tax (two ranks time-sharing one card: no
+     tensor-parallel speed).
 
 Phases 4, 6, 7 and 9 serve with ``--plan eager`` (``plan="eager"``): one
 dispatch a node of the traced step, whose norms are their plain versions,
@@ -267,8 +283,10 @@ served cross prefill (``[x_t1]``: B 1, S 16 over T 1, S > T), beside SDPA;
 untied heads (``[unembed_vision]`` 4096 x 128256, ``[unembed_seamless]``
 1024 x 256206).
 
-Order: 1-3, then 18 and 19 (the newest phases, so that a fault there ends
-the run early), then 4-17.  Phase 2 times the kernels in
+Order: 1-3, then 20, 18 and 19 (the newest phases, so that a fault there
+ends the run early), then 4-17.  Phase 2 also holds the six kernels of
+phase 20's path at one tp=2 rank's shapes (``tp_cases``, ``[llama_tp2]``:
+16/4 heads of 64, ``rmsnorm_matmul`` at 2048 x 1024).  Phase 2 times the kernels in
 bf16 (f32 only for the f32-only ``wkv6``; the f32 cases check the error),
 each time the median of 20 calls; a trace (phases 5-18) times and profiles
 3 decode steps (Moonlight's eager step: 1).
@@ -290,6 +308,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (data sheet)
@@ -360,11 +379,15 @@ import torch.nn.functional as F                            # noqa: E402
 from repro_torch import kernels                            # noqa: E402
 from repro_torch.configs import get_config                 # noqa: E402
 from repro_torch.core.boundedness import find_inflection   # noqa: E402
-from repro_torch.core.device_model import KernelEvent      # noqa: E402
+from repro_torch.core.device_model import (KernelEvent,   # noqa: E402
+                                            PLATFORMS, allreduce_cost_s)
 from repro_torch.core.metrics import report as skip_report  # noqa: E402
 from repro_torch.runtime import Planner                    # noqa: E402
 from repro_torch.kernels import build                      # noqa: E402
 from repro_torch.inference.engine import Request, ServeEngine  # noqa: E402
+from repro_torch.inference.backends import LocalBackend    # noqa: E402
+from repro_torch.inference.backends.sharded import (       # noqa: E402
+    ShardedBackend, local_config)
 from repro_torch.inference.kv_quant import quantize_kv     # noqa: E402
 from repro_torch.kernels.decode_attention.ops import _decode_launch  # noqa: E402,E501
 from repro_torch.kernels.decode_attention.ref import (     # noqa: E402
@@ -1101,6 +1124,58 @@ def rwkv_cases(cfg, dtype):
     return cases
 
 
+# phase 20's local shapes: Llama-3.2-1B at tp=2, one rank's 16/4 heads of
+# 64 and its 1024 columns of wq
+TP_DECODE = (16, 4, 64, 0, 0.0, 64 ** -0.5)
+TP_WIDTH = (2048, 1024)
+
+
+def tp_cases(dtype):
+    """The six kernels of phase 20's path at one tp=2 rank's shapes of
+    Llama-3.2-1B (keys ``name[llama_tp2]``): the three decode entries over
+    16/4 heads of 64 (lengths 28/21/17/13), ``flash_attention`` over a
+    16-token prefill of the same heads beside SDPA, ``rmsnorm_matmul`` at
+    the local wq (2048 x 1024) at the decode rows (4 x 1) and a slot's
+    prefill rows (``[llama_tp2_prefill]``), and ``residual_rmsnorm`` on
+    the replicated stream (D 2048)."""
+    hq, hkv, hd, window, cap, scale = TP_DECODE
+    d, f = TP_WIDTH
+    es = torch.tensor([], dtype=dtype).element_size()
+    cases = decode_entry_cases("llama_tp2", hq, hkv, hd, window, cap, scale,
+                               dtype, [28, 21, 17, 13], MAX_LEN, 200)
+    q, k, v = (randn((1, BUCKET, h, hd), dtype, seed).transpose(1, 2)
+               for h, seed in ((hq, 210), (hkv, 211), (hkv, 212)))
+    cases["flash_attention[llama_tp2]"] = dict(
+        call=lambda: kernels.flash_attention(q, k, v, scale=scale),
+        plain=lambda: attention_ref(q, k, v, scale=scale),
+        library=lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale, enable_gqa=True),
+        bytes=(2 * BUCKET * hq * hd + 2 * BUCKET * hkv * hd) * es,
+        flops=4 * (BUCKET * (BUCKET + 1) // 2) * hq * hd)
+    w = randn((d,), dtype, 213) + 1.0
+    wq = randn((d, f), dtype, 214, scale=0.02)
+    for tag, rows in (("llama_tp2", MAX_BATCH), ("llama_tp2_prefill",
+                                                 BUCKET)):
+        x = randn((MAX_BATCH, 1, d) if rows == MAX_BATCH else (1, rows, d),
+                  dtype, 215)
+        cases[f"rmsnorm_matmul[{tag}]"] = dict(
+            call=lambda x=x: kernels.rmsnorm_matmul(x, w, wq),
+            plain=lambda x=x: rmsnorm_matmul_ref(x, w, wq),
+            library=None,
+            unfused=lambda x=x: torch.matmul(
+                F.rms_norm(x, (d,), w, eps=1e-5), wq),
+            bytes=(2 * rows * d + d + d * f + rows * f) * es,
+            flops=2 * rows * d * f + 4 * rows * d)
+    x = randn((MAX_BATCH, 1, d), dtype, 216)
+    r = randn((MAX_BATCH, 1, d), dtype, 217)
+    cases["residual_rmsnorm[llama_tp2]"] = dict(
+        call=lambda: kernels.residual_rmsnorm(x, w, r),
+        plain=lambda: residual_rmsnorm_ref(x, w, r),
+        library=None,
+        bytes=(4 * MAX_BATCH * d + d) * es, flops=5 * MAX_BATCH * d)
+    return cases
+
+
 def phase_kernels(cfg, rcfg) -> dict:
     """Kernel vs plain version at each main path's shapes (SmolLM-360M
     ``cfg``, RWKV-6 ``rcfg``); returns the bf16 rows (with the f32 error;
@@ -1110,7 +1185,8 @@ def phase_kernels(cfg, rcfg) -> dict:
         cases = {**main_path_cases(cfg, dtype), **flash_cases(cfg, dtype),
                  **decode_long_cases(cfg, dtype), **rwkv_cases(rcfg, dtype),
                  **dense_cases(dtype), **mq_cases(cfg, dtype),
-                 **moe_cases(dtype), **xattn_cases(dtype)}
+                 **moe_cases(dtype), **xattn_cases(dtype),
+                 **tp_cases(dtype)}
         for name, c in cases.items():
             out, ref = c["call"](), c["plain"]()
             err = max_err(out, ref)
@@ -4285,6 +4361,273 @@ def phase_xattn() -> tuple:
     return rows, counts
 
 
+# ------------------------------------------------------------------ phase 20
+TP = 2
+# cell -> the engine's cache options; each cell is served at tp=2 and, on
+# the same weights, at tp=1
+TP_CELLS = {"llama_tp2_contiguous": {},
+            "llama_tp2_paged_bf16": dict(cache="paged", block_size=BLOCK),
+            "llama_tp2_paged_int8": dict(cache="paged", kv_dtype="int8",
+                                         block_size=BLOCK,
+                                         prefill_chunk=CHUNK)}
+TP_STEPS = 20            # decode steps timed straight through a backend
+TP_LOGIT_TOL = 1e-4      # f32 logits, tp=2 against tp=1 (other sum order)
+
+
+def tp_f32_check(cfg, seed: int) -> dict:
+    """f32 logits of a prefill into every slot (12-token prompts) and 8
+    batched decode steps (the tp=1 argmax fed to both), ``LocalBackend``
+    under jit against ``ShardedBackend`` at tp=2 on the same weights (TF32
+    off on every rank), the whole model: the sums of the row-split
+    products (wo, w_out) run in another order, so they agree within
+    TP_LOGIT_TOL, not bit for bit."""
+    c32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    params = model_params(c32, seed)
+    one = LocalBackend(c32, params, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                       device=DEV)
+    two = ShardedBackend(c32, params, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                         tp=TP, device=DEV)
+    err, rms = 0.0, 0.0
+    try:
+        pairs = ((one, one.init_contiguous_cache()),
+                 (two, two.init_contiguous_cache()))
+        rng = np.random.default_rng(seed)
+        toks = np.zeros((MAX_BATCH, 1), np.int64)
+        lens = np.full(MAX_BATCH, PROMPT, np.int32)
+        for slot in range(MAX_BATCH):
+            row = np.zeros((1, BUCKET), np.int64)
+            row[0, :PROMPT] = rng.integers(0, cfg.vocab_size, PROMPT)
+            a, b = (be.prefill(c, row, slot, PROMPT)[0].clone()
+                    for be, c in pairs)
+            err = max(err, (a - b).abs().max().item())
+            rms = max(rms, a.pow(2).mean().sqrt().item())
+            toks[slot, 0] = a.argmax().item()
+        for _ in range(8):
+            a, b = (be.decode(c, toks, lens)[0].clone() for be, c in pairs)
+            err = max(err, (a - b).abs().max().item())
+            toks[:, 0] = a.argmax(-1).cpu().numpy()
+            lens += 1
+    finally:
+        two.close()
+    del one, two, params
+    torch.cuda.empty_cache()
+    if not err <= TP_LOGIT_TOL:
+        fail(f"phase 20: f32 logits at tp={TP} part from tp=1 by {err:.3g}"
+             f" > {TP_LOGIT_TOL}")
+    print(f"phase 20: {cfg.name} f32 at full width and depth "
+          f"({c32.n_layers} layers), a prefill "
+          f"into {MAX_BATCH} slots and 8 decode steps: max |tp={TP} - tp=1|"
+          f" logits {err:.3g} (<= {TP_LOGIT_TOL}; logits rms {rms:.3g})")
+    return dict(max_abs_err=err, logits_rms=rms)
+
+
+def tp_new(cfg, params, tp: int, **cache_kw) -> ServeEngine:
+    return ServeEngine(cfg, params, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                       plan="jit", device=DEV, tp=tp, **cache_kw)
+
+
+def tp_engine(cfg, eng: ServeEngine) -> tuple:
+    """``eng`` over the serve CLI's requests (warmup, reset, measured run
+    with the launch counts reset just before); with tp > 1 also the other
+    ranks' launches in the measured run."""
+    tp = eng.tp
+    eng.run(serve.make_requests(N_REQ, cfg.vocab_size, 16))
+    eng.reset()
+    reqs = serve.make_requests(N_REQ, cfg.vocab_size, 16)
+    ranks = ([dict(t) for t in eng.backend.rank_launch_totals]
+             if tp > 1 else None)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    rep = serve.report(eng, done, wall)
+    if ranks is not None:
+        ranks = [{k: t.get(k, 0) - b.get(k, 0) for k in counts}
+                 for t, b in zip(eng.backend.rank_launch_totals, ranks)]
+    if len(done) != N_REQ or any(r.status != "done" or len(r.generated)
+                                 != 16 for r in done):
+        fail(f"phase 20 {cfg.name} tp={tp}: finished {len(done)} of "
+             f"{N_REQ} requests")
+    return eng, done, rep, counts, ranks
+
+
+def direct_steps(eng, n: int = TP_STEPS) -> dict:
+    """``n`` decode steps straight through the engine's backend (the
+    served signature, so its graphs replay): wall ms a step (synchronized
+    at both ends) and, at tp > 1, every rank's segment replays,
+    all-reduces and seconds in the gloo exchange a step, and the last
+    step's launches per rank."""
+    be, b = eng.backend, MAX_BATCH
+    toks = np.zeros((b, 1), np.int64)
+    lens = np.full(b, MAX_LEN // 2, np.int32)
+    if eng.kv is not None:
+        bt = eng.kv.block_tables([None] * b)
+        step = lambda: be.paged_decode(eng.cache, toks, lens, bt)  # noqa
+    else:
+        step = lambda: be.decode(eng.cache, toks, lens)  # noqa: E731
+    step()
+    sharded = eng.tp > 1
+    before = (list(zip(be.rank_collectives, be.rank_graphs)) if sharded
+              else None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    out = dict(wall_ms=(time.perf_counter() - t0) / n * 1e3)
+    if sharded:
+        after = zip(be.rank_collectives, be.rank_graphs)
+        out["ranks"] = [dict(
+            replays=(ag.replays - pg.replays) / n,
+            allreduces=(a.allreduces - p.allreduces) / n,
+            allreduce_ms=(a.allreduce_s - p.allreduce_s) / n * 1e3)
+            for (a, ag), (p, pg) in zip(after, before)]
+        out["launches"] = [{k: v for k, v in r.items() if v}
+                           for r in be.rank_launches]
+    return out
+
+
+def tp_cell(cell, cfg, params, cache_kw, eng) -> tuple:
+    """One cell: tp=1 under jit, then ``eng`` (tp=2, started on the same
+    weights), each over the serve CLI's requests and then timed directly;
+    the checks of phase 20.  Returns (row, the tp=2 run's launch counts
+    per rank)."""
+    t0 = time.perf_counter()
+    e1, d1, r1, _, _ = tp_engine(cfg, tp_new(cfg, params, 1, **cache_kw))
+    s1 = direct_steps(e1)
+    del e1
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    eng, done, rep, counts, ranks = tp_engine(cfg, eng)
+    t2 = time.perf_counter()
+    try:
+        s2 = direct_steps(eng)
+        graphs = eng.backend.graph_stats
+        info = eng.backend.info
+        # the transport alone: the same payload between the ranks, host
+        # memory only, back to back
+        probe_ms = eng.backend.probe_exchange(
+            200, MAX_BATCH * cfg.d_model * 2) * 1e3
+    finally:
+        eng.close()
+    L = cfg.n_layers
+    attn = attention_of(eng)
+    want_step, want_pre = want_launches(local_config(cfg, TP), attn)
+    check_launches(cell, "jit", eng, rep)
+    want_nz = {k: v for k, v in want_step.items() if v}
+    for r, (got, per) in enumerate(zip(s2["launches"], s2["ranks"])):
+        if got != want_nz:
+            fail(f"{cell}: rank {r} launched {got} in a decode step, not "
+                 f"{want_nz}")
+        if per["replays"] != 2 * L + 1 or per["allreduces"] != 2 * L:
+            fail(f"{cell}: rank {r} ran {per['replays']} graph replays and "
+                 f"{per['allreduces']} all-reduces a decode step, not "
+                 f"{2 * L + 1} and {2 * L}")
+    if ranks[1] != counts or ranks[0] != counts:
+        fail(f"{cell}: the ranks' launches in the measured run part: "
+             f"{ranks} (rank 0 counted {counts})")
+    want_bytes = 2 * L * MAX_BATCH * cfg.d_model * 2
+    if rep["collective_bytes_per_decode_step"] != want_bytes:
+        fail(f"{cell}: {rep['collective_bytes_per_decode_step']} collective "
+             f"bytes a decode step, not {want_bytes}")
+    if rep["tp"] != TP or set(rep["per_device_dispatches"]) != {"0", "1"} \
+            or tuple(info.devices) != (0, 0):
+        fail(f"{cell}: tp {rep['tp']}, dispatch streams "
+             f"{rep['per_device_dispatches']}, devices {info.devices}")
+    t3 = time.perf_counter()
+    plain = (plain_int8_logits if cache_kw.get("kv_dtype") == "int8"
+             else plain_logits)
+    same = check_near_ties(done, d1, params, cfg, (f"at tp={TP}", "at tp=1"),
+                           plain)
+    seconds = dict(tp1=t1 - t0, tp2_served=t2 - t1, tp2_rest=t3 - t2,
+                   ties=time.perf_counter() - t3)
+    tax_us = 2 * L * allreduce_cost_s(PLATFORMS["Intel+H100"],
+                                      MAX_BATCH * cfg.d_model * 2, TP) * 1e6
+    row = dict(step_ms=rep["mean_decode_step_ms"],
+               tp1_step_ms=r1["mean_decode_step_ms"],
+               direct_ms=s2["wall_ms"], tp1_direct_ms=s1["wall_ms"],
+               allreduce_ms=[p["allreduce_ms"] for p in s2["ranks"]],
+               host_exchange_ms=probe_ms,
+               modeled_tax_us=tax_us, tok_per_s=rep["tok_per_s"],
+               tp1_tok_per_s=r1["tok_per_s"],
+               mean_ttft_ms=rep["mean_ttft_ms"],
+               tp1_mean_ttft_ms=r1["mean_ttft_ms"],
+               segments=graphs.captured, capture_s=graphs.capture_s,
+               same_tokens=same, collective_bytes_per_step=want_bytes,
+               seconds=seconds)
+    print(f"phase 20: {cell}: ranks on devices {info.devices} (they share "
+          f"the card, gloo over host memory: no tensor-parallel speed); "
+          f"decode step {row['step_ms']:.3f} ms (serve clock), "
+          f"{row['direct_ms']:.3f} ms direct; tp=1 jit "
+          f"{row['tp1_step_ms']:.3f} / {row['tp1_direct_ms']:.3f} ms; "
+          f"all-reduces a step: rank 0 {row['allreduce_ms'][0]:.3f} ms, "
+          f"rank 1 {row['allreduce_ms'][1]:.3f} ms in the gloo exchange "
+          f"({2 * L} of {MAX_BATCH * cfg.d_model * 2} B; one such exchange "
+          f"host to host, no device work: {probe_ms * 1e3:.1f} us); modeled "
+          f"Intel+H100 collective tax {tax_us:.1f} us a step; "
+          f"{2 * L + 1} replays and {2 * L} all-reduces a step on each rank; "
+          f"{want_bytes} collective bytes a step; launches a step {want_nz}"
+          f" on each rank; {row['tok_per_s']:.1f} tok/s (tp=1 "
+          f"{row['tp1_tok_per_s']:.1f}), TTFT {row['mean_ttft_ms']:.2f} ms "
+          f"(tp=1 {row['tp1_mean_ttft_ms']:.2f}); {graphs.captured} graph "
+          f"segments in {graphs.capture_s:.2f} s; tokens equal tp=1's in "
+          f"{same}/{N_REQ} requests (the rest part at a printed near tie); "
+          "seconds " + json.dumps({k: round(v, 1)
+                                   for k, v in seconds.items()}))
+    del eng
+    torch.cuda.empty_cache()
+    return row, {f"{cell}:jit": counts, f"{cell}:jit:rank1": ranks[1]}
+
+
+def phase_tp() -> tuple:
+    """Phase 20: tensor-parallel serving, Llama-3.2-1B at tp=2, both ranks
+    on the one card over gloo: f32 logits of the whole model against tp=1,
+    then bf16 serving of the whole model on the contiguous cache, the
+    paged pool and an int8 pool against tp=1 jit on the same weights.
+    Returns
+    ({cell: row}, {cell:jit[:rank1]: launch counts})."""
+    t0 = time.perf_counter()
+    cfg = get_config(LLAMA)
+    params = model_params(cfg, 201)
+    # each cell's tp=2 engine starts (a worker process that imports this
+    # script and torch, then receives its shard) while the f32 check runs;
+    # the engines then serve one after the other
+    with ThreadPoolExecutor(len(TP_CELLS)) as pool:
+        starting = {cell: pool.submit(tp_new, cfg, params, TP, **kw)
+                    for cell, kw in TP_CELLS.items()}
+        try:
+            rows = {"llama_tp2_f32": tp_f32_check(cfg, 200)}
+            print(f"phase 20: f32 check done at "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            engines = {cell: f.result() for cell, f in starting.items()}
+        except BaseException:
+            for f in starting.values():
+                if f.exception() is None:
+                    f.result().close()
+            raise
+    print(f"phase 20: tp={TP} engines started at "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    counts = {}
+    try:
+        for cell, cache_kw in TP_CELLS.items():
+            rows[cell], c = tp_cell(cell, cfg, params, cache_kw,
+                                    engines[cell])
+            counts.update(c)
+            print(f"phase 20: {cell} done at "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        for eng in engines.values():
+            eng.close()
+    del params
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    print(f"phase 20: {secs:.1f} s")
+    print("phase 20: " + json.dumps({"rows": rows, "seconds": secs}))
+    return rows, counts
+
+
 # ------------------------------------------------------------------ main
 # which main path (its jit run, phase 11; the multi-query entries: their
 # phase-16 speculative run) each kernel's ``launches`` is read from
@@ -4314,12 +4657,14 @@ def main() -> None:
     phase_dispatch_cost(cfg)
     phase_logits_f32(cfg)
     mark("1-3")
-    # the newest phase right after the kernels' checks, so that a fault
+    # the newest phases right after the kernels' checks, so that a fault
     # there ends the run early
+    _, tp_counts = phase_tp()
+    mark("1-3, 20")
     _, moe_counts = phase_moe()
-    mark("1-3, 18")
+    mark("1-3, 20, 18")
     _, xattn_counts = phase_xattn()
-    mark("1-3, 18-19")
+    mark("1-3, 18-20")
     eager_counts, eager = {}, {}
     eager_counts["contiguous"], rep, eng, done = phase_serve(cfg, 4)
     eager["contiguous"] = (rep, done, phase_trace(eng, "phase 5",
@@ -4351,7 +4696,7 @@ def main() -> None:
     _, spec_counts = phase_speculative(jit_rows, jit_done, llama_rows,
                                        llama_done)
     _, tier_counts = phase_serving_tier()
-    print(f"chip_smoke: phases 1-19 in {time.perf_counter() - t0:.1f} s")
+    print(f"chip_smoke: phases 1-20 in {time.perf_counter() - t0:.1f} s")
 
     entries = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -4374,6 +4719,7 @@ def main() -> None:
         by_path.update({p: c[name] for p, c in tier_counts.items()})
         by_path.update({p: c[name] for p, c in moe_counts.items()})
         by_path.update({p: c[name] for p, c in xattn_counts.items()})
+        by_path.update({p: c[name] for p, c in tp_counts.items()})
         entries.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "launches_by_path": by_path, **row})

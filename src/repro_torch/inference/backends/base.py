@@ -20,9 +20,10 @@ the scheduler folds into ``EngineStats`` — one merge path for jit, planned,
 and sharded execution instead of three inline copies.
 
 The port has ``LocalBackend`` (one device: CUDA graphs under ``plan="jit"``,
-the launch-plan runtime under the other plans) and ``SpeculativeBackend``
-(a draft model's stream around it); the sharded backend is still to port
-(ROADMAP Queue A).
+the launch-plan runtime under the other plans), ``ShardedBackend``
+(``tp`` ranks, one process each, head-sharded, an all-reduce at every
+attention and MLP output) and ``SpeculativeBackend`` (a draft model's
+stream around either).
 """
 from __future__ import annotations
 
@@ -165,7 +166,7 @@ class AccountingMixin:
         self.last = acct
         per_dev = acct.dispatches // max(self.info.tp, 1)
         for d in range(self.info.tp):
-            key = self.info.devices[d] if d < len(self.info.devices) else d
+            key = self._stream_key(d)
             self._device_dispatches[key] = (
                 self._device_dispatches.get(key, 0) + per_dev)
         if self._m_calls is not None:
@@ -176,6 +177,11 @@ class AccountingMixin:
                 self._m_coll_bytes.inc(acct.collective_bytes,
                                        backend=self._m_kind)
         return acct
+
+    def _stream_key(self, d: int):
+        """The key of dispatch stream ``d`` in ``device_dispatches``: its
+        device (a tensor-parallel backend keys its ranks instead)."""
+        return self.info.devices[d] if d < len(self.info.devices) else d
 
     @property
     def device_dispatches(self) -> dict:

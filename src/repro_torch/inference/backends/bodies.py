@@ -21,7 +21,8 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import forward, is_recurrent
+from repro_torch.models import forward as _forward
+from repro_torch.models import is_recurrent
 
 
 class StepBodies(NamedTuple):
@@ -61,7 +62,13 @@ def _zeroed_row(cache) -> list:
             for c in cache]
 
 
-def make_step_bodies(cfg: ModelConfig) -> StepBodies:
+def make_step_bodies(cfg: ModelConfig, reduce=None) -> StepBodies:
+    """The step bodies of ``cfg``; ``reduce``: the tensor-parallel output
+    hook forwarded to every ``forward`` (``backends.sharded`` passes the
+    rank's local config and its all-reduce; None: one device)."""
+    def forward(*args, **kw):
+        return _forward(*args, reduce=reduce, **kw)
+
     def prefill_body(params, cache, tokens, slot, plen):
         # tokens: (1, bucket) padded, or exactly the plen prompt tokens for
         # a recurrent stack or an encoder (engine.py); slot, plen: (1,)

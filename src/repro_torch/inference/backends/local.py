@@ -111,10 +111,12 @@ def _views(buf: torch.Tensor, shapes) -> list:
 @dataclass
 class GraphStats:
     """What the captured graphs cost: how many, the seconds spent warming
-    up and capturing them, and the device memory their pools hold."""
+    up and capturing them, the device memory their pools hold, and how
+    many times they were replayed."""
     captured: int = 0
     capture_s: float = 0.0
     memory_bytes: int = 0
+    replays: int = 0
 
 
 @dataclass
@@ -151,14 +153,53 @@ class _Staging:
 
 
 class _Graph(_Staging):
-    """One captured body: its staged inputs, the graph, its output, and
-    the launches of the hand-written kernels one replay runs."""
+    """One captured body: its staged inputs, its graph segments (one, or
+    one more than the reduce sites it was cut at), the partial each cut
+    leaves to be reduced between two replays and a pinned host buffer for
+    it, its output, and the launches of the hand-written kernels one
+    replay runs."""
 
     def __init__(self, shapes, device):
         super().__init__(shapes, device)
-        self.graph = torch.cuda.CUDAGraph()
+        self.graphs: list = []
+        self.bufs: list = []
+        self.hosts: list = []
         self.out = None
         self.launches: dict = {}
+
+
+class _Cutter:
+    """A capture in progress, cut into a new segment at each reduce site
+    (a body without a reduce hook is never cut: one segment); every
+    segment goes into one memory pool and is replayed in capture order."""
+
+    def __init__(self):
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graphs: list = []
+        self.bufs: list = []
+        self._g = None
+
+    def begin(self) -> None:
+        self._g = torch.cuda.CUDAGraph()
+        self._g.capture_begin(pool=self.pool)
+
+    def end(self) -> None:
+        self._g.capture_end()
+        self.graphs.append(self._g)
+        self._g = None
+
+    def cut(self, x: torch.Tensor) -> None:
+        self.end()
+        self.bufs.append(x)
+        self.begin()
+
+    def abort(self) -> None:
+        if self._g is not None:
+            g, self._g = self._g, None
+            try:
+                g.capture_end()
+            except RuntimeError:
+                pass
 
 
 class _PlannedFn:
@@ -226,7 +267,66 @@ class _PlannedFn:
         return self.plan.rule_names() if self.plan is not None else []
 
 
-class LocalBackend(AccountingMixin):
+class StepCalls:
+    """The step kinds of the backend protocol, each turning its host
+    values into fixed-shape int32 arrays for ``self._call(kind, cache,
+    arrays, static)``: shared by ``LocalBackend`` and the tensor-parallel
+    ``backends.sharded.ShardedBackend``."""
+
+    def prefill(self, cache, tokens, slot: int, plen: int):
+        """Write one prompt into a slot; (last-position logits, cache)."""
+        toks = _host_ints(tokens, (1, -1))
+        return self._call("prefill", cache,
+                          [toks, np.array([slot], np.int32),
+                           np.array([plen], np.int32)], ())
+
+    def decode(self, cache, tokens, lengths):
+        """One batched decode step; ``lengths`` (B,) host values."""
+        return self._call("decode", cache, [_host_ints(tokens, (-1, 1)),
+                                            _host_ints(lengths, (-1,))], ())
+
+    def prefill_chunk(self, cache, tokens, bt_row, t0):
+        """Write one prompt chunk into the paged pool through the slot's
+        block-table row (host values); (last-position logits, cache)."""
+        return self._call("paged_prefill", cache,
+                          [_host_ints(tokens, (1, -1)),
+                           _host_ints(bt_row, (1, -1))], (int(t0),))
+
+    def paged_decode(self, cache, tokens, lengths, block_tables):
+        """One batched decode step over the paged pool; ``lengths`` and
+        ``block_tables`` host values."""
+        toks = _host_ints(tokens, (-1, 1))
+        return self._call("paged_decode", cache,
+                          [toks, _host_ints(lengths, (-1,)),
+                           _host_ints(block_tables, (toks.shape[0], -1))],
+                          ())
+
+    def verify(self, cache, tokens, lengths):
+        """Score k+1 tokens a row in one batched step (the speculative
+        verify); tokens (B, k+1), ``lengths`` (B,) host values; (every
+        logits row (B, k+1, V), cache).  Under jit one graph per (B, k+1)."""
+        toks = _host_ints(tokens, (self.B, -1))
+        return self._call("verify", cache,
+                          [toks, _host_ints(lengths, (-1,))], ())
+
+    def paged_verify(self, cache, tokens, lengths, block_tables):
+        """``verify`` over the paged pool."""
+        toks = _host_ints(tokens, (self.B, -1))
+        return self._call("paged_verify", cache,
+                          [toks, _host_ints(lengths, (-1,)),
+                           _host_ints(block_tables, (self.B, -1))], ())
+
+    def draft_step(self, cache, tokens, positions, lengths):
+        """One step of the speculative draft model (this backend serving
+        the draft): tokens and positions (B, W) right-aligned, ``lengths``
+        (B,); (last-column logits (B, V), cache)."""
+        toks = _host_ints(tokens, (self.B, -1))
+        return self._call("draft_step", cache,
+                          [toks, _host_ints(positions, toks.shape),
+                           _host_ints(lengths, (-1,))], ())
+
+
+class LocalBackend(StepCalls, AccountingMixin):
     """One device; CUDA graphs (``plan="jit"``) or a launch plan."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int,
@@ -253,6 +353,7 @@ class LocalBackend(AccountingMixin):
         self._capturing = plan == "jit" and cuda
         self._captured_plan = plan not in ("jit", "eager") and cuda
         self._graphs: dict = {}       # signature -> _Graph
+        self._cuts = None             # the _Cutter of a capture under way
         self._planned_fns: dict = {}  # signature without addresses ->
         self._programs: dict = {}     # _PlannedFn; with them -> (staging,
         self._planned_decode = None   # captured program)
@@ -435,18 +536,30 @@ class LocalBackend(AccountingMixin):
             g = self._capture(kind, body, cache, arrays, shapes, static)
             self._graphs[key] = g
         g.load(arrays)
-        g.graph.replay()
+        for i, graph in enumerate(g.graphs):
+            if i:
+                self._reduce_replayed(g.bufs[i - 1], g.hosts[i - 1])
+            graph.replay()
+        self.graph_stats.replays += len(g.graphs)
         host = time.perf_counter() - t0
         kernels.credit_launches(g.launches)
         self._charge(CallAccount(dispatches=1, host_time_s=host,
                                  kernel_launches=dict(g.launches)))
         return g.out, cache
 
+    def _reduce_replayed(self, buf: torch.Tensor,
+                         host: torch.Tensor) -> None:
+        """Reduce the partial ``buf`` that a cut left between two segment
+        replays.  Only a body with a reduce hook is cut, and a single
+        device's bodies have none."""
+        raise NotImplementedError("a single-device body has no reduce")
+
     def _capture(self, kind, body, cache, arrays, shapes, static) -> _Graph:
         """Warm ``body`` up on the capture stream (which builds the kernels
         and makes the decode split counters and cuBLAS's workspace outside
-        the graph's pool), then capture it.  Where the body advances state
-        (``StepBodies.advance_state``), the cache is saved before the
+        the graph's pool), then capture it, a new segment at each reduce
+        site the body's hook cuts at (``_cuts``).  Where the body advances
+        state (``StepBodies.advance_state``), the cache is saved before the
         warm-up and restored after, so the replay steps it once."""
         t0 = time.perf_counter()
         dev = self.device
@@ -465,72 +578,40 @@ class LocalBackend(AccountingMixin):
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         before = kernels.launch_counts()
+        cuts = self._cuts = _Cutter()
         try:
-            with torch.cuda.graph(g.graph, stream=stream):
+            with torch.cuda.stream(stream):
+                cuts.begin()
                 g.out, _ = body(*args)
+                cuts.end()
+        except BaseException:
+            cuts.abort()
+            raise
         finally:    # recording a launch is not one: take the counts back
+            self._cuts = None
             after = kernels.launch_counts()
             kernels.credit_launches({k: before[k] - after[k] for k in after})
         g.launches = {k: after[k] - before[k] for k in after}
+        g.graphs, g.bufs = cuts.graphs, cuts.bufs
+        g.hosts = [torch.empty(b.shape, dtype=b.dtype, pin_memory=True)
+                   for b in g.bufs]
+        torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         st = self.graph_stats
         st.memory_bytes += torch.cuda.memory_reserved(dev) - reserved
-        st.captured += 1
+        st.captured += len(g.graphs)
         st.capture_s += time.perf_counter() - t0
         return g
 
-    # ------------------------------------------------------------ steps
-    def prefill(self, cache, tokens, slot: int, plen: int):
-        """Write one prompt into a slot; (last-position logits, cache)."""
-        toks = _host_ints(tokens, (1, -1))
-        return self._call("prefill", cache,
-                          [toks, np.array([slot], np.int32),
-                           np.array([plen], np.int32)], ())
+    def reset_cache(self, cache) -> None:
+        """Zero every leaf of ``cache`` in place (the engine's reset), so
+        the graphs keyed on its addresses replay."""
+        for layer in cache:
+            for t in layer.values():
+                t.zero_()
 
-    def decode(self, cache, tokens, lengths):
-        """One batched decode step; ``lengths`` (B,) host values."""
-        return self._call("decode", cache, [_host_ints(tokens, (-1, 1)),
-                                            _host_ints(lengths, (-1,))], ())
-
-    def prefill_chunk(self, cache, tokens, bt_row, t0):
-        """Write one prompt chunk into the paged pool through the slot's
-        block-table row (host values); (last-position logits, cache)."""
-        return self._call("paged_prefill", cache,
-                          [_host_ints(tokens, (1, -1)),
-                           _host_ints(bt_row, (1, -1))], (int(t0),))
-
-    def paged_decode(self, cache, tokens, lengths, block_tables):
-        """One batched decode step over the paged pool; ``lengths`` and
-        ``block_tables`` host values."""
-        toks = _host_ints(tokens, (-1, 1))
-        return self._call("paged_decode", cache,
-                          [toks, _host_ints(lengths, (-1,)),
-                           _host_ints(block_tables, (toks.shape[0], -1))],
-                          ())
-
-    def verify(self, cache, tokens, lengths):
-        """Score k+1 tokens a row in one batched step (the speculative
-        verify); tokens (B, k+1), ``lengths`` (B,) host values; (every
-        logits row (B, k+1, V), cache).  Under jit one graph per (B, k+1)."""
-        toks = _host_ints(tokens, (self.B, -1))
-        return self._call("verify", cache,
-                          [toks, _host_ints(lengths, (-1,))], ())
-
-    def paged_verify(self, cache, tokens, lengths, block_tables):
-        """``verify`` over the paged pool."""
-        toks = _host_ints(tokens, (self.B, -1))
-        return self._call("paged_verify", cache,
-                          [toks, _host_ints(lengths, (-1,)),
-                           _host_ints(block_tables, (self.B, -1))], ())
-
-    def draft_step(self, cache, tokens, positions, lengths):
-        """One step of the speculative draft model (this backend serving
-        the draft): tokens and positions (B, W) right-aligned, ``lengths``
-        (B,); (last-column logits (B, V), cache)."""
-        toks = _host_ints(tokens, (self.B, -1))
-        return self._call("draft_step", cache,
-                          [toks, _host_ints(positions, toks.shape),
-                           _host_ints(lengths, (-1,))], ())
+    def close(self) -> None:
+        """Nothing to release: one device, no other process."""
 
     @property
     def planned_decode(self):

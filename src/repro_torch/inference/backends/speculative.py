@@ -1,7 +1,8 @@
 """Speculative execution backend: draft-propose / batched-verify.
 
 Counterpart of ``repro/inference/backends/speculative.py``.  Wraps a target
-backend (``LocalBackend``) and adds a small draft model that proposes k
+backend (``LocalBackend``, or a ``ShardedBackend``: kind
+``"speculative+sharded"``, the draft local on rank 0's device) and adds a small draft model that proposes k
 tokens autoregressively; the target then verifies all k+1 positions in ONE
 batched step (``verify``/``paged_verify``).  Accept/reject lives in the
 scheduler (``repro_torch.inference.speculative.greedy_accept``); this class
@@ -38,7 +39,7 @@ from repro_torch.inference.backends.local import GraphStats, LocalBackend
 class SpeculativeBackend:
     """Draft-propose / batched-verify wrapper around a target backend."""
 
-    def __init__(self, target: LocalBackend, draft_cfg: ModelConfig,
+    def __init__(self, target, draft_cfg: ModelConfig,
                  draft_params, *, max_batch: int, max_len: int,
                  platform: str = "Intel+H100"):
         self.target = target
@@ -121,7 +122,8 @@ class SpeculativeBackend:
         t, d = self.target.graph_stats, self.draft.graph_stats
         return GraphStats(captured=t.captured + d.captured,
                           capture_s=t.capture_s + d.capture_s,
-                          memory_bytes=t.memory_bytes + d.memory_bytes)
+                          memory_bytes=t.memory_bytes + d.memory_bytes,
+                          replays=t.replays + d.replays)
 
     @property
     def trace_stats(self):
@@ -134,6 +136,14 @@ class SpeculativeBackend:
     def init_paged_cache(self, kv):
         """Delegate paged-cache construction to the wrapped backend."""
         return self.target.init_paged_cache(kv)
+
+    def reset_cache(self, cache) -> None:
+        """Zero the target's cache in place (delegated)."""
+        self.target.reset_cache(cache)
+
+    def close(self) -> None:
+        """Release the target (a sharded one stops its ranks)."""
+        self.target.close()
 
     def _delegate(self, out):
         """Forward a target-backend result, mirroring its account."""
@@ -174,7 +184,7 @@ class SpeculativeBackend:
         the lead device's stream."""
         merged = dict(self.target.device_dispatches)
         if self._draft_device_dispatches:
-            lead = self.info.devices[0] if self.info.devices else 0
+            lead = self.target._stream_key(0)
             merged[lead] = (merged.get(lead, 0)
                             + self._draft_device_dispatches)
         return merged

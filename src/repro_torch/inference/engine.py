@@ -61,8 +61,14 @@ time of the graph replay), preemption, first token and completion.  A
 speculative round is one decode interval charged to each of its rows.  A
 fleet shares one tracer across its replicas, so ``reset()`` keeps it.
 
-Tensor parallelism is not ported yet: asking for it raises ``ValueError``
-naming its ROADMAP Queue A item rather than being ignored.
+``tp > 1`` serves through ``backends.sharded.ShardedBackend``: the
+engine stays in the caller's process as rank 0 (scheduler, host argmax,
+draft), the other ranks run their head shards in processes of their own,
+and the stats count the reference's collectives (``collectives``,
+``collective_bytes``, ``decode_collective_bytes``,
+``modeled_collective_tax_s``) and the dispatches per rank
+(``per_device_dispatches``).  ``close()`` (or leaving a ``with`` block)
+stops those processes.
 """
 from __future__ import annotations
 
@@ -146,6 +152,16 @@ class EngineStats:
         "modeled_tklqt_s": ("engine_modeled_tklqt_seconds", float,
                             "device-model TKLQT summed over steps "
                             "(0 under plan=jit: nothing modeled)"),
+        # ---- tensor parallelism (tp=1: one stream, zero collectives)
+        "collectives": ("engine_collectives", int,
+                        "collective ops issued (psums)"),
+        "collective_bytes": ("engine_collective_bytes", int,
+                             "payload bytes entering collectives"),
+        "decode_collective_bytes": ("engine_decode_collective_bytes", int,
+                                    "decode-step-only collective payload"),
+        "modeled_collective_tax_s": ("engine_modeled_collective_tax_seconds",
+                                     float,
+                                     "collectives priced over the link"),
         "rejected": ("engine_rejected", int,
                      "admissions refused: plen + budget > max_len"),
         "prefill_kernel_launches": ("engine_prefill_kernel_launches", int,
@@ -188,7 +204,7 @@ class EngineStats:
                                  "instead of re-prefilling"),
     }
 
-    def __init__(self, plan: str = "jit", registry=None):
+    def __init__(self, plan: str = "jit", registry=None, tp: int = 1):
         if registry is None:
             registry = MetricsRegistry()
         object.__setattr__(self, "registry", registry)
@@ -199,6 +215,8 @@ class EngineStats:
             gauges[attr] = g
         object.__setattr__(self, "_gauges", gauges)
         self.plan = plan
+        self.tp = tp                   # device streams every dispatch fans to
+        self.per_device_dispatches = {}
         self.slot_occupancy = []
         self.step_times_s = []         # decode step durations
         self.decode_launches_by_kernel = {}   # wrapper name -> launches
@@ -291,6 +309,14 @@ class EngineStats:
                 if self.spec_emitted else 0.0)
 
     @property
+    def collective_bytes_per_decode_step(self) -> float:
+        """Decode-only all-reduce payload per decode step (prefill
+        all-reduces count in ``collective_bytes``, not here, so the figure
+        is a property of the decode step, not the workload shape)."""
+        return (self.decode_collective_bytes / self.decode_steps
+                if self.decode_steps else 0.0)
+
+    @property
     def dispatches_per_decode_step(self) -> float:
         """Host dispatches per decode step (1 under jit: one replay)."""
         return (self.decode_dispatches / self.decode_steps
@@ -336,6 +362,8 @@ class ServeEngine:
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch} "
                              "(an engine with no slots can never admit)")
+        if tp < 1:
+            raise ValueError(f"tp must be >= 1, got {tp}")
         if platform not in PLATFORMS:
             raise ValueError(f"unknown platform {platform!r}; expected one "
                              f"of {sorted(PLATFORMS)}")
@@ -396,15 +424,10 @@ class ServeEngine:
         self.prefill_chunk = prefill_chunk
         self.platform = platform
         self.greedy = greedy
-        self.backend = make_backend(cfg, params, max_batch=max_batch,
-                                    max_len=max_len, tp=tp, plan=plan,
-                                    device=device, platform=platform)
         self.speculative = bool(speculative)
         self.spec_k = spec_k
         self.spec_inflection = spec_inflection
         if speculative:
-            # wrap the target backend with the draft-propose /
-            # batched-verify layer
             draft_cfg = (draft_config if draft_config is not None
                          else default_draft_config(cfg))
             validate_draft(cfg, draft_cfg, spec_k)
@@ -418,9 +441,19 @@ class ServeEngine:
                         "(e.g. repro_torch.models.init_params(draft_config,"
                         " generator))")
                 draft_params = draft_params_from_target(params, draft_cfg)
-            self.backend = SpeculativeBackend(
-                self.backend, draft_cfg, draft_params,
-                max_batch=max_batch, max_len=max_len, platform=platform)
+        self.backend = make_backend(cfg, params, max_batch=max_batch,
+                                    max_len=max_len, tp=tp, plan=plan,
+                                    device=device, platform=platform)
+        if speculative:
+            # wrap the target backend (local or sharded) with the
+            # draft-propose / batched-verify layer
+            try:
+                self.backend = SpeculativeBackend(
+                    self.backend, draft_cfg, draft_params,
+                    max_batch=max_batch, max_len=max_len, platform=platform)
+            except BaseException:
+                self.backend.close()
+                raise
             self.draft_cfg = draft_cfg
             self.draft_cache = self.backend.init_draft_cache()
             self.draft_lengths = np.zeros(max_batch, np.int32)
@@ -458,7 +491,9 @@ class ServeEngine:
         self.lengths = np.zeros(max_batch, np.int32)
         self.slots: list[Optional[Request]] = [None] * max_batch
         self.registry = MetricsRegistry()
-        self.stats = EngineStats(plan=self.plan_label, registry=self.registry)
+        self.stats = EngineStats(plan=self.plan_label, registry=self.registry,
+                                 tp=self.tp)
+        self._dev_base = self.backend.device_dispatches  # reset() baseline
         self.telemetry = telemetry          # Optional[SpanRecorder]
         # request-scoped lifecycle tracer (Optional[RequestTracer]); a
         # fleet shares ONE instance across replicas so a trace follows
@@ -542,6 +577,7 @@ class ServeEngine:
             self.stats.decode_dispatch_time_s += acct.host_time_s
             self.stats.decode_dispatches += acct.dispatches
             self.stats.fused_dispatches += len(acct.rule_names)
+            self.stats.decode_collective_bytes += acct.collective_bytes
             by = self.stats.decode_launches_by_kernel
             for name, c in acct.kernel_launches.items():
                 by[name] = by.get(name, 0) + c
@@ -552,11 +588,17 @@ class ServeEngine:
         self.stats.modeled_tklqt_s += acct.modeled_tklqt_s
         for nm in acct.rule_names:
             self.stats.rule_hits[nm] = self.stats.rule_hits.get(nm, 0) + 1
+        self.stats.collectives += acct.collectives
+        self.stats.collective_bytes += acct.collective_bytes
+        self.stats.modeled_collective_tax_s += acct.modeled_collective_tax_s
         self.stats.proposed += acct.proposed
         self.stats.accepted += acct.accepted
         self.stats.draft_dispatches += acct.draft_dispatches
         self.stats.modeled_draft_launch_tax_s += \
             acct.modeled_draft_launch_tax_s
+        self.stats.per_device_dispatches = {
+            d: n - self._dev_base.get(d, 0)
+            for d, n in self.backend.device_dispatches.items()}
 
     def _record_segments(self, acct: CallAccount, t_begin: float) -> None:
         """Per-segment dispatch spans on the engine clock: the measured
@@ -1381,13 +1423,13 @@ class ServeEngine:
         graphs and traced plans: the cache is zeroed in place, so every
         graph keyed on its addresses replays (warmup run, reset, measured
         run)."""
-        for c in self.cache:
-            for t in c.values():
-                t.zero_()
+        self.backend.reset_cache(self.cache)
         self.lengths = np.zeros(self.B, np.int32)
         self.slots = [None] * self.B
         self.registry = MetricsRegistry()
-        self.stats = EngineStats(plan=self.plan_label, registry=self.registry)
+        self.stats = EngineStats(plan=self.plan_label, registry=self.registry,
+                                 tp=self.tp)
+        self._dev_base = self.backend.device_dispatches
         self.now = 0.0
         if self.monitor is not None:
             self.monitor.clear()
@@ -1408,3 +1450,14 @@ class ServeEngine:
             if self.offload_tier is not None:
                 self.offload_tier.clear()
         self._bind_telemetry()
+
+    def close(self) -> None:
+        """Release the backend: a tensor-parallel one stops its rank
+        processes (idempotent; nothing to do for one device)."""
+        self.backend.close()
+
+    def __enter__(self) -> "ServeEngine":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

@@ -11,8 +11,9 @@ one ``device`` and the fleet runs as a simulation of R devices (each
 replica's clock advances by the measured wall time of its own calls, one
 replica at a time) — the routing, queueing and accounting are the same
 either way because the scheduler layer never touches placement.
-Tensor-parallel replicas (``tp > 1``) are not ported yet: the engine's
-backend refuses them.
+A replica at ``tp > 1`` is an engine over a ``ShardedBackend``: its own
+``tp`` rank processes (on one card, all of them share it).  ``close()``
+stops every replica's ranks; a retired replica's stop as it is reaped.
 
 The fleet owns replica lifecycle only (create, drain, retire, metrics
 aggregation).  Request routing lives in ``repro_torch.inference.router``; the
@@ -33,6 +34,7 @@ from dataclasses import dataclass, field
 import torch
 
 from repro_torch.inference.engine import EngineStats, Request, ServeEngine
+from repro_torch.launch.mesh import make_fleet_mesh
 from repro_torch.telemetry.registry import MetricsRegistry
 
 REPLICA_STATES = ("serving", "draining")
@@ -91,7 +93,7 @@ class ReplicaFleet:
                     f"{replicas * tp} GPUs, found {have}; drop "
                     "validate_mesh to time-multiplex the replicas on one "
                     "device")
-            self.mesh = (replicas, tp)
+            self.mesh = make_fleet_mesh(replicas, tp, device=device)
         self.registry = registry if registry is not None \
             else MetricsRegistry()
         self._g_replicas = self.registry.gauge(
@@ -106,8 +108,12 @@ class ReplicaFleet:
             "drained replicas detached from the fleet")
         self._next_rid = 0
         self.replicas: dict[int, Replica] = {}
-        for _ in range(replicas):
-            self.add_replica()
+        try:
+            for _ in range(replicas):
+                self.add_replica()
+        except BaseException:
+            self.close()
+            raise
 
     # ------------------------------------------------------------ lifecycle
     def _make_engine(self) -> ServeEngine:
@@ -157,7 +163,7 @@ class ReplicaFleet:
         retired = [rid for rid, rep in self.replicas.items()
                    if rep.state == "draining" and not rep.engine.busy]
         for rid in retired:
-            del self.replicas[rid]
+            self.replicas.pop(rid).engine.close()
             self._c_retired.inc()
         if retired:
             self._note_states()
@@ -169,6 +175,18 @@ class ReplicaFleet:
         for rep in self.replicas.values():
             self._g_state.set(1.0 if rep.serving else 0.0,
                               replica=rep.rid)
+
+    def close(self) -> None:
+        """Release every live replica's backend (a tensor-parallel one
+        stops its ranks)."""
+        for rep in self.replicas.values():
+            rep.engine.close()
+
+    def __enter__(self) -> "ReplicaFleet":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
     # ------------------------------------------------------------ views
     def serving(self) -> list[Replica]:

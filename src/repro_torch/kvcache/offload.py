@@ -14,6 +14,14 @@ copies, so ``measured_copy_s`` is their device time: the transfer, plus
 the few microseconds the host takes to enqueue it when the stream is
 idle.  A pair is folded into the running total once it has completed;
 the serving loop never waits on one.
+
+Under tensor parallelism (``tp > 1``) the pool's pages are head-sharded
+and each rank stages its own 1/tp of an evicted block over its own host
+link, as in the reference.  The ``HostPages`` this tier is given are rank
+0's shard (``backends.sharded``: the engine's pages are rank 0's), so
+their bytes are already the per-device bytes that the reference's tier
+gets by dividing the whole pages' bytes by ``tp``, and the link pricing
+sees those: the tier takes no ``tp``.
 """
 from __future__ import annotations
 

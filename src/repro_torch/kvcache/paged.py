@@ -12,6 +12,12 @@ per-layer tensors IN PLACE (and return the same list, so the engine's
 calls read as the reference's).  ``gather_host`` returns the pages of some
 blocks as one ``HostPages`` byte buffer, so an eviction or a restore
 crosses the host link as one copy.
+
+Under tensor parallelism the pages the engine passes are rank 0's head
+shard, and ``mirror`` (set by ``backends.sharded.ShardedBackend``) repeats
+each page op, in order, on the other ranks' shards before it runs here; a
+gather's staged pages stay on each rank under the ``HostPages.key`` of
+rank 0's.
 """
 from __future__ import annotations
 
@@ -43,9 +49,10 @@ class HostPages:
     (byte offset, dtype, shape) in it, in ``_leaves`` order.  Each leaf
     starts on a 16-byte boundary."""
 
-    def __init__(self, buf: torch.Tensor, layout: list):
+    def __init__(self, buf: torch.Tensor, layout: list, key=None):
         self.buf = buf
         self.layout = layout
+        self.key = key        # the other ranks' staged pages (mirrored)
 
     @staticmethod
     def plan(leaves, n_blocks: int) -> tuple:
@@ -94,6 +101,9 @@ class PagedKVCache:
         self.nb_per_slot = -(-max_len // block_size)
         self.pool = BlockPool(num_blocks, block_size)
         self.dtype = dtype or cfg.cdtype
+        # tensor parallelism: (op, *args) -> None, run before each page op
+        self.mirror = None
+        self._stages = 0
 
     # page id guaranteed out of range: writes drop it, reads clamp it
     @property
@@ -134,6 +144,8 @@ class PagedKVCache:
         attention over stale entries stays exact-zero)."""
         if not ids:
             return pages
+        if self.mirror is not None:
+            self.mirror("zero_pages", list(ids))
         idx = self._index(pages, ids)
         for leaf in _leaves(pages):
             leaf.index_fill_(0, idx, 0)
@@ -145,6 +157,11 @@ class PagedKVCache:
         buffer, and ONE copy moves it into a pinned host buffer on the
         current stream; ``timer`` (``HostOffloadTier.copy_timer``) wraps
         that copy alone.  On the CPU the staging buffer is the result."""
+        key = None
+        if self.mirror is not None:
+            key = self._stages
+            self._stages += 1
+            self.mirror("gather_host", list(ids), key)
         idx = self._index(pages, ids)
         leaves = list(_leaves(pages))
         layout, total = HostPages.plan(leaves, len(ids))
@@ -152,17 +169,19 @@ class PagedKVCache:
         for leaf, dst in zip(leaves, HostPages(staging, layout).leaves()):
             torch.index_select(leaf, 0, idx, out=dst)
         if idx.device.type != "cuda":
-            return HostPages(staging, layout)
+            return HostPages(staging, layout, key)
         host = torch.empty(total, dtype=torch.uint8, pin_memory=True)
         with timer or contextlib.nullcontext():
             host.copy_(staging, non_blocking=True)
-        return HostPages(host, layout)
+        return HostPages(host, layout, key)
 
     def scatter_host(self, pages: list, ids: list, host: HostPages,
                      timer=None) -> list:
         """Copy staged pages host->device into freshly allocated pages
         ``ids`` (the restore): ONE copy of the buffer on the current
         stream (``timer`` wraps it), then one index kernel per leaf."""
+        if self.mirror is not None:
+            self.mirror("scatter_host", list(ids), host.key)
         idx = self._index(pages, ids)
         buf = host.buf
         if idx.device.type == "cuda":
@@ -176,6 +195,8 @@ class PagedKVCache:
         """Copy-on-write divergence: duplicate block ``src_id``'s page
         contents into freshly allocated block ``dst_id`` in every layer,
         so the subsequent write lands on a private copy."""
+        if self.mirror is not None:
+            self.mirror("copy_pages", int(src_id), int(dst_id))
         for leaf in _leaves(pages):
             leaf[dst_id] = leaf[src_id]
         return pages

@@ -173,8 +173,8 @@ def main(argv=None):
                     choices=sorted(PLATFORMS))
     ap.add_argument("--tp", type=int, default=1,
                     help="tensor-parallel degree per replica; the fleet "
-                         "is the (data=replicas, model=tp) grid (tp > 1 "
-                         "is not ported: the engine refuses it)")
+                         "is the (data=replicas, model=tp) grid, each "
+                         "replica's ranks processes of their own")
     ap.add_argument("--cache", default="contiguous", choices=CACHE_MODES)
     ap.add_argument("--block-size", type=int, default=16)
     ap.add_argument("--num-blocks", type=int, default=None)
@@ -257,34 +257,38 @@ def main(argv=None):
     fleet = ReplicaFleet(cfg, params, replicas=args.replicas, tp=args.tp,
                          validate_mesh=args.validate_mesh, device=dev,
                          tracer=tracer, **engine_kwargs)
-    warm = {}
-    if not args.no_warmup:
-        # each replica captures its own graphs on the whole workload;
-        # reset() keeps them, so the measured drain replays
-        for rep in fleet.live():
-            rep.engine.run(build_requests(wl))
-            rep.engine.reset()
-            warm[rep.rid] = _captures(rep)
-        tracer.clear()
+    try:
+        warm = {}
+        if not args.no_warmup:
+            # each replica captures its own graphs on the whole workload;
+            # reset() keeps them, so the measured drain replays
+            for rep in fleet.live():
+                rep.engine.run(build_requests(wl))
+                rep.engine.reset()
+                warm[rep.rid] = _captures(rep)
+            tracer.clear()
 
-    def emit(ev):
-        print(json.dumps({"stream": {"rid": ev.rid, "replica": ev.replica,
-                                     "index": ev.index, "token": ev.token,
-                                     "t": round(ev.t, 6)}}))
+        def emit(ev):
+            print(json.dumps({"stream": {"rid": ev.rid, "replica": ev.replica,
+                                         "index": ev.index, "token": ev.token,
+                                         "t": round(ev.t, 6)}}))
 
-    router = RequestRouter(fleet, policy=args.policy,
-                           on_token=emit if args.stream else None,
-                           tracer=tracer)
-    actions = []
-    if args.remove_at is not None:
-        actions.append((args.remove_at,
-                        lambda rt: rt.remove_replica(0)))
-    if args.add_at is not None:
-        actions.append((args.add_at, lambda rt: rt.add_replica()))
+        router = RequestRouter(fleet, policy=args.policy,
+                               on_token=emit if args.stream else None,
+                               tracer=tracer)
+        actions = []
+        if args.remove_at is not None:
+            actions.append((args.remove_at,
+                            lambda rt: rt.remove_replica(0)))
+        if args.add_at is not None:
+            actions.append((args.add_at, lambda rt: rt.add_replica()))
 
-    t0 = time.perf_counter()
-    report = router.route(build_requests(wl), actions=actions)
-    wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        report = router.route(build_requests(wl), actions=actions)
+        wall = time.perf_counter() - t0
+    finally:
+        # tensor-parallel replicas' ranks serve nothing more
+        fleet.close()
 
     out = {"arch": cfg.name, "scenario": args.scenario, "tp": args.tp,
            "device": str(dev), "plan": args.plan, "cache": args.cache}

@@ -11,6 +11,8 @@
         --trace-out t.json --slo-ttft-ms 200 --slo-itl-ms 50
     PYTHONPATH=src python -m repro_torch.launch.serve --plan fused \\
         --attribution
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-3.2-1b \\
+        --tp 2
 
 Counterpart of ``repro.launch.serve`` for the flags the port supports
 (``--plan``, ``--cache paged`` with its block, dtype, sharing, offload and
@@ -25,7 +27,11 @@ writes one Perfetto track per request (its critical path) over the
 engine's host lanes; ``--slo-ttft-ms`` / ``--slo-itl-ms`` set the SLO the
 goodput accounting classifies each request against; ``--attribution``
 adds the per-operator launch/queue/exec attribution of one decode step,
-which needs a launch plan).  ``--plan jit``, the default as in the reference, replays
+which needs a launch plan; ``--tp N`` serves through the tensor-parallel
+backend, N rank processes with head-sharded weights and KV and an
+all-reduce at every attention and MLP output, ``--plan jit`` only; with
+fewer GPUs than ranks the ranks share a card, so its times are no
+tensor-parallel speed).  ``--plan jit``, the default as in the reference, replays
 each step as one CUDA graph (``inference.backends.local``); ``eager``,
 ``whole_graph``, ``chain``, ``auto`` and ``fused`` run it through the
 launch-plan runtime (``eager`` op by op; the others one CUDA graph per
@@ -132,6 +138,15 @@ def report(eng: ServeEngine, done: list, wall_s: float) -> dict:
                                      if tier is not None
                                      and eng.backend.device.type == "cuda"
                                      else None),
+        "tp": st.tp,
+        "devices": list(eng.backend.info.devices),
+        "per_device_dispatches": {str(d): n for d, n in
+                                  sorted(st.per_device_dispatches.items())},
+        "collectives": st.collectives,
+        "collective_bytes": st.collective_bytes,
+        "collective_bytes_per_decode_step":
+            st.collective_bytes_per_decode_step,
+        "modeled_collective_tax_us": st.modeled_collective_tax_s * 1e6,
         "tokens_out": st.tokens_out,
         "prefills": st.prefills,
         "decode_steps": st.decode_steps,
@@ -203,6 +218,10 @@ def main(argv=None):
                          "the offload tier and whose launch and device "
                          "rates price the plans (the H100's host link is "
                          "PCIe: an LC part)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree: 1 = single-device "
+                         "LocalBackend, N>1 = the sharded backend over N "
+                         "rank processes (--plan jit only)")
     ap.add_argument("--cache", default="contiguous", choices=CACHE_MODES)
     ap.add_argument("--block-size", type=int, default=16,
                     help="tokens per KV block (paged cache)")
@@ -307,7 +326,7 @@ def main(argv=None):
     eng = ServeEngine(cfg, params, max_batch=args.max_batch, tracer=tracer,
                       max_len=args.max_len, plan=args.plan, device=dev,
                       platform=args.platform, plan_table=args.plan_table,
-                      cache=args.cache,
+                      tp=args.tp, cache=args.cache,
                       block_size=args.block_size, num_blocks=args.num_blocks,
                       offload=args.offload, prefill_chunk=args.prefill_chunk,
                       kv_dtype=args.kv_dtype,
@@ -315,16 +334,21 @@ def main(argv=None):
                       speculative=args.speculative, draft_config=draft_cfg,
                       spec_k=args.spec_k,
                       spec_inflection=args.spec_inflection)
-    if not args.no_warmup:
-        eng.run(make_requests(args.requests, cfg.vocab_size, args.max_new))
-        eng.reset()
-        # reset() keeps the tracer; drop the warmup's lifecycles so the
-        # triage covers the measured run only
-        tracer.clear()
-    reqs = make_requests(args.requests, cfg.vocab_size, args.max_new)
-    t0 = time.perf_counter()
-    done = eng.run(reqs)
-    wall = time.perf_counter() - t0
+    try:
+        if not args.no_warmup:
+            eng.run(make_requests(args.requests, cfg.vocab_size,
+                                  args.max_new))
+            eng.reset()
+            # reset() keeps the tracer; drop the warmup's lifecycles so
+            # the triage covers the measured run only
+            tracer.clear()
+        reqs = make_requests(args.requests, cfg.vocab_size, args.max_new)
+        t0 = time.perf_counter()
+        done = eng.run(reqs)
+        wall = time.perf_counter() - t0
+    finally:
+        # a tensor-parallel engine's ranks serve nothing more
+        eng.close()
     out = report(eng, done, wall)
     if args.attribution:
         pd = eng._planned_decode

@@ -2,7 +2,7 @@
 cross-attention over encoder or image states.
 
 Counterpart of ``attention_fwd`` in ``repro/layers/attention.py``
-(sharding comes with a later slice; see ROADMAP).  Where the reference
+(tensor parallelism through its ``reduce`` hook).  Where the reference
 computes attention in plain XLA, the port routes it through its
 hand-written kernels.  As there:
 q, k and v take their biases after their projections when the config has
@@ -390,7 +390,7 @@ def _project(h, params, name: str, heads: int, hd: int, y=None):
 
 def attention_fwd(params, h, q, cfg: ModelConfig, ctx: AttnContext,
                   cache: Optional[dict] = None, window: int = 0,
-                  causal: Optional[bool] = None):
+                  causal: Optional[bool] = None, reduce=None):
     """Self-attention of one layer; returns its output (B,S,D).
 
     ``h``: the normed input (B,S,D); ``q``: its query projection
@@ -402,7 +402,11 @@ def attention_fwd(params, h, q, cfg: ModelConfig, ctx: AttnContext,
     (``make_paged_self_cache``, with a paged ``ctx``), updated in place.
     ``window``: the layer's sliding window (0: none).  ``causal``: None
     (the family's, ``is_causal``), or False for an encoder-decoder's
-    encoder.
+    encoder.  ``reduce``: the tensor-parallel output hook; with wq/wk/wv
+    column-sharded by head and wo row-sharded (Megatron layout), the
+    post-``wo`` output is one rank's partial sum and ``reduce("attn_out",
+    y)`` all-reduces it (None: identity).  ``cfg`` then carries the rank's
+    LOCAL head counts.
     """
     causal = is_causal(cfg) if causal is None else causal
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -412,9 +416,13 @@ def attention_fwd(params, h, q, cfg: ModelConfig, ctx: AttnContext,
     k = apply_rope(_project(h, params, "k", hkv, hd), ctx.rope)
     v = _project(h, params, "v", hkv, hd)
 
+    def finish(o):
+        y = o @ params["wo"]
+        return reduce("attn_out", y) if reduce is not None else y
+
     if ctx.paged:
-        return _paged_attention(q, k, v, cfg, ctx, cache, scale,
-                                window) @ params["wo"]
+        return finish(_paged_attention(q, k, v, cfg, ctx, cache, scale,
+                                       window))
     if ctx.decode and s > 1:
         ck, cv = cache["k"], cache["v"]
         rows, pos = ctx.pos
@@ -449,7 +457,7 @@ def attention_fwd(params, h, q, cfg: ModelConfig, ctx: AttnContext,
                                     causal=causal,
                                     window=window, softcap=cfg.attn_softcap)
         o = o.transpose(1, 2).reshape(b, s, hq * hd)
-    return o @ params["wo"]
+    return finish(o)
 
 
 def init_cross_cache(params, cfg: ModelConfig, cross_kv) -> dict:

@@ -74,14 +74,18 @@ def mlp_init(gen, cfg: ModelConfig, device) -> dict:
     return p
 
 
-def mlp_fwd(params, x, cfg: ModelConfig):
-    """Gated (SwiGLU) or plain MLP."""
+def mlp_fwd(params, x, cfg: ModelConfig, reduce=None):
+    """Gated (SwiGLU) or plain MLP.  ``reduce`` is the tensor-parallel
+    output hook: with ``w_in``/``w_gate`` column-sharded and ``w_out``
+    row-sharded (Megatron layout), ``h @ w_out`` is one rank's partial sum
+    and ``reduce("mlp_out", y)`` all-reduces it; None is identity."""
     h = x @ params["w_in"]
     if cfg.glu:
         h = activation(x @ params["w_gate"], cfg.act) * h
     else:
         h = activation(h, cfg.act)
-    return h @ params["w_out"]
+    y = h @ params["w_out"]
+    return reduce("mlp_out", y) if reduce is not None else y
 
 
 def softcap(x, cap: float):

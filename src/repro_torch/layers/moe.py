@@ -20,7 +20,9 @@ Ties resolve as JAX's do, lower index first: top-k is a stable descending
 sort, the dispatch order a stable ascending one.
 
 Expert parallelism (``moe_ep_fwd`` over a mesh) is not ported:
-``moe_fwd(dist=...)`` raises, naming ROADMAP Queue A "tensor parallel".
+``moe_fwd(dist=...)`` raises, naming ROADMAP Queue A "training and launch
+tooling" (the reference reaches it only from its train and dry-run step
+builders; its sharded serving backend refuses MoE stacks).
 """
 from __future__ import annotations
 
@@ -180,5 +182,5 @@ def moe_fwd(params, x, cfg: ModelConfig, dist: Optional[object] = None,
     if dist is not None:
         raise NotImplementedError(
             "expert-parallel MoE (moe_fwd(dist=...)) not ported yet, see "
-            "ROADMAP Queue A, \"tensor parallel\"")
+            "ROADMAP Queue A, \"training and launch tooling\"")
     return moe_local_fwd(params, x, cfg, with_aux)

@@ -381,7 +381,8 @@ def encode(params, frames, cfg: ModelConfig) -> torch.Tensor:
 
 def forward(params, tokens, cfg: ModelConfig, *, cache: Optional[list] = None,
             cache_index: int = 0, lengths=None, block_tables=None,
-            positions=None, encoder_tokens=None, frontend_embeds=None):
+            positions=None, encoder_tokens=None, frontend_embeds=None,
+            reduce=None):
     """Returns (logits f32 (B,S,V), cache).
 
     ``cache``: from ``make_cache`` or ``make_paged_cache``, updated in place
@@ -416,6 +417,11 @@ def forward(params, tokens, cfg: ModelConfig, *, cache: Optional[list] = None,
     without them a cross layer reads its K/V from the cache, as decode
     steps, verifies and the served prefill do, and a forward without
     either raises.
+    ``reduce``: the tensor-parallel output hook ``(name, x) -> x``, applied
+    to every attention layer's and every dense MLP's partial output
+    (``attention_fwd``, ``mlp_fwd``); ``cfg`` then carries one rank's local
+    head counts and ``params`` its shard (``inference.backends.sharded``,
+    which serves pure-attention decoders only).  None: identity.
     """
     check_supported(cfg)
     embed = params["embed"]
@@ -472,7 +478,8 @@ def forward(params, tokens, cfg: ModelConfig, *, cache: Optional[list] = None,
                 else:
                     o = attn.attention_fwd(mixer, h, y, cfg, ctx,
                                            cache=state,
-                                           window=layer_window(cfg, i))
+                                           window=layer_window(cfg, i),
+                                           reduce=reduce)
             if "xattn" in bp:
                 # enc-dec: cross-attention after the self-attention, its
                 # norm fusing the residual add before it
@@ -492,7 +499,7 @@ def forward(params, tokens, cfg: ModelConfig, *, cache: Optional[list] = None,
                     m, _ = moe.moe_fwd(bp["moe"], h, cfg, with_aux=False)
             else:
                 with scope("mlp"):
-                    m = mlp_fwd(bp["mlp"], h, cfg)
+                    m = mlp_fwd(bp["mlp"], h, cfg, reduce=reduce)
             if i % period == period - 1:
                 with scope("resid"):
                     x = x + m

@@ -331,13 +331,18 @@ def test_plan_executor_records_a_dispatch_span_per_segment():
 
 def test_unported_sweeps_name_their_roadmap_items(setup):
     """``tp_sweep`` is ported (modeled: it prices the traced step per tp,
-    ``test_torch_tp_sweep.py``); measuring at tp > 1 still refuses, naming
-    its ROADMAP item."""
+    ``test_torch_tp_sweep.py``), and so is serving at tp > 1: an engine at
+    tp=2 moves, a decode step, the all-reduce bytes the sweep prices at
+    the same batch."""
     _, cfg, _, params = setup
     sweep = char.tp_sweep(cfg, params, batches=(1,), tps=(1, 2),
                           platforms=("Intel+H100",), max_len=32,
                           device="cpu")
     assert [p["tp"] for p in sweep["points"]] == [1, 2]
-    with pytest.raises(ValueError, match="ROADMAP.*tensor parallel"):
-        ServeEngine(cfg, params, max_batch=1, max_len=32, device="cpu",
-                    tp=2)
+    with ServeEngine(cfg, params, max_batch=1, max_len=32, device="cpu",
+                     tp=2) as eng:
+        eng.run([Request(0, prompt=[1, 2, 3], max_new_tokens=3)])
+        st = eng.stats
+    assert st.decode_steps == 2
+    assert st.collective_bytes_per_decode_step == \
+        sweep["points"][1]["collective_bytes"] > 0

@@ -200,26 +200,37 @@ def test_unported_features_raise(setup):
 
 def test_unported_messages_name_their_roadmap_item():
     """Each refusal names its ROADMAP Queue A item by name, not by a
-    number that a renumbering would leave stale."""
+    number that a renumbering would leave stale.  Tensor parallelism is
+    ported: the backend, a tensor-parallel replica fleet and a paged
+    engine at tp=2 build (and stop their ranks)."""
+    import multiprocessing
     import re
 
     from repro_torch.inference.backends import make_backend
     from repro_torch.inference.engine import ServeEngine
     from repro_torch.inference.fleet import ReplicaFleet
+    from repro_torch.layers import moe
     from repro_torch.models import check_supported
     cfg = reduced(get_config("smollm-360m"))
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    be = make_backend(cfg, params, max_batch=1, max_len=8, tp=2,
+                      device="cpu")
+    assert (be.info.kind, be.info.tp, be.info.devices) == (
+        "sharded", 2, ("cpu", "cpu"))
+    be.close()
+    with ReplicaFleet(cfg, params, replicas=2, tp=2, max_batch=1,
+                      max_len=8, device="cpu") as fleet:
+        assert [rep.engine.tp for rep in fleet.live()] == [2, 2]
+    with ServeEngine(cfg, params, max_batch=1, max_len=8, device="cpu",
+                     cache="paged", tp=2) as eng:
+        assert eng.backend.info.kind == "sharded"
+        assert eng.kv.mirror is not None
+    assert not multiprocessing.active_children()
+    mcfg = reduced(get_config("moonshot-v1-16b-a3b"))
     calls = [
-        ("tensor parallel", lambda: make_backend(cfg, params, max_batch=1,
-                                                 max_len=8, tp=2)),
-        # the fleet and the tracer are ported; a tensor-parallel replica or
-        # paged engine still refuses
-        ("tensor parallel", lambda: ReplicaFleet(
-            cfg, params, replicas=2, tp=2, max_batch=1, max_len=8,
-            device="cpu")),
-        ("tensor parallel", lambda: ServeEngine(
-            cfg, params, max_batch=1, max_len=8, device="cpu",
-            cache="paged", tp=2)),
+        # expert parallelism comes with the training step builders
+        ("training and launch tooling", lambda: moe.moe_fwd(
+            {}, torch.zeros(1, 1, mcfg.d_model), mcfg, dist=object())),
         # the cross-attention stacks are ported (check_supported passes
         # them, below); RWKV-6 beside other kinds, which no config has,
         # still refuses

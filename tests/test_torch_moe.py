@@ -145,7 +145,8 @@ def test_moe_forward_matches_the_reference(name, cf):
 
 def test_moe_fwd_refuses_a_mesh():
     _, cfg, _, p = _layer("moonshot-v1-16b-a3b")
-    with pytest.raises(NotImplementedError, match="tensor parallel"):
+    with pytest.raises(NotImplementedError,
+                       match="training and launch tooling"):
         moe.moe_fwd(p, torch.zeros(1, 1, cfg.d_model), cfg, dist=object())
 
 

@@ -327,9 +327,19 @@ class TestFleetMetrics:
         assert embeds == {tiny[1]["embed"].data_ptr()}
 
     def test_mesh_validation_and_tensor_parallel_refusal(self, tiny):
+        """``validate_mesh`` asks for replicas x tp GPUs before any rank
+        starts; without it a fleet of tensor-parallel replicas builds,
+        each replica on ranks of its own, and ``close`` stops them."""
+        import multiprocessing
         cfg, params = tiny[:2]
         if not torch.cuda.is_available():
             with pytest.raises(ValueError, match="needs 2 GPUs, found 0"):
                 _fleet(tiny, validate_mesh=True)
-        with pytest.raises(ValueError, match="ROADMAP.*tensor parallel"):
-            ReplicaFleet(cfg, params, replicas=2, tp=2, device="cpu")
+            with pytest.raises(ValueError, match="needs 4 GPUs, found 0"):
+                _fleet(tiny, tp=2, validate_mesh=True)
+        with ReplicaFleet(cfg, params, replicas=2, tp=2,
+                          device="cpu") as fleet:
+            assert [rep.engine.backend.info.kind
+                    for rep in fleet.live()] == ["sharded", "sharded"]
+            assert len(multiprocessing.active_children()) == 2
+        assert not multiprocessing.active_children()

@@ -4,9 +4,10 @@ Six requests of ragged prompt lengths and budgets through ``max_batch 2``
 (so slots are reused): greedy tokens byte-identical to the JAX
 ``ServeEngine(plan="jit")`` on the same bridged weights, with the same
 scheduling counters, also under ``plan="autotuned"`` and with the live
-monitor.  Also: without ``device=`` the engine asks for the GPU and raises
-where there is none, and every feature not ported yet raises (the paged
-cache's parity is in ``test_torch_paged_serve.py``).
+monitor, and at tp=2.  Also: without ``device=`` the engine asks for the
+GPU and raises where there is none, and the options the reference refuses
+raise (the paged cache's parity is in ``test_torch_paged_serve.py``; tensor
+parallelism's in ``test_torch_tp.py`` and ``test_torch_tp_serve.py``).
 """
 import contextlib
 import io
@@ -94,13 +95,30 @@ def test_engine_defaults_to_the_gpu(setup):
     dict(speculative=True, greedy=False),
     dict(tp=2), dict(cache="paged", kv_dtype="int8", tp=4)])
 def test_unported_options_raise(setup, kw):
-    """Each unported option (tensor parallelism, on every cache) raises
-    naming its ROADMAP item; speculation outside ``plan="jit"`` or without
-    greedy decoding raises as the reference's engine does.  The request
-    tracer is ported (``test_torch_tracing.py``)."""
-    _, cfg, _, params = setup
+    """Speculation outside ``plan="jit"`` or without greedy decoding raises
+    as the reference's engine does.  Tensor parallelism is ported: tp=2 on
+    either cache serves the JAX engine's tokens, and tp=4, which does not
+    divide reduced SmolLM's 2 KV heads, raises the reference's
+    divisibility error before any rank starts.  The request tracer is
+    ported (``test_torch_tracing.py``)."""
+    jcfg, cfg, jparams, params = setup
+    if kw.get("tp") == 2:
+        jkw = {k: v for k, v in kw.items() if k != "tp"}
+        jeng = JxServeEngine(jcfg, jparams, max_batch=2, max_len=MAX_LEN,
+                             plan="jit", platform="Intel+H100", **jkw)
+        want = [r.generated for r in jeng.run(_workload(JxRequest,
+                                                        cfg.vocab_size))]
+        with ServeEngine(cfg, params, max_batch=2, max_len=MAX_LEN,
+                         device="cpu", **kw) as eng:
+            got = [r.generated for r in eng.run(_workload(Request,
+                                                          cfg.vocab_size))]
+            assert eng.backend.info.kind == "sharded"
+            assert eng.stats.collectives > 0
+        assert got == want
+        return
     match = ("plan='jit'" if kw.get("plan") == "eager"
-             else "greedy" if "greedy" in kw else "ROADMAP")
+             else "greedy" if "greedy" in kw
+             else "must divide n_kv_heads")
     with pytest.raises(ValueError, match=match):
         ServeEngine(cfg, params, max_batch=2, max_len=MAX_LEN, device="cpu",
                     **kw)
