@@ -244,7 +244,28 @@ Phases (any failure exits non-zero before a result is printed):
      decode step timed on the serve clock and directly beside tp=1's, the
      seconds in the gloo exchange a step on each rank and the modeled
      ``Intel+H100`` collective tax (two ranks time-sharing one card: no
-     tensor-parallel speed).
+     tensor-parallel speed);
+ 21. training: each registered backward (``kernels/*/backward.py``) with
+     the CUDA forward against ``torch.autograd`` through the op's plain
+     version, at the training shapes (SmolLM-360M, B 8 x S 512: flash
+     causal 15/5 heads of 64, the norms with and without a residual,
+     ``rmsnorm_matmul`` at 960 x 960) in f32 (TF32 off) and bf16, each
+     gradient within TOL x max(1, max |plain|); in bf16 the formula's
+     device time beside its bound, the plain version's backward and, for
+     flash, SDPA's backward; then whole SmolLM-360M (bf16 parameters, f32
+     AdamW state, lr 1e-3, warmup 5) trained TRAIN_STEPS steps of 8 x 512
+     tokens of the reference's n-gram data through ``Trainer``, with the
+     launch counts reset just before and read just after (launches a
+     step ``rmsnorm_matmul`` 32, ``residual_rmsnorm`` 33,
+     ``flash_attention`` 32, or it fails; ``launches_by_path["train"]``
+     holds them): the loss must fall; the median ms a step, tokens/s,
+     TFLOP/s by 6 x params x tokens, peak memory, one step split by CUDA
+     events into forward, backward and optimizer, one step profiled
+     (device busy, the largest kernels), the final checkpoint's bytes,
+     host copy and write seconds; the same steps with the n-grams over
+     the whole vocabulary (printed); a crash after step 4 of 8 at 4
+     layers and its restart, per-step losses against an uninterrupted
+     run within RESUME_TOL.
 
 Phases 4, 6, 7 and 9 serve with ``--plan eager`` (``plan="eager"``): one
 dispatch a node of the traced step, whose norms are their plain versions,
@@ -283,7 +304,7 @@ served cross prefill (``[x_t1]``: B 1, S 16 over T 1, S > T), beside SDPA;
 untied heads (``[unembed_vision]`` 4096 x 128256, ``[unembed_seamless]``
 1024 x 256206).
 
-Order: 1-3, then 20, 18 and 19 (the newest phases, so that a fault there
+Order: 1-3, then 21, 20, 18 and 19 (the newest phases, so that a fault there
 ends the run early), then 4-17.  Phase 2 also holds the six kernels of
 phase 20's path at one tp=2 rank's shapes (``tp_cases``, ``[llama_tp2]``:
 16/4 heads of 64, ``rmsnorm_matmul`` at 2048 x 1024).  Phase 2 times the kernels in
@@ -419,8 +440,21 @@ from repro_torch.telemetry.characterize import (           # noqa: E402
 from repro_torch.workload import load_workload, sample_requests  # noqa: E402
 from repro_torch.models import (attention_launches,       # noqa: E402
                                 encode, forward, has_cross,
-                                init_params, is_recurrent, make_cache,
-                                make_paged_cache, norm_launches)
+                                init_params, is_recurrent, loss_fn,
+                                make_cache, make_paged_cache,
+                                norm_launches, param_count)
+from repro_torch.data import DataConfig, make_batch         # noqa: E402
+from repro_torch.kernels.flash_attention.backward import \
+    flash_attention_bwd                                    # noqa: E402
+from repro_torch.kernels.fused.residual_rmsnorm.backward import \
+    residual_rmsnorm_bwd                                   # noqa: E402
+from repro_torch.kernels.fused.rmsnorm_matmul.backward import \
+    rmsnorm_matmul_bwd                                     # noqa: E402
+from repro_torch.training.loop import (TrainConfig,       # noqa: E402
+                                       Trainer, to_device)
+from repro_torch.training.optim import OptConfig, opt_update  # noqa: E402
+from repro_torch.tree import leaves as tree_leaves         # noqa: E402
+from repro_torch.tree import map_tree as tree_map          # noqa: E402
 
 DEV = torch.device("cuda", 0)
 PLAINS = {"decode_attention": decode_attention_ref,
@@ -4628,6 +4662,344 @@ def phase_tp() -> tuple:
     return rows, counts
 
 
+# ------------------------------------------------------------------ phase 21
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 20
+TRAIN_LR, TRAIN_WARMUP = 1e-3, 5
+# The trained runs draw their n-grams from the first TRAIN_DATA_VOCAB
+# token ids (the model keeps its whole 49152-token vocabulary).  Over all
+# 49152 ids each id comes ~1.7 times in 20 steps, and at full width the
+# loss stays at its initial ~11.0 (the reference's Trainer too); a side
+# run prints that.
+TRAIN_DATA_VOCAB = 2048
+TRAIN_TOP = 12                 # kernels named in the profiled step
+TIMED_FROM = 2                 # the median step skips steps 1-2 (warm-up)
+RESUME_LAYERS, RESUME_STEPS, RESUME_FAIL = 4, 8, 4
+RESUME_TOL = 5e-3              # bf16 loss, other atomics order on resume
+TRAIN_KERNELS = ("rmsnorm_matmul", "residual_rmsnorm", "flash_attention")
+
+
+def backward_cases(cfg, dtype) -> dict:
+    """The three ops of the training step at its shapes (SmolLM-360M, B 8 x
+    S 512): name -> (wrapper call, plain version, inputs, output
+    gradients, the backward formula on the saved tensors, (flops, bytes)
+    of the backward, the library's backward or None)."""
+    b, s, d = TRAIN_BATCH, TRAIN_SEQ, cfg.d_model
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    scale, eps = hd ** -0.5, cfg.norm_eps
+
+    def t(shape, seed, sc=1.0):
+        return randn(shape, dtype, seed, sc).requires_grad_(True)
+
+    def nb(*ts) -> int:
+        return sum(x.numel() * x.element_size() for x in ts)
+    out = {}
+    q, k, v = t((b, hq, s, hd), 1), t((b, hkv, s, hd), 2), t((b, hkv, s, hd), 3)
+    go = randn((b, s, hq, hd), dtype, 4).transpose(1, 2)
+    with torch.no_grad():
+        o = kernels.flash_attention(q, k, v, scale=scale)
+    pairs = b * hq * s * (s + 1) // 2              # causal, S = T
+    sdpa = (lambda q, k, v: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=scale, enable_gqa=True))
+    out["flash_attention"] = (
+        lambda q, k, v: kernels.flash_attention(q, k, v, scale=scale),
+        lambda q, k, v: attention_ref(q, k, v, scale=scale), (q, k, v),
+        (go,), lambda: flash_attention_bwd(go, q, k, v, o, scale=scale),
+        (10.0 * pairs * hd, float(2 * nb(q, k, v) + nb(o, go))), sdpa)
+    x, r, w = t((b, s, d), 5), t((b, s, d), 6, 0.5), t((d,), 7)
+    gy, gs = randn((b, s, d), dtype, 8), randn((b, s, d), dtype, 9)
+    out["residual_rmsnorm"] = (
+        lambda x, w, r: kernels.residual_rmsnorm(x, w, r, eps=eps),
+        lambda x, w, r: residual_rmsnorm_ref(x, w, r, eps), (x, w, r),
+        (gy, gs), lambda: residual_rmsnorm_bwd(gy, gs, x, w, r, eps),
+        (10.0 * x.numel(), float(2 * nb(x, w, r) + nb(gy, gs))), None)
+    out["residual_rmsnorm[final]"] = (
+        lambda x, w: kernels.residual_rmsnorm(x, w, eps=eps)[0],
+        lambda x, w: residual_rmsnorm_ref(x, w, None, eps)[0], (x, w),
+        (gy,), lambda: residual_rmsnorm_bwd(gy, None, x, w, None, eps),
+        (10.0 * x.numel(), float(2 * nb(x, w) + nb(gy))), None)
+    wp = t((d, hq * hd), 10, 0.03)
+    gp, gn = randn((b, s, hq * hd), dtype, 11), randn((b, s, d), dtype, 12)
+    with torch.no_grad():
+        normed = kernels.rmsnorm_matmul(x, w, wp, eps=eps)[1]
+    n_rows = b * s
+    out["rmsnorm_matmul"] = (
+        lambda x, w, wp: kernels.rmsnorm_matmul(x, w, wp, eps=eps),
+        lambda x, w, wp: rmsnorm_matmul_ref(x, w, wp, eps), (x, w, wp),
+        (gp, gn),
+        lambda: rmsnorm_matmul_bwd(gp, gn, x, w, wp, normed, eps),
+        (4.0 * n_rows * d * hq * hd + 10.0 * x.numel(),
+         float(2 * nb(x, w, wp) + nb(normed, gp, gn))), None)
+    return out
+
+
+def grads_of(fn, inputs, gouts) -> tuple:
+    outs = fn(*inputs)
+    outs = outs if isinstance(outs, (tuple, list)) else (outs,)
+    return torch.autograd.grad(list(outs[:len(gouts)]), inputs, list(gouts))
+
+
+def check_backwards(cfg) -> dict:
+    """Each registered backward against autograd through the plain
+    version, on the card, in f32 (TF32 off) and bf16; then, in bf16, the
+    backward formula's device time beside its bound, the plain version's
+    backward and, for flash, SDPA's backward."""
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, (op, plain, ins, gouts, bwd, (flops, nbytes),
+                   lib) in backward_cases(cfg, dtype).items():
+            got = grads_of(op, ins, gouts)
+            want = grads_of(plain, ins, gouts)
+            # each gradient against its own tolerance (dW of a product
+            # sums over 4096 rows, dweight of a norm too)
+            err = max_err(got, want)
+            worst = max(max_err(g, w) / rel_bound(w, dtype)
+                        for g, w in zip(got, want))
+            line = (f"phase 21: {name} backward {str(dtype)[6:]}: max |op - "
+                    f"autograd(plain)| {err:.3g}, {worst:.3g} of the "
+                    f"tolerance ({TOL[str(dtype)]:g} x max(1, max |plain|) "
+                    "a gradient)")
+            if not worst <= 1.0:
+                fail(line)
+            row = {"max_abs_err": err}
+            if dtype == torch.bfloat16:
+                ms = time_ms(bwd)[0]
+                with torch.enable_grad():
+                    po = plain(*ins)
+                po = po if isinstance(po, (tuple, list)) else (po,)
+                plain_ms = time_ms(lambda: torch.autograd.grad(
+                    list(po[:len(gouts)]), ins, list(gouts),
+                    retain_graph=True))[0]
+                lib_ms = None
+                if lib is not None:
+                    lo = lib(*ins)
+                    lib_ms = time_ms(lambda: torch.autograd.grad(
+                        lo, ins, gouts[0], retain_graph=True))[0]
+                bms, by = bound_ms(nbytes, flops, dtype)
+                row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=bms, bound_by=by, flops=flops,
+                           bytes=nbytes)
+                lib_txt = "" if lib_ms is None else \
+                    f", SDPA backward {lib_ms:.3f} ms"
+                line += (f"; {ms:.3f} ms (bound {bms:.3f} ms by {by}), "
+                         f"plain backward {plain_ms:.3f} ms{lib_txt}")
+            print(line)
+            rows[f"{name}:{str(dtype)[6:]}"] = row
+        torch.cuda.empty_cache()
+    return rows
+
+
+def train_step(trainer, params, state, batch, ev=None) -> None:
+    """One training step as the Trainer's default step takes it, with a
+    CUDA event recorded before the forward, the backward, the optimizer
+    and after it when ``ev`` (4 events) is given."""
+    def mark(i):
+        if ev is not None:
+            ev[i].record()
+    mark(0)
+    loss, _ = loss_fn(params, batch, trainer.cfg, remat=False)
+    mark(1)
+    loss.backward()
+    mark(2)
+    opt_update(trainer.opt_cfg, tree_map(lambda p: p.grad, params), state,
+               params)
+    mark(3)
+    for p in tree_leaves(params):
+        p.grad = None
+
+
+def train_step_split(trainer, params, state, tries: int = 3) -> dict:
+    """One training step split by CUDA events into forward (loss),
+    backward and optimizer ms: the median of ``tries`` steps on the next
+    batches; then one more step profiled: device busy ms and the kernels
+    that take most of it."""
+    parts = []
+    batches = [to_device(make_batch(trainer.data_cfg, TRAIN_STEPS + i,
+                                    trainer.cfg), DEV)
+               for i in range(tries + 1)]
+    for batch in batches[:tries]:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        train_step(trainer, params, state, batch, ev)
+        torch.cuda.synchronize()
+        parts.append([ev[j].elapsed_time(ev[j + 1]) for j in range(3)])
+    med = np.median(np.array(parts), axis=0)
+    row = dict(zip(("forward_ms", "backward_ms", "optimizer_ms"),
+                   map(float, med)))
+
+    def run():
+        train_step(trainer, params, state, batches[tries])
+        torch.cuda.synchronize()
+    pairs, _ = profiled_kernels(run)
+    if not pairs:
+        print("phase 21: one profiled step: not measured (no device event)")
+        return row
+    by: dict = {}
+    for k, _ in pairs:
+        t, c = by.get(k["name"], (0.0, 0))
+        by[k["name"]] = (t + k["dur"] * 1e-3, c + 1)
+    busy = sum(t for t, _ in by.values())
+    span = (max(k["ts"] + k["dur"] for k, _ in pairs)
+            - min(k["ts"] for k, _ in pairs)) * 1e-3
+    top = sorted(by.items(), key=lambda kv: -kv[1][0])[:TRAIN_TOP]
+    row["profile"] = {"busy_ms": busy, "kernels": len(pairs),
+                      "span_ms": span,
+                      "top": [(k[:80], t, c) for k, (t, c) in top]}
+    print(f"phase 21: one profiled step: device busy {busy:.1f} ms in "
+          f"{len(pairs)} kernels, first kernel to last {span:.1f} ms; "
+          "largest: " + "; ".join(f"{k[:60]} {t:.2f} ms ({c})"
+                                  for k, (t, c) in top))
+    return row
+
+
+def train_whole(cfg, tmp: str) -> tuple:
+    """Whole SmolLM-360M (bf16 params, f32 AdamW state) trained for
+    TRAIN_STEPS steps through ``Trainer``, the launch counts reset just
+    before and read just after.  Returns (row, launches a step)."""
+    data = DataConfig(batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                      vocab_size=TRAIN_DATA_VOCAB)
+    oc = OptConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                   total_steps=TRAIN_STEPS)
+    trainer = Trainer(cfg, data, TrainConfig(
+        steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS,
+        ckpt_dir=f"{tmp}/whole"), oc, device=DEV)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out = trainer.run()
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {}
+    want = {**norm_launches(cfg), "flash_attention": attention_launches(cfg)}
+    for name in TRAIN_KERNELS:
+        n = counts[name]
+        if n == 0 or n != want[name] * TRAIN_STEPS:
+            fail(f"phase 21: train path launched {name} {n} times in "
+                 f"{TRAIN_STEPS} steps; expected {want[name]} a step")
+        per_step[name] = n // TRAIN_STEPS
+    losses = [h["loss"] for h in out["history"]]
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"phase 21: loss did not fall: {losses}")
+    dts = [h["dt"] for h in out["history"][TIMED_FROM:]]
+    step_s = float(np.median(dts))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_params = param_count(out["params"])
+    save = trainer.ckpt.last_save
+    save_s = save["copy_s"] + save["write_s"]
+    row = {"steps": TRAIN_STEPS, "loss_first": losses[0],
+           "loss_last": losses[-1], "losses": losses,
+           "step_ms": step_s * 1e3, "step_ms_all": [d * 1e3 for d in dts],
+           "tokens_per_s": tokens / step_s, "params": n_params,
+           "tflops": 6 * n_params * tokens / step_s / 1e12,
+           "peak_memory_gb": peak / 1e9,
+           "stragglers": out["stragglers"],
+           "launches_a_step": per_step,
+           "checkpoint": {**save, "gb": save["bytes"] / 1e9,
+                          "seconds": save_s,
+                          "gb_per_s": save["bytes"] / 1e9 / save_s}}
+    row["split"] = train_step_split(trainer, out["params"],
+                                    out["opt_state"])
+    sp, ck = row["split"], row["checkpoint"]
+    print(f"phase 21: {cfg.name} whole ({cfg.n_layers} layers, "
+          f"{n_params / 1e6:.1f} M params bf16, AdamW f32 state) trained "
+          f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens (n-grams "
+          f"over {TRAIN_DATA_VOCAB} ids), lr {TRAIN_LR} warmup "
+          f"{TRAIN_WARMUP}: loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    print(f"phase 21: step {row['step_ms']:.1f} ms (median of steps "
+          f"{TIMED_FROM + 1}-{TRAIN_STEPS}), {row['tokens_per_s']:.0f} "
+          f"tokens/s, {row['tflops']:.1f} TFLOP/s by 6 N tokens, peak "
+          f"memory {row['peak_memory_gb']:.2f} GB; one step: forward "
+          f"{sp['forward_ms']:.1f} ms, backward {sp['backward_ms']:.1f} ms, "
+          f"optimizer {sp['optimizer_ms']:.1f} ms; launches a step "
+          f"{per_step}")
+    print(f"phase 21: final checkpoint {ck['gb']:.3f} GB: host copy "
+          f"{ck['copy_s']:.2f} s + write {ck['write_s']:.2f} s = "
+          f"{ck['seconds']:.2f} s, {ck['gb_per_s']:.2f} GB/s")
+    del out, trainer
+    torch.cuda.empty_cache()
+    return row, {"train": counts}
+
+
+def train_full_vocab(cfg, tmp: str) -> dict:
+    """TRAIN_STEPS steps of the same recipe with the n-grams over the
+    model's whole vocabulary (Trainer's step without its checkpoints):
+    the losses, for the record (they do not fall at full width)."""
+    data = DataConfig(batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                      vocab_size=cfg.vocab_size)
+    trainer = Trainer(cfg, data, TrainConfig(
+        steps=TRAIN_STEPS, ckpt_dir=f"{tmp}/full_vocab"), OptConfig(
+        lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS),
+        device=DEV)
+    params, state, _ = trainer.restore_or_init()
+    losses = []
+    for i in range(TRAIN_STEPS):
+        batch = to_device(make_batch(data, i, cfg), DEV)
+        params, state, m = trainer.default_step(params, state, batch)
+        losses.append(float(m["loss"]))
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"phase 21: non-finite loss over the whole vocabulary: {losses}")
+    print(f"phase 21: the same {TRAIN_STEPS} steps with n-grams over all "
+          f"{cfg.vocab_size} ids: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"(min {min(losses):.4f}, max {max(losses):.4f})")
+    del params, state, trainer
+    torch.cuda.empty_cache()
+    return {"losses": losses}
+
+
+def train_resume(cfg, tmp: str) -> dict:
+    """The crash-and-resume path at RESUME_LAYERS layers (full width): an
+    uninterrupted run, a run that fails after step RESUME_FAIL's
+    checkpoint, and its restart, whose losses are held against the
+    uninterrupted run's."""
+    cfg = cfg.replace(n_layers=RESUME_LAYERS)
+    data = DataConfig(batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                      vocab_size=TRAIN_DATA_VOCAB)
+    oc = OptConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                   total_steps=RESUME_STEPS)
+
+    def run(name, fail_at=None):
+        return Trainer(cfg, data, TrainConfig(
+            steps=RESUME_STEPS, ckpt_every=RESUME_FAIL,
+            ckpt_dir=f"{tmp}/{name}", fail_at_step=fail_at), oc,
+            device=DEV).run()
+    ref = run("uninterrupted")
+    try:
+        run("crashed", RESUME_FAIL)
+        fail("phase 21: fail_at_step did not fail")
+    except RuntimeError as err:
+        if "simulated failure" not in str(err):
+            raise
+    res = run("crashed")
+    steps = [h["step"] for h in res["history"]]
+    if steps != list(range(RESUME_FAIL, RESUME_STEPS)):
+        fail(f"phase 21: the restart ran steps {steps}")
+    diff = max(abs(a["loss"] - b["loss"]) for a, b in
+               zip(res["history"], ref["history"][RESUME_FAIL:]))
+    line = (f"phase 21: crash after step {RESUME_FAIL} of {RESUME_STEPS} "
+            f"at {RESUME_LAYERS} layers and restart: largest per-step loss "
+            f"difference against the uninterrupted run {diff:.3g} "
+            f"(<= {RESUME_TOL})")
+    if not diff <= RESUME_TOL:
+        fail(line)
+    print(line)
+    return {"layers": RESUME_LAYERS, "fail_at": RESUME_FAIL,
+            "max_loss_diff": diff}
+
+
+def phase_train() -> tuple:
+    """Phase 21: training.  Returns (row, {"train": launch counts})."""
+    t0 = time.perf_counter()
+    cfg = get_config(ARCH)
+    rows = {"backward": check_backwards(cfg)}
+    with tempfile.TemporaryDirectory() as tmp:
+        rows["whole"], counts = train_whole(cfg, tmp)
+        rows["whole_full_vocab"] = train_full_vocab(cfg, tmp)
+        rows["resume"] = train_resume(cfg, tmp)
+    secs = time.perf_counter() - t0
+    print(f"phase 21: {secs:.1f} s")
+    print("phase 21: " + json.dumps({"rows": rows, "seconds": secs}))
+    return rows, counts
+
+
 # ------------------------------------------------------------------ main
 # which main path (its jit run, phase 11; the multi-query entries: their
 # phase-16 speculative run) each kernel's ``launches`` is read from
@@ -4659,12 +5031,14 @@ def main() -> None:
     mark("1-3")
     # the newest phases right after the kernels' checks, so that a fault
     # there ends the run early
+    _, train_counts = phase_train()
+    mark("1-3, 21")
     _, tp_counts = phase_tp()
-    mark("1-3, 20")
+    mark("1-3, 20-21")
     _, moe_counts = phase_moe()
-    mark("1-3, 20, 18")
+    mark("1-3, 18, 20-21")
     _, xattn_counts = phase_xattn()
-    mark("1-3, 18-20")
+    mark("1-3, 18-21")
     eager_counts, eager = {}, {}
     eager_counts["contiguous"], rep, eng, done = phase_serve(cfg, 4)
     eager["contiguous"] = (rep, done, phase_trace(eng, "phase 5",
@@ -4696,7 +5070,7 @@ def main() -> None:
     _, spec_counts = phase_speculative(jit_rows, jit_done, llama_rows,
                                        llama_done)
     _, tier_counts = phase_serving_tier()
-    print(f"chip_smoke: phases 1-20 in {time.perf_counter() - t0:.1f} s")
+    print(f"chip_smoke: phases 1-21 in {time.perf_counter() - t0:.1f} s")
 
     entries = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -4720,6 +5094,9 @@ def main() -> None:
         by_path.update({p: c[name] for p, c in moe_counts.items()})
         by_path.update({p: c[name] for p, c in xattn_counts.items()})
         by_path.update({p: c[name] for p, c in tp_counts.items()})
+        if name in TRAIN_KERNELS:      # the training step's: launches a step
+            by_path.update({p: c[name] // TRAIN_STEPS
+                            for p, c in train_counts.items()})
         entries.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "launches_by_path": by_path, **row})

@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.tree import map_tree
 
 
 def tensor_from_numpy(arr, device) -> torch.Tensor:
@@ -37,16 +38,11 @@ def tensor_from_numpy(arr, device) -> torch.Tensor:
     return t.to(device)
 
 
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    return fn(tree)
-
-
 def _unstack(blocks: dict, n_sb: int, period: int, dev) -> list:
     """Stacked superblocks -> one dict a layer, superblock-major."""
     return [
-        _map(blocks[f"slot{i}"], lambda a, sb=sb: tensor_from_numpy(a[sb], dev))
+        map_tree(lambda a, sb=sb: tensor_from_numpy(a[sb], dev),
+                 blocks[f"slot{i}"])
         for sb in range(n_sb) for i in range(period)
     ]
 
@@ -55,7 +51,7 @@ def params_from_jax(tree: dict, cfg: ModelConfig, *, device="cuda") -> dict:
     """Port parameters from the reference's tree of numpy arrays."""
     dev = resolve_device(device)
     stacked = ("blocks", "enc_blocks")
-    out = {k: _map(v, lambda a: tensor_from_numpy(a, dev))
+    out = {k: map_tree(lambda a: tensor_from_numpy(a, dev), v)
            for k, v in tree.items() if k not in stacked}
     out["blocks"] = _unstack(tree["blocks"], cfg.n_superblocks,
                              len(cfg.block_pattern), dev)

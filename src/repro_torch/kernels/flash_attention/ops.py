@@ -2,8 +2,9 @@
 
 The wrapper calls a ``torch.library`` custom op: its CPU implementation is
 the plain version (``ref.py``), its CUDA implementation launches the kernel
-or raises, and its fake implementation gives a tracer the output's shape
-and strides, so a trace of the step holds each launch as one node.
+or raises, its fake implementation gives a tracer the output's shape
+and strides, so a trace of the step holds each launch as one node, and its
+autograd rule is the closed-form backward of ``backward.py``.
 ``flash_attention.launches`` counts kernel launches.
 """
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention.backward import flash_attention_bwd
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 _ARGS = ([build.P] * 4 + [build.I] * 6 + [build.F, build.I, build.I,
@@ -82,6 +84,24 @@ def _flash_fake(q, k, v, kv_len, scale, causal, window, softcap):
     if q.device.type == "cpu":
         return q.new_empty((b, hq, s, hd))
     return q.new_empty((b, s, hq, hd)).transpose(1, 2)
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, kv_len, scale, causal, window, softcap = inputs
+    # the output itself (on the card a view of the token-major buffer),
+    # not a copy of it
+    ctx.save_for_backward(q, k, v, output)
+    ctx.opts = dict(kv_len=None if kv_len < 0 else kv_len, scale=scale,
+                    causal=causal, window=window, softcap=softcap)
+
+
+def _flash_backward(ctx, grad_out):
+    q, k, v, out = ctx.saved_tensors
+    dq, dk, dv = flash_attention_bwd(grad_out, q, k, v, out, **ctx.opts)
+    return dq, dk, dv, None, None, None, None, None
+
+
+_flash_op.register_autograd(_flash_backward, setup_context=_flash_setup)
 
 
 def _flash_costs(q, k, v, kv_len, scale, causal, window, softcap) -> tuple:

@@ -14,6 +14,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.fused.residual_rmsnorm.backward import \
+    residual_rmsnorm_bwd
 from repro_torch.kernels.fused.residual_rmsnorm.ref import residual_rmsnorm_ref
 
 _ARGS = [build.P, build.P, build.P, build.P, build.P, build.I, build.I,
@@ -55,7 +57,8 @@ def launch_norm(entry: str, name: str, x, weight, residual, eps: float):
 def norm_op(name: str, entry: str, wrapper):
     """The custom op ``repro_torch::<name>`` of a norm kernel: the plain
     version on the CPU, a launch of the C entry ``entry`` on the card
-    (counted on ``wrapper``).  It returns [normed] without a residual and
+    (counted on ``wrapper``), the closed-form RMSNorm backward
+    (``backward.py``) as its autograd rule.  It returns [normed] without a residual and
     [normed, sum] with one: an op's output may not be its input, so the
     wrapper hands back ``x`` itself as the sum."""
 
@@ -76,6 +79,19 @@ def norm_op(name: str, entry: str, wrapper):
     def fake(x, weight, residual, eps):
         return [torch.empty_like(x) for _ in range(1 + (residual is not None))]
 
+    def setup_context(ctx, inputs, output):
+        x, weight, residual, eps = inputs
+        ctx.save_for_backward(x, weight, residual)
+        ctx.eps = eps
+
+    def backward(ctx, grads):
+        x, weight, residual = ctx.saved_tensors
+        dx, dw, dr = residual_rmsnorm_bwd(
+            grads[0], grads[1] if len(grads) > 1 else None, x, weight,
+            residual, ctx.eps)
+        return dx, dw, dr, None
+
+    op.register_autograd(backward, setup_context=setup_context)
     return op
 
 

@@ -3,7 +3,8 @@
 
 The wrapper calls a ``torch.library`` custom op: its CPU implementation is
 the plain version (``ref.py``), its CUDA implementation launches the kernel
-or raises, and its fake implementation gives a tracer the outputs' shapes.
+or raises, and its fake implementation gives a tracer the outputs' shapes; its autograd
+rule is the closed-form backward of ``backward.py``.
 A trace expands the op into its plain version (``core/tracing.py``), as the
 reference traces the unfused norm. ``rmsnorm_matmul.launches`` counts
 kernel launches.
@@ -13,6 +14,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.fused.rmsnorm_matmul.backward import \
+    rmsnorm_matmul_bwd
 from repro_torch.kernels.fused.rmsnorm_matmul.ref import rmsnorm_matmul_ref
 
 _ARGS = [build.P, build.P, build.P, build.P, build.P, build.I, build.I,
@@ -111,6 +114,24 @@ def _launch(x, weight, w_proj, eps):
 def _fake(x, weight, w_proj, eps):
     return (x.new_empty(x.shape[:-1] + (w_proj.shape[1],),
                         dtype=w_proj.dtype), torch.empty_like(x))
+
+
+def _setup(ctx, inputs, output):
+    x, weight, w_proj, eps = inputs
+    ctx.save_for_backward(x, weight, w_proj, output[1])
+    ctx.eps = eps
+    # an unused output's gradient arrives as None, not zeros: no product
+    # with a zero gradient
+    ctx.set_materialize_grads(False)
+
+
+def _backward(ctx, grad_proj, grad_normed):
+    x, weight, w_proj, normed = ctx.saved_tensors
+    return (*rmsnorm_matmul_bwd(grad_proj, grad_normed, x, weight, w_proj,
+                                normed, ctx.eps), None)
+
+
+_op.register_autograd(_backward, setup_context=_setup)
 
 
 def _costs(x, weight, w_proj, eps) -> tuple:

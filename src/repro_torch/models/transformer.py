@@ -76,12 +76,24 @@ outside any): a trace of the step
 (``core/tracing.py``) reads them as each kernel's operator path, and the
 profiler tags the device kernels with them.  The residual add the fused
 norm takes in (``norm2``) is counted with the norm.
+
+Training (``loss_fn``, the reference's): the forward without cache, the
+same kernels, with the MoE aux loss summed over the layers
+(``with_aux``), optionally the final hidden states for a chunked CE
+(``return_hidden``) and each layer recomputed in the backward
+(``remat``, ``torch.utils.checkpoint`` under one of ``REMAT_POLICIES``).
+The kernels' custom ops carry closed-form backward rules
+(``kernels/*/backward.py``), so the backward is torch ops and launches no
+hand-written kernel (with remat, the recomputed forward launches them
+again).  An RWKV-6 stack is refused (``check_trainable``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint as torch_checkpoint
 from torch.profiler import record_function as scope
 
 from repro_torch import kernels
@@ -93,6 +105,7 @@ from repro_torch.layers import moe
 from repro_torch.layers import rwkv
 from repro_torch.layers.common import (dense_init, embed_tokens, mlp_fwd,
                                        mlp_init, softcap, unembed)
+from repro_torch.tree import leaves, named_leaves
 
 
 ATTENTION_KINDS = ("attn", "attn_local")
@@ -346,10 +359,12 @@ def _cross_cache(state: Optional[dict]) -> Optional[dict]:
     return {"k": state["cross_k"], "v": state["cross_v"]}
 
 
-def encode(params, frames, cfg: ModelConfig) -> torch.Tensor:
+def encode(params, frames, cfg: ModelConfig, *,
+           remat_policy: Optional[str] = None) -> torch.Tensor:
     """The encoder over frame embeddings (B,T,D): non-causal layers over
     positions 0..T-1 with RoPE, then ``enc_norm``; returns (B,T,D) in the
-    compute dtype, the cross-attention's source."""
+    compute dtype, the cross-attention's source.  ``remat_policy``: each
+    layer under ``remat_wrap`` (None: no recompute)."""
     ecfg = encoder_config(cfg)
     eps = cfg.norm_eps
     x = frames.to(cfg.cdtype)
@@ -357,7 +372,7 @@ def encode(params, frames, cfg: ModelConfig) -> torch.Tensor:
     ctx = attn.attention_context(ecfg, b, s, x.device)
     m = None
     for i, bp in enumerate(params["enc_blocks"]):
-        with scope(f"layer{i}"):
+        def layer(x, m, bp=bp):
             if m is not None:
                 with scope("resid"):
                     x = x + m
@@ -371,7 +386,9 @@ def encode(params, frames, cfg: ModelConfig) -> torch.Tensor:
                 h, x = kernels.residual_rmsnorm(x, bp["norm2"]["scale"],
                                                 residual=o, eps=eps)
             with scope("mlp"):
-                m = mlp_fwd(bp["mlp"], h, ecfg)
+                return x, mlp_fwd(bp["mlp"], h, ecfg)
+        with scope(f"layer{i}"):
+            x, m = remat_wrap(layer, remat_policy)(x, m)
     # the last layer's residual add fuses with enc_norm, as in the
     # reference's plan (no operator scope there either)
     out, _ = kernels.residual_rmsnorm(x, params["enc_norm"]["scale"],
@@ -382,8 +399,10 @@ def encode(params, frames, cfg: ModelConfig) -> torch.Tensor:
 def forward(params, tokens, cfg: ModelConfig, *, cache: Optional[list] = None,
             cache_index: int = 0, lengths=None, block_tables=None,
             positions=None, encoder_tokens=None, frontend_embeds=None,
-            reduce=None):
-    """Returns (logits f32 (B,S,V), cache).
+            reduce=None, with_aux: bool = False, return_hidden: bool = False,
+            remat: bool = False, remat_policy: str = "nothing"):
+    """Returns (logits f32 (B,S,V), cache), or (out, cache, aux) with
+    ``with_aux``.
 
     ``cache``: from ``make_cache`` or ``make_paged_cache``, updated in place
     (and returned).
@@ -422,8 +441,23 @@ def forward(params, tokens, cfg: ModelConfig, *, cache: Optional[list] = None,
     (``attention_fwd``, ``mlp_fwd``); ``cfg`` then carries one rank's local
     head counts and ``params`` its shard (``inference.backends.sharded``,
     which serves pure-attention decoders only).  None: identity.
+
+    The training options (``loss_fn``; a forward without cache, refused on
+    an RWKV-6 stack): ``with_aux`` also returns the MoE load-balancing aux
+    loss summed over the MoE layers (an f32 scalar, 0 without MoE), as the
+    reference's forward does; ``return_hidden`` returns the final-normed
+    hidden states (B,S,D) instead of the logits (an untied head's final
+    norm is then a ``residual_rmsnorm``, its product left to the caller);
+    ``remat`` recomputes each layer in the backward
+    (``torch.utils.checkpoint``), saving what ``remat_policy`` names
+    (``REMAT_POLICIES``).
     """
     check_supported(cfg)
+    if with_aux or return_hidden or remat:
+        check_trainable(cfg)
+        if cache is not None:
+            raise ValueError("with_aux / return_hidden / remat are for a "
+                             "forward without cache (training)")
     embed = params["embed"]
     dev = embed.device
     tokens = torch.as_tensor(tokens).to(dev)
@@ -443,81 +477,125 @@ def forward(params, tokens, cfg: ModelConfig, *, cache: Optional[list] = None,
     encoder_out = None
     if cfg.n_encoder_layers and encoder_tokens is not None:
         encoder_out = encode(params, torch.as_tensor(encoder_tokens).to(dev),
-                             cfg)
+                             cfg, remat_policy=remat_policy if remat else None)
     elif frontend_embeds is not None:
         encoder_out = torch.as_tensor(frontend_embeds).to(dev, cfg.cdtype)
-    eps = cfg.norm_eps
-    period = len(cfg.block_pattern)
     with scope("embed"):
         x = embed_tokens(embed, tokens, cfg).to(cfg.cdtype)
+    aux = torch.zeros((), dtype=torch.float32, device=dev) if with_aux \
+        else None
     pending = None      # the previous layer's MLP output, not yet added
     for i, bp in enumerate(params["blocks"]):
-        kind = layer_kind(cfg, i)
-        mixer = bp["mixer"]
-        w_in = mixer["in_proj"] if kind == "mamba" else mixer["wq"]
+        mixer, mlp = _layer_parts(
+            bp, i, cfg, ctx, None if cache is None else cache[i],
+            encoder_out, decode, reduce, with_aux)
         with scope(f"layer{i}"):
-            # a superblock's first norm1 fuses with the mixer's input
-            # product; a later slot's fuses the residual add before it
-            with scope("norm1"):
-                if pending is None:
-                    y, h = kernels.rmsnorm_matmul(x, bp["norm1"]["scale"],
-                                                  w_in, eps=eps)
-                else:
-                    h, x = kernels.residual_rmsnorm(
-                        x, bp["norm1"]["scale"], residual=pending, eps=eps)
-                    y = None
-            state = None if cache is None else cache[i]
-            with scope(MIXER_SCOPE[kind]):
-                if kind == "mamba":
-                    o, _ = mamba.mamba_fwd(mixer, h, cfg, state=state, xz=y)
-                elif kind == "xattn":
-                    o = attn.cross_attention_fwd(
-                        mixer, h, y, cfg, cache=_cross_cache(state),
-                        cross_kv=encoder_out, decode=decode)
-                    o = o * torch.tanh(bp["xgate"]).to(o.dtype)
-                else:
-                    o = attn.attention_fwd(mixer, h, y, cfg, ctx,
-                                           cache=state,
-                                           window=layer_window(cfg, i),
-                                           reduce=reduce)
-            if "xattn" in bp:
-                # enc-dec: cross-attention after the self-attention, its
-                # norm fusing the residual add before it
-                with scope("xattn"):
-                    with scope("norm_x"):
-                        h, x = kernels.residual_rmsnorm(
-                            x, bp["norm_x"]["scale"], residual=o, eps=eps)
-                    o = attn.cross_attention_fwd(
-                        bp["xattn"], h, None, cfg,
-                        cache=_cross_cache(state), cross_kv=encoder_out,
-                        decode=decode)
-            with scope("norm2"):
-                h, x = kernels.residual_rmsnorm(x, bp["norm2"]["scale"],
-                                                residual=o, eps=eps)
-            if "moe" in bp:
-                with scope("moe"):
-                    m, _ = moe.moe_fwd(bp["moe"], h, cfg, with_aux=False)
+            if remat and remat_policy == "names":
+                # save each sub-block's output, recompute inside it
+                x, o = remat_wrap(mixer, "names")(x, pending)
+                x, pending, a = remat_wrap(mlp, "names")(x, o)
             else:
-                with scope("mlp"):
-                    m = mlp_fwd(bp["mlp"], h, cfg, reduce=reduce)
-            if i % period == period - 1:
-                with scope("resid"):
-                    x = x + m
-                pending = None
-            else:
-                pending = m
+                # bound now: a checkpoint runs it again in the backward
+                layer = functools.partial(_whole_layer, mixer, mlp)
+                x, pending, a = remat_wrap(
+                    layer, remat_policy if remat else None)(x, pending)
+        if a is not None:
+            aux = aux + a
+    eps = cfg.norm_eps
+    if return_hidden:
+        with scope("final_norm"):
+            x, _ = kernels.residual_rmsnorm(
+                x, params["final_norm"]["scale"], eps=eps)
+        return (x, cache, aux) if with_aux else (x, cache)
     if not cfg.tie_embeddings:
         # an untied head fuses with the final norm (d x V), as in the
         # reference's plan; a tied one is read transposed, so no window
         with scope("final_norm"), scope("unembed"):
             logits, _ = kernels.rmsnorm_matmul(
                 x, params["final_norm"]["scale"], params["lm_head"], eps=eps)
-        return softcap(logits.float(), cfg.final_softcap), cache
-    with scope("final_norm"):
-        x, _ = kernels.residual_rmsnorm(x, params["final_norm"]["scale"],
-                                        eps=eps)
-    with scope("unembed"):
-        return unembed(x, embed, None, cfg), cache
+        logits = softcap(logits.float(), cfg.final_softcap)
+    else:
+        with scope("final_norm"):
+            x, _ = kernels.residual_rmsnorm(x, params["final_norm"]["scale"],
+                                            eps=eps)
+        with scope("unembed"):
+            logits = unembed(x, embed, None, cfg)
+    return (logits, cache, aux) if with_aux else (logits, cache)
+
+
+def _whole_layer(mixer, mlp, x, pending):
+    return mlp(*mixer(x, pending))
+
+
+def _layer_parts(bp, i, cfg: ModelConfig, ctx, state, encoder_out, decode,
+                 reduce, with_aux):
+    """Layer i as two functions of the residual stream: ``mixer(x,
+    pending) -> (x, o)`` (norm1, fusing the previous layer's pending MLP
+    output into the residual or, at a superblock's first slot, the mixer's
+    input product; the mixer; an encoder-decoder layer's cross-attention)
+    and ``mlp(x, o) -> (x, pending, aux)`` (norm2 fusing the mixer's
+    output, the MLP or MoE, and at a superblock's last slot the residual
+    add; ``pending`` is the MLP output left for the next layer's norm1,
+    ``aux`` the MoE aux loss or None)."""
+    kind = layer_kind(cfg, i)
+    eps = cfg.norm_eps
+    period = len(cfg.block_pattern)
+    w_in = bp["mixer"]["in_proj"] if kind == "mamba" else bp["mixer"]["wq"]
+
+    def mixer(x, pending):
+        # a superblock's first norm1 fuses with the mixer's input
+        # product; a later slot's fuses the residual add before it
+        with scope("norm1"):
+            if pending is None:
+                y, h = kernels.rmsnorm_matmul(x, bp["norm1"]["scale"],
+                                              w_in, eps=eps)
+            else:
+                h, x = kernels.residual_rmsnorm(
+                    x, bp["norm1"]["scale"], residual=pending, eps=eps)
+                y = None
+        with scope(MIXER_SCOPE[kind]):
+            if kind == "mamba":
+                o, _ = mamba.mamba_fwd(bp["mixer"], h, cfg, state=state,
+                                       xz=y)
+            elif kind == "xattn":
+                o = attn.cross_attention_fwd(
+                    bp["mixer"], h, y, cfg, cache=_cross_cache(state),
+                    cross_kv=encoder_out, decode=decode)
+                o = o * torch.tanh(bp["xgate"]).to(o.dtype)
+            else:
+                o = attn.attention_fwd(bp["mixer"], h, y, cfg, ctx,
+                                       cache=state,
+                                       window=layer_window(cfg, i),
+                                       reduce=reduce)
+        if "xattn" in bp:
+            # enc-dec: cross-attention after the self-attention, its
+            # norm fusing the residual add before it
+            with scope("xattn"):
+                with scope("norm_x"):
+                    h, x = kernels.residual_rmsnorm(
+                        x, bp["norm_x"]["scale"], residual=o, eps=eps)
+                o = attn.cross_attention_fwd(
+                    bp["xattn"], h, None, cfg, cache=_cross_cache(state),
+                    cross_kv=encoder_out, decode=decode)
+        return x, o
+
+    def mlp(x, o):
+        with scope("norm2"):
+            h, x = kernels.residual_rmsnorm(x, bp["norm2"]["scale"],
+                                            residual=o, eps=eps)
+        a = None
+        if "moe" in bp:
+            with scope("moe"):
+                m, a = moe.moe_fwd(bp["moe"], h, cfg, with_aux=with_aux)
+        else:
+            with scope("mlp"):
+                m = mlp_fwd(bp["mlp"], h, cfg, reduce=reduce)
+        if i % period == period - 1:
+            with scope("resid"):
+                return x + m, None, a
+        return x, m, a
+
+    return mixer, mlp
 
 
 def _forward_rwkv(params, tokens, cfg: ModelConfig, cache):
@@ -547,3 +625,124 @@ def _forward_rwkv(params, tokens, cfg: ModelConfig, cache):
                                residual=res, eps=eps)
     with scope("unembed"):
         return unembed(x, params["embed"], params.get("lm_head"), cfg)
+
+
+# =========================================================== training
+# The reference's REMAT_POLICIES, as the ops whose outputs a layer's
+# checkpoint keeps (torch.utils.checkpoint's selective checkpointing):
+# "nothing" recomputes all; "dots" keeps every product, the batched ones
+# (attention, the experts' bmm) too; "dots_no_batch" keeps only the
+# products without batch dims; "names" keeps each sub-block's output (the
+# mixer's and the MLP's: the forward checkpoints the two separately).
+REMAT_POLICIES = ("nothing", "dots", "dots_no_batch", "names")
+
+
+def _saved_ops(policy: str) -> list:
+    aten, ops = torch.ops.aten, torch.ops.repro_torch
+    unbatched = [aten.mm.default, aten.addmm.default,
+                 ops.rmsnorm_matmul.default]
+    if policy == "dots":
+        return unbatched + [aten.bmm.default, aten.baddbmm.default,
+                            ops.flash_attention.default]
+    return unbatched if policy == "dots_no_batch" else []
+
+
+def remat_wrap(fn, policy: Optional[str]):
+    """``fn`` recomputed in the backward under ``policy`` (one of
+    ``REMAT_POLICIES``; "names" checkpoints ``fn`` whole), or ``fn`` as it
+    is for None."""
+    if policy is None:
+        return fn
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {policy!r}; have "
+                         f"{REMAT_POLICIES}")
+    kw, saved = {}, _saved_ops(policy)
+    if saved:
+        kw["context_fn"] = functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts, saved)
+    return functools.partial(torch_checkpoint.checkpoint, fn,
+                             use_reentrant=False, **kw)
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise for a stack the port cannot train: RWKV-6, whose ``wkv6`` op
+    has no backward yet."""
+    if "rwkv6" in cfg.block_pattern:
+        raise NotImplementedError(
+            f"{cfg.name}: training an RWKV-6 stack (a backward of the wkv6 "
+            "op) not ported yet, see ROADMAP Queue A, \"training and launch "
+            "tooling\"")
+
+
+def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = True,
+            remat_policy: str = "nothing", aux_weight: float = 0.01,
+            loss_chunks: int = 1):
+    """Next-token CE plus ``aux_weight`` times the MoE aux loss; returns
+    (loss, (ce, aux)), f32 scalars.  ``batch``: {"tokens", "labels"} (B,S)
+    and, for the cross stacks, "encoder_tokens" or "frontend_embeds"
+    (B,T,D), tensors or numpy arrays (``data.make_batch``).
+    ``loss_chunks`` > 1 takes the CE over that many sequence chunks, each
+    chunk's unembed recomputed in the backward (``_chunked_ce``), so the
+    (B,S,V) logits never exist at once."""
+    check_trainable(cfg)
+    dev = params["embed"].device
+    labels = torch.as_tensor(batch["labels"]).to(dev).long()
+    kw = dict(encoder_tokens=batch.get("encoder_tokens"),
+              frontend_embeds=batch.get("frontend_embeds"), remat=remat,
+              remat_policy=remat_policy, with_aux=True)
+    if loss_chunks > 1:
+        hidden, _, aux = forward(params, batch["tokens"], cfg,
+                                 return_hidden=True, **kw)
+        ce = _chunked_ce(hidden, labels, params, cfg, loss_chunks)
+    else:
+        logits, _, aux = forward(params, batch["tokens"], cfg, **kw)
+        ce = _ce_sum(logits, labels) / labels.numel()
+    return ce + aux_weight * aux, (ce, aux)
+
+
+def _ce_sum(logits, labels) -> torch.Tensor:
+    """Sum over tokens of logsumexp(logits) - logits[label], in f32."""
+    gold = logits.gather(-1, labels[..., None])[..., 0]
+    return (torch.logsumexp(logits, dim=-1) - gold).sum()
+
+
+def _chunked_ce(hidden, labels, params, cfg: ModelConfig, n_chunks: int):
+    """Mean CE over ``n_chunks`` sequence chunks of the final hidden states
+    (B,S,D); each chunk's logits are made by the unembed inside a
+    checkpoint and made again in the backward."""
+    b, s, _ = hidden.shape
+    if s % n_chunks:
+        raise ValueError(f"sequence {s} not divisible into {n_chunks} "
+                         "loss chunks")
+    sc = s // n_chunks
+
+    def chunk(xc, lc):
+        logits = unembed(xc, params["embed"], params.get("lm_head"), cfg)
+        return _ce_sum(logits, lc)
+
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(n_chunks):
+        part = slice(c * sc, (c + 1) * sc)
+        total = total + torch_checkpoint.checkpoint(
+            chunk, hidden[:, part], labels[:, part], use_reentrant=False)
+    return total / (b * s)
+
+
+def param_count(params) -> int:
+    return sum(leaf.numel() for leaf in leaves(params))
+
+
+def active_param_count(params, cfg: ModelConfig) -> int:
+    """Params touched per token (MoE: top_k of n_experts), excl.
+    embeddings, by the reference's key rules."""
+    total = 0
+    for key, leaf in named_leaves(params):
+        keys = key.split("/")
+        if "embed" in keys or "lm_head" in keys:
+            continue
+        n = leaf.numel()
+        if cfg.moe and "moe" in keys and \
+                any(k in ("w_in", "w_gate", "w_out") for k in keys):
+            n = n * cfg.moe.top_k // cfg.moe.n_experts
+        total += n
+    return total

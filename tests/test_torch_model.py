@@ -210,7 +210,7 @@ def test_unported_messages_name_their_roadmap_item():
     from repro_torch.inference.engine import ServeEngine
     from repro_torch.inference.fleet import ReplicaFleet
     from repro_torch.layers import moe
-    from repro_torch.models import check_supported
+    from repro_torch.models import check_supported, loss_fn
     cfg = reduced(get_config("smollm-360m"))
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     be = make_backend(cfg, params, max_batch=1, max_len=8, tp=2,
@@ -227,10 +227,17 @@ def test_unported_messages_name_their_roadmap_item():
         assert eng.kv.mirror is not None
     assert not multiprocessing.active_children()
     mcfg = reduced(get_config("moonshot-v1-16b-a3b"))
+    rcfg = reduced(get_config("rwkv6-3b"), n_layers=1)
+    rparams = init_params(rcfg, torch.Generator().manual_seed(0),
+                          device="cpu")
+    toks = np.zeros((1, 4), np.int32)
     calls = [
         # expert parallelism comes with the training step builders
         ("training and launch tooling", lambda: moe.moe_fwd(
             {}, torch.zeros(1, 1, mcfg.d_model), mcfg, dist=object())),
+        # training an RWKV-6 stack waits for a backward of its wkv6 op
+        ("training and launch tooling", lambda: loss_fn(
+            rparams, {"tokens": toks, "labels": toks}, rcfg)),
         # the cross-attention stacks are ported (check_supported passes
         # them, below); RWKV-6 beside other kinds, which no config has,
         # still refuses
