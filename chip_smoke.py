@@ -267,6 +267,38 @@ Phases (any failure exits non-zero before a result is printed):
      layers and its restart, per-step losses against an uninterrupted
      run within RESUME_TOL.
 
+ 22. the multi-rank training pieces, on one pool of two rank processes
+     that share the card over gloo through host memory (their times are
+     no parallel speed): (a) whole SmolLM-360M (bf16) data parallel over
+     the two ranks, 4 x 512 of phase 21's n-gram tokens a rank, MR_STEPS
+     steps of ``make_compressed_dp_grad`` (int8 payloads, error feedback)
+     plus AdamW, with the launch counts reset just before; the first
+     step's compressed mean gradient within COMPRESS_TOL relative of the
+     exact mean (an f32 all-reduce of the same local gradients, for the
+     check only), the parameters bit-identical across the ranks after
+     every step (a checksum), the loss falling, launches a step and rank
+     ``rmsnorm_matmul`` 32, ``residual_rmsnorm`` 33, ``flash_attention``
+     32 (``launches_by_path["dp_train"]``), or it fails; ms a step split
+     into compute, exchange and AdamW, the wire bytes against an f32
+     all-reduce's, both ranks' peak memory; (b) Moonlight-16B-A3B at full
+     width cut to 2 of its 48 layers (whole, it does not fit one card with
+     gradients), expert parallel at ep 2 in ``seq`` and ``rep`` against
+     the local path over batch 2 x 256 at capacity factor 8: in bf16 at
+     most EP_FLIP_MAX of the tokens routed to other experts than local's
+     in some layer (a router near-tie that rounding flips), the logits of
+     the others within LOGIT_TOL_BF16, and each leaf's gradient of
+     ``loss_fn(aux_weight=0)`` within EP_GRAD_TOL_BF16 of the leaf's
+     largest local magnitude, a bound that a misrouted reading (each
+     rank's expert gradients against the other rank's experts') must
+     exceed; the strict gate is f32 (TF32 off) at 1 layer, logits and
+     gradients within EP_TOL_F32 relative; the per-shard aux beside
+     local's; then Moonlight's own capacity factor and the assignments
+     dropped per shard; (c) the GPipe schedule of SmolLM-360M's 32 blocks
+     in 2 stages of 16 (``stage_forward`` over ``pipeline_stages``: each
+     stage runs its layers under their own indices), 4 microbatches of 2
+     x 512 in bf16, against ``reference_forward`` on one rank: max error,
+     pipelined and sequential ms, the bubble (P - 1) / ticks.
+
 Phases 4, 6, 7 and 9 serve with ``--plan eager`` (``plan="eager"``): one
 dispatch a node of the traced step, whose norms are their plain versions,
 so only the attention kernels (or ``wkv6``) launch there; their traces (5,
@@ -304,8 +336,8 @@ served cross prefill (``[x_t1]``: B 1, S 16 over T 1, S > T), beside SDPA;
 untied heads (``[unembed_vision]`` 4096 x 128256, ``[unembed_seamless]``
 1024 x 256206).
 
-Order: 1-3, then 21, 20, 18 and 19 (the newest phases, so that a fault there
-ends the run early), then 4-17.  Phase 2 also holds the six kernels of
+Order: 1-3, then 21, 22, 20, 18 and 19 (the newest phases, so that a fault
+there ends the run early), then 4-17.  Phase 2 also holds the six kernels of
 phase 20's path at one tp=2 rank's shapes (``tp_cases``, ``[llama_tp2]``:
 16/4 heads of 64, ``rmsnorm_matmul`` at 2048 x 1024).  Phase 2 times the kernels in
 bf16 (f32 only for the f32-only ``wkv6``; the f32 cases check the error),
@@ -321,6 +353,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -452,9 +485,24 @@ from repro_torch.kernels.fused.rmsnorm_matmul.backward import \
     rmsnorm_matmul_bwd                                     # noqa: E402
 from repro_torch.training.loop import (TrainConfig,       # noqa: E402
                                        Trainer, to_device)
-from repro_torch.training.optim import OptConfig, opt_update  # noqa: E402
+from repro_torch.training.optim import (OptConfig,        # noqa: E402
+                                        opt_init, opt_update)
+from repro_torch.distributed.collectives import raw_psum   # noqa: E402
+from repro_torch.distributed.compression import (          # noqa: E402
+    init_error_state, make_compressed_dp_grad, wire_bytes)
+from repro_torch.distributed.pipeline import (             # noqa: E402
+    bubble_fraction, pipeline_forward, reference_forward)
+from repro_torch.distributed.ranks import RankPool         # noqa: E402
+from repro_torch.distributed.sharding import (             # noqa: E402
+    expert_param_specs, shard_for_rank)
+from repro_torch.launch.mesh import Mesh, make_host_mesh   # noqa: E402
+from repro_torch.layers import moe as moe_layer            # noqa: E402
+from repro_torch.layers.common import embed_tokens         # noqa: E402
+from repro_torch.models import (pipeline_stages,         # noqa: E402
+                                stage_forward)
 from repro_torch.tree import leaves as tree_leaves         # noqa: E402
 from repro_torch.tree import map_tree as tree_map          # noqa: E402
+from repro_torch.tree import named_leaves                  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 PLAINS = {"decode_attention": decode_attention_ref,
@@ -5000,6 +5048,490 @@ def phase_train() -> tuple:
     return rows, counts
 
 
+# ------------------------------------------------------------------ phase 22
+# Two rank processes share cuda:0 and exchange over gloo through host
+# memory: the times are no parallel speed.
+MR_RANKS = 2
+MR_SHARE = "two ranks time-sharing cuda:0 over gloo: no parallel speed"
+MR_STEPS, MR_BATCH = 10, 8          # (a): 8 x 512 tokens a step, 4 a rank
+COMPRESS_TOL = 0.05                 # the reference test's relative bound
+EP_ARCH, EP_LAYERS, EP_BATCH, EP_SEQ = "moonshot-v1-16b-a3b", 2, 2, 256
+EP_CF = 8.0                         # nothing drops (the reference test's)
+EP_TOL_F32 = 1e-4                   # relative, 1 layer, TF32 off
+# bf16, 2 layers: a leaf's gradient error over its largest local value
+# (sound runs read 0.19-0.23; a dropped or ep-scaled expert gradient reads
+# 1 by construction, a misrouted one is measured each run), and the share
+# of tokens whose experts a rounding near-tie may flip (sound: 0.4-3.1 %)
+EP_GRAD_TOL_BF16, EP_FLIP_MAX = 0.5, 0.05
+PP_MICRO, PP_MB = 4, 2              # (c): 4 microbatches of 2 x 512
+
+
+def mr_checksum(params) -> int:
+    """A checksum of every parameter's bits, on the device."""
+    total = 0
+    for i, p in enumerate(tree_leaves(params)):
+        b = p.detach().reshape(-1).view(torch.int16).int()
+        total += (i + 1) * int(b.sum(dtype=torch.int64)) + \
+            int((b * b).sum(dtype=torch.int64))
+    return total
+
+
+def mr_sync(ctx) -> float:
+    torch.cuda.synchronize(ctx.device)
+    return time.perf_counter()
+
+
+def mr_dp_train(ctx, steps: int, layers: int | None = None) -> dict:
+    """(a), on each rank: SmolLM-360M (bf16, the same seed on every rank;
+    whole, or cut to ``layers``) trained ``steps`` steps of
+    ``make_compressed_dp_grad`` plus AdamW on the rank's 4 x 512 rows of
+    phase 21's n-gram batches.  First, for the check only, the first
+    batch's local gradients meaned exactly (an f32 all-reduce); then the
+    launch counts reset and the steps run."""
+    cfg = get_config(ARCH)
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
+    dev = ctx.device
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    oc = OptConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                   total_steps=steps)
+    state = opt_init(oc, params)
+    data = DataConfig(batch=MR_BATCH, seq_len=TRAIN_SEQ,
+                      vocab_size=TRAIN_DATA_VOCAB)
+    n, r = ctx.size("data"), ctx.index("data")
+    rows = slice(r * MR_BATCH // n, (r + 1) * MR_BATCH // n)
+
+    def local(i):
+        return {k: v[rows] for k, v in
+                to_device(make_batch(data, i, cfg), dev).items()}
+
+    def loss(p, b):
+        return loss_fn(p, b, cfg, remat=False)
+    ps = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    g0 = torch.autograd.grad(loss(ps, local(0))[0], tree_leaves(ps))
+    exact = raw_psum(torch.cat([g.float().reshape(-1) for g in g0]), ctx,
+                     "data") / n
+    del ps, g0
+    step = make_compressed_dp_grad(loss, ctx, "data")
+    errors = init_error_state(params)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    out = {"losses": [], "checksums": [], "step_ms": [], "exchange_ms": [],
+           "optimizer_ms": []}
+    for i in range(steps):
+        batch = local(i)
+        w0, t0 = dataclasses.replace(ctx.wire), mr_sync(ctx)
+        grads, errors, lv = step(params, errors, batch)
+        t1 = mr_sync(ctx)
+        opt_update(oc, grads, state, params)
+        t2 = mr_sync(ctx)
+        if i == 0:
+            g = torch.cat([x.float().reshape(-1) for x in tree_leaves(grads)])
+            out["first_rel"] = float((g - exact).norm() / exact.norm())
+            out["wire_a_step"] = ctx.wire.bytes - w0.bytes
+            out["wire"] = wire_bytes(grads, n)
+            del g, exact
+        out["losses"].append(float(lv))
+        out["checksums"].append(mr_checksum(params))
+        out["step_ms"].append((t2 - t0) * 1e3)
+        out["exchange_ms"].append((ctx.wire.seconds - w0.seconds) * 1e3)
+        out["optimizer_ms"].append((t2 - t1) * 1e3)
+        del grads
+    out["launches"] = kernels.launch_counts()
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return out
+
+
+def ep_config(dtype: str, layers: int, cf: float):
+    base = get_config(EP_ARCH)
+    return base.replace(n_layers=layers, param_dtype=dtype,
+                        compute_dtype=dtype,
+                        moe=dataclasses.replace(base.moe,
+                                                capacity_factor=cf))
+
+
+def grads_of_loss(params, batch, cfg, **kw) -> tuple:
+    ps = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss, _ = loss_fn(ps, batch, cfg, remat=False, aux_weight=0.0, **kw)
+    return float(loss.detach()), dict(zip(
+        [k for k, _ in named_leaves(ps)],
+        torch.autograd.grad(loss, tree_leaves(ps))))
+
+
+@contextlib.contextmanager
+def recorded_dispatch():
+    """Record each MoE dispatch's expert ids (sorted a token) and dropped
+    assignments while the block runs."""
+    dispatch, calls = moe_layer.dispatch_slots, []
+
+    def recording(eids, n_experts, cap):
+        slot, keep = dispatch(eids, n_experts, cap)
+        calls.append((eids.sort(dim=-1).values, int((~keep).sum())))
+        return slot, keep
+    moe_layer.dispatch_slots = recording
+    try:
+        yield calls
+    finally:
+        moe_layer.dispatch_slots = dispatch
+
+
+@contextlib.contextmanager
+def ep_mode(mode: str):
+    """The model's MoE layers in EP ``mode`` (``forward`` leaves it to the
+    reference's auto rule, which picks seq at S 256)."""
+    fwd = moe_layer.moe_fwd
+    moe_layer.moe_fwd = functools.partial(fwd, mode=mode)
+    try:
+        yield
+    finally:
+        moe_layer.moe_fwd = fwd
+
+
+def mr_ep_check(ctx, dtype: str, layers: int, cf: float, modes: tuple,
+                local: bool) -> dict:
+    """(b), on each rank: Moonlight at full width cut to ``layers``, the
+    same seed on every rank; for each EP mode the logits and aux of
+    ``forward(dist=)`` and ``loss_fn(dist=, aux_weight=0)`` with its
+    gradients, held (with ``local``) against the local path on the whole
+    parameters over the same batch: per leaf the largest difference of
+    the gradients of the rank's slice (and over the leaf's largest
+    magnitude); the largest logits difference over the tokens this rank
+    routes (``seq``: its slice of the sequence) and over those of them
+    whose expert sets equal the local path's in every layer (a router
+    near-tie that rounding at another point flips changes a token's
+    experts; such tokens are counted).  Beside them, what a fault would
+    read: each expert leaf's gradient against the other rank's experts'
+    local gradient (a misrouted expert).  The assignments dropped per
+    shard, per MoE layer and mode."""
+    cfg = ep_config(dtype, layers, cf)
+    dev = ctx.device
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(22),
+                         device=dev)
+    mesh = ctx.mesh
+    dist = moe_layer.MeshContext(mesh, ("data",), "model", ranks=ctx)
+    specs = expert_param_specs(params, cfg, mesh)
+    shard = shard_for_rank(params, specs, mesh, ctx.rank)
+    rng = np.random.default_rng(22)
+    tokens = torch.tensor(rng.integers(0, cfg.vocab_size,
+                                       (EP_BATCH, EP_SEQ)), device=dev)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    k = cfg.moe.top_k
+    out = {}
+    if local:
+        with torch.no_grad(), recorded_dispatch() as ref_routes:
+            ref_logits, _, ref_aux = forward(params, tokens, cfg,
+                                             with_aux=True)
+        ref_loss, ref_g = grads_of_loss(params, batch, cfg)
+        whole_g = unflatten_named(params, ref_g)
+        ref_g = dict(named_leaves(shard_for_rank(whole_g, specs, mesh,
+                                                 ctx.rank)))
+        # the other rank's experts' gradients: a misrouting fault's reading
+        other_g = dict(named_leaves(shard_for_rank(
+            whole_g, specs, mesh, (ctx.rank + 1) % mesh.size)))
+        full = dict(named_leaves(params))
+        experts = [key for key in ref_g if ref_g[key].shape
+                   != full[key].shape]
+        del whole_g, full
+        out["local"] = {"aux": float(ref_aux), "loss": ref_loss}
+    for mode in modes:
+        with ep_mode(mode):
+            t0 = mr_sync(ctx)
+            with torch.no_grad(), recorded_dispatch() as routes:
+                logits, _, aux = forward(shard, tokens, cfg, with_aux=True,
+                                         dist=dist)
+            t1 = mr_sync(ctx)
+            loss, g = grads_of_loss(shard, batch, cfg, dist=dist)
+            t2 = mr_sync(ctx)
+        row = {"aux": float(aux), "loss": loss,
+               "drops": [d for _, d in routes],
+               "forward_ms": (t1 - t0) * 1e3,
+               "loss_and_grads_ms": (t2 - t1) * 1e3}
+        if local:
+            # the (B, S) tokens this rank routes, and those whose experts
+            # differ from the local path's in some layer
+            own = slice(None)
+            if mode == "seq":
+                n = EP_SEQ // ctx.size("model")
+                own = slice(ctx.index("model") * n,
+                            (ctx.index("model") + 1) * n)
+            flipped = torch.zeros((EP_BATCH, EP_SEQ), dtype=torch.bool,
+                                  device=dev)[:, own]
+            for (mine, _), (ref, _) in zip(routes, ref_routes):
+                ref = ref.view(EP_BATCH, EP_SEQ, k)[:, own]
+                flipped |= (mine.view(ref.shape) != ref).any(-1)
+            diff = (logits.float() - ref_logits.float()).abs()[:, own]
+            diff = diff.amax(-1)
+            row["logits_err"] = float(diff.max())
+            row["logits_err_same_routes"] = float(
+                diff[~flipped].max()) if bool((~flipped).any()) else 0.0
+            row["flipped"] = int(flipped.sum())
+            row["routed"] = int(flipped.numel())
+            row["logits_scale"] = float(ref_logits.float().abs().max())
+            rel = {}
+            for key, v in g.items():
+                scale = float(ref_g[key].float().abs().max())
+                rel[key] = float((v.float() - ref_g[key].float()).abs()
+                                 .max()) / max(scale, 1e-30)
+            worst = max(rel, key=rel.get)
+            row["grad_rel"] = rel[worst]
+            row["grad_rel_leaf"] = worst
+            row["grad_rel_misrouted"] = min(
+                float((g[key].float() - other_g[key].float()).abs().max())
+                / max(float(other_g[key].float().abs().max()), 1e-30)
+                for key in experts)
+            row["grad_abs"] = max(
+                float((v.float() - ref_g[key].float()).abs().max())
+                for key, v in g.items())
+        out[mode] = row
+    return out
+
+
+def unflatten_named(tree, named: dict):
+    """``tree``'s structure with ``named[key]`` at every leaf."""
+    values = iter([named[k] for k, _ in named_leaves(tree)])
+    return tree_map(lambda _: next(values), tree)
+
+
+def mr_pipeline(ctx, n_micro: int, mb: int,
+                layers: int | None = None) -> dict:
+    """(c), on each rank: SmolLM-360M (bf16; whole, or cut to ``layers``)
+    split into one stage a rank (``pipeline_stages``, ``stage_forward`` as
+    the stage function); a warm-up, then the GPipe schedule over
+    ``n_micro`` microbatches of mb x 512 embedded tokens with the launch
+    counts reset before it, then (rank 0) the sequential
+    ``reference_forward`` of all stages on the same inputs."""
+    cfg = get_config(ARCH)
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
+    dev = ctx.device
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    stage = ctx.index("pipe")
+    stages = pipeline_stages(params, ctx.size("pipe"))
+    rng = np.random.default_rng(23)
+    tokens = torch.tensor(rng.integers(0, TRAIN_DATA_VOCAB,
+                                       (n_micro, mb, TRAIN_SEQ)), device=dev)
+    x = embed_tokens(params["embed"], tokens, cfg).to(cfg.cdtype)
+    fn = functools.partial(stage_forward, cfg=cfg)
+    out = {}
+    with torch.no_grad():
+        pipeline_forward(fn, stages[stage], x, ctx, "pipe")
+        kernels.reset_launch_counts()
+        t0 = mr_sync(ctx)
+        y = pipeline_forward(fn, stages[stage], x, ctx, "pipe")
+        out["pipelined_ms"] = (mr_sync(ctx) - t0) * 1e3
+        out["launches"] = kernels.launch_counts()
+        if stage == 0:
+            reference_forward(fn, stages, x[:1])
+            t0 = mr_sync(ctx)
+            ref = reference_forward(fn, stages, x)
+            out["sequential_ms"] = (mr_sync(ctx) - t0) * 1e3
+            out["max_err"] = max_err(y, ref)
+            out["equal"] = bool(torch.equal(y, ref))
+            out["finite"] = bool(torch.isfinite(y).all())
+    return out
+
+
+def mr_cell_a(pool) -> tuple:
+    """(a): data parallel with the int8 wire.  Returns (row, launches a
+    step and rank)."""
+    cfg = get_config(ARCH)
+    mesh = make_host_mesh(data=MR_RANKS, model=1, device=DEV)
+    outs = pool.run(mr_dp_train, mesh, [(MR_STEPS,)] * MR_RANKS)
+    a, b = outs
+    if a["checksums"] != b["checksums"]:
+        bad = next(i for i, (x, y) in enumerate(zip(a["checksums"],
+                                                    b["checksums"]))
+                   if x != y)
+        fail(f"phase 22 (a): parameters differ between the ranks after "
+             f"step {bad + 1}")
+    losses = a["losses"]
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"phase 22 (a): loss did not fall: {losses}")
+    rel = max(o["first_rel"] for o in outs)
+    if not rel <= COMPRESS_TOL:
+        fail(f"phase 22 (a): first compressed mean gradient {rel:.4f} "
+             f"relative from the exact mean (> {COMPRESS_TOL})")
+    want = {**norm_launches(cfg), "flash_attention": attention_launches(cfg)}
+    per_step = {}
+    for name in TRAIN_KERNELS:
+        got = [o["launches"][name] for o in outs]
+        if any(n != want[name] * MR_STEPS for n in got):
+            fail(f"phase 22 (a): dp_train launched {name} {got} times a "
+                 f"rank in {MR_STEPS} steps; expected {want[name]} a step")
+        per_step[name] = got[0] // MR_STEPS
+    timed = slice(TIMED_FROM, None)
+    step = float(np.median(a["step_ms"][timed]))
+    exch = float(np.median(a["exchange_ms"][timed]))
+    opt = float(np.median(a["optimizer_ms"][timed]))
+    row = {"steps": MR_STEPS, "ranks": MR_RANKS, "losses": losses,
+           "first_rel": rel, "step_ms": step, "exchange_ms": exch,
+           "compute_ms": step - exch - opt, "optimizer_ms": opt,
+           "step_ms_all": a["step_ms"], "exchange_ms_all": a["exchange_ms"],
+           "wire_handed_to_gloo": a["wire_a_step"], "wire": a["wire"],
+           "peak_gb_ranks": [o["peak_gb"] for o in outs],
+           "launches_a_step": per_step}
+    print(f"phase 22 (a): {cfg.name} whole, {MR_RANKS} data ranks x "
+          f"{MR_BATCH // MR_RANKS} x {TRAIN_SEQ} tokens, int8 compressed "
+          f"gradients + AdamW, {MR_STEPS} steps: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; first step's mean {rel:.4f} relative from the "
+          f"exact mean (<= {COMPRESS_TOL}); parameters bit-identical across "
+          f"the ranks after every step")
+    print(f"phase 22 (a): step {step:.1f} ms = compute {row['compute_ms']:.1f}"
+          f" + exchange {exch:.1f} + AdamW {opt:.1f} (median of steps "
+          f"{TIMED_FROM + 1}-{MR_STEPS}; {MR_SHARE}); wire a step and rank: "
+          f"int8 {a['wire']['int8'] / 1e6:.1f} MB sent + received against "
+          f"an f32 all-reduce's {a['wire']['f32_allreduce'] / 1e6:.1f} MB "
+          f"({a['wire_a_step'] / 1e6:.1f} MB handed to gloo); peak memory "
+          f"{' + '.join(f'{g:.2f}' for g in row['peak_gb_ranks'])} = "
+          f"{sum(row['peak_gb_ranks']):.2f} GB; launches a step and rank "
+          f"{per_step}")
+    return row, {name: per_step[name] for name in TRAIN_KERNELS}
+
+
+def ep_row(outs: list, mode: str) -> dict:
+    """The ranks' ``mr_ep_check`` rows of ``mode`` as one: the largest
+    errors, the smallest misrouted reading, the flipped tokens of all
+    ranks (a ``seq`` rank routes its slice of the sequence, a ``rep`` rank
+    all of it)."""
+    rs = [o[mode] for o in outs]
+    row = {key: max(r[key] for r in rs) for key in (
+        "logits_err", "logits_err_same_routes", "grad_rel", "grad_abs",
+        "logits_scale")}
+    seq = mode == "seq"
+    row.update({
+        "grad_rel_misrouted": min(r["grad_rel_misrouted"] for r in rs),
+        "flipped": (sum if seq else max)(r["flipped"] for r in rs),
+        "routed": (sum if seq else max)(r["routed"] for r in rs),
+        "grad_rel_leaf": max(rs, key=lambda r: r["grad_rel"])[
+            "grad_rel_leaf"],
+        "aux": rs[0]["aux"], "aux_local": outs[0]["local"]["aux"],
+        "loss": rs[0]["loss"], "loss_local": outs[0]["local"]["loss"],
+        "forward_ms": rs[0]["forward_ms"],
+        "loss_and_grads_ms": rs[0]["loss_and_grads_ms"]})
+    return row
+
+
+def ep_gate(row: dict, dtype: str) -> tuple:
+    """(ok, the tolerance in words) of an EP-against-local row: f32 holds
+    logits and every leaf's gradient within EP_TOL_F32 relative; bf16
+    holds the share of route-flipped tokens within EP_FLIP_MAX, the other
+    tokens' logits within LOGIT_TOL_BF16 and every leaf's gradient within
+    EP_GRAD_TOL_BF16 of its largest local value, and needs a misrouted
+    expert's reading above that bound."""
+    if dtype == "float32":
+        ok = row["grad_rel"] <= EP_TOL_F32 and \
+            row["logits_err"] <= EP_TOL_F32 * row["logits_scale"]
+        return ok, f"{EP_TOL_F32} relative"
+    ok = row["grad_rel"] <= EP_GRAD_TOL_BF16 < row["grad_rel_misrouted"] \
+        and row["flipped"] <= EP_FLIP_MAX * row["routed"] \
+        and row["logits_err_same_routes"] <= LOGIT_TOL_BF16
+    return ok, (f"gradients {EP_GRAD_TOL_BF16} of the leaf's largest, "
+                f"below a misrouted reading; at most {EP_FLIP_MAX:.0%} of "
+                f"the tokens flipped; logits {LOGIT_TOL_BF16} where the "
+                f"routes agree")
+
+
+def mr_cell_b(pool) -> dict:
+    """(b): expert parallel at ep = 2 against one rank's local path.  It
+    prints every line before it fails on any."""
+    mesh = make_host_mesh(data=1, model=MR_RANKS, device=DEV)
+    rows, bad = {}, []
+    for dtype, layers in (("bfloat16", EP_LAYERS), ("float32", 1)):
+        outs = pool.run(mr_ep_check, mesh, [(dtype, layers, EP_CF,
+                                             ("seq", "rep"), True)]
+                        * MR_RANKS)
+        for mode in ("seq", "rep"):
+            row = ep_row(outs, mode)
+            ok, tol = ep_gate(row, dtype)
+            line = (f"phase 22 (b): {EP_ARCH} full width, {layers} of 48 "
+                    f"layers, {dtype}, ep {MR_RANKS} {mode}, capacity "
+                    f"factor {EP_CF}, batch {EP_BATCH} x {EP_SEQ}: against "
+                    f"the local path gradients (aux_weight 0) "
+                    f"{row['grad_abs']:.3g} abs, {row['grad_rel']:.3g} of "
+                    f"the leaf's largest ({row['grad_rel_leaf']}; a "
+                    f"misrouted expert would read "
+                    f"{row['grad_rel_misrouted']:.3g}); logits "
+                    f"{row['logits_err_same_routes']:.3g} over the tokens "
+                    f"routed as local's in every layer, "
+                    f"{row['logits_err']:.3g} over all (max |logit| "
+                    f"{row['logits_scale']:.3g}; {row['flipped']} of "
+                    f"{row['routed']} tokens routed differently in some "
+                    f"layer) (tolerance {tol}); aux {row['aux']:.6f} (per "
+                    f"shard) beside local's {row['aux_local']:.6f}; forward "
+                    f"{row['forward_ms']:.1f} ms, loss and gradients "
+                    f"{row['loss_and_grads_ms']:.1f} ms ({MR_SHARE})")
+            print(line, flush=True)
+            if not ok:
+                bad.append(line)
+            rows[f"{dtype}_{mode}"] = row
+    cf = get_config(EP_ARCH).moe.capacity_factor
+    outs = pool.run(mr_ep_check, mesh, [("bfloat16", EP_LAYERS, cf,
+                                         ("seq", "rep"), False)] * MR_RANKS)
+    k = get_config(EP_ARCH).moe.top_k
+    for mode in ("seq", "rep"):
+        drops = [o[mode]["drops"] for o in outs]
+        rows[f"drops_{mode}"] = drops
+        # a seq shard routes its slice of the sequence, a rep shard all
+        per_shard = EP_BATCH * EP_SEQ * k // (MR_RANKS if mode == "seq"
+                                             else 1)
+        print(f"phase 22 (b): at Moonlight's own capacity factor {cf}, "
+              f"{mode}: assignments dropped per shard (rank) and MoE layer "
+              f"{drops} of {per_shard} a shard and layer; aux "
+              f"{outs[0][mode]['aux']:.6f}")
+    if bad:
+        fail("\n".join(bad))
+    return rows
+
+
+def mr_cell_c(pool) -> dict:
+    """(c): the GPipe pipeline of SmolLM-360M's 32 blocks in 2 stages."""
+    mesh = Mesh({"pipe": MR_RANKS}, (DEV,) * MR_RANKS)
+    outs = pool.run(mr_pipeline, mesh, [(PP_MICRO, PP_MB)] * MR_RANKS)
+    a = outs[0]
+    if not a["finite"] or a["max_err"] > TOL[str(torch.bfloat16)]:
+        fail(f"phase 22 (c): pipelined output {a['max_err']:.3g} from the "
+             f"sequential run (finite {a['finite']})")
+    per = get_config(ARCH).n_layers // MR_RANKS
+    ticks = PP_MICRO + MR_RANKS - 1
+    for o in outs:
+        if o["launches"]["flash_attention"] != per * ticks:
+            fail(f"phase 22 (c): a stage launched flash_attention "
+                 f"{o['launches']['flash_attention']} times in {ticks} "
+                 f"ticks; expected {per} a tick")
+    row = {"pipelined_ms": a["pipelined_ms"],
+           "sequential_ms": a["sequential_ms"], "max_err": a["max_err"],
+           "equal": a["equal"],
+           "bubble": bubble_fraction(MR_RANKS, PP_MICRO),
+           "launches_a_stage": outs[0]["launches"]}
+    print(f"phase 22 (c): {ARCH}'s {2 * per} blocks in {MR_RANKS} stages "
+          f"of {per}, {PP_MICRO} microbatches of {PP_MB} x {TRAIN_SEQ} "
+          f"(bf16, forward): against reference_forward on one rank max "
+          f"error {a['max_err']:.3g} (bit-equal: {a['equal']}); pipelined "
+          f"{a['pipelined_ms']:.1f} ms, sequential {a['sequential_ms']:.1f} "
+          f"ms, bubble (P - 1) / ticks = {row['bubble']:.3f} ({MR_SHARE})")
+    return row
+
+
+def phase_multirank() -> tuple:
+    """Phase 22: the multi-rank training pieces on one pool of two ranks
+    that share the card.  Returns (rows, {"dp_train": launches a step})."""
+    t0 = time.perf_counter()
+    with RankPool(MR_RANKS, DEV, timeout_s=600) as pool:
+        print(f"phase 22: {MR_RANKS} ranks started at "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        rows = {}
+        rows["dp_train"], dp_counts = mr_cell_a(pool)
+        rows["ep"] = mr_cell_b(pool)
+        rows["pipeline"] = mr_cell_c(pool)
+    secs = time.perf_counter() - t0
+    print(f"phase 22: {secs:.1f} s")
+    print("phase 22: " + json.dumps({"rows": rows, "seconds": secs}))
+    return rows, {"dp_train": dp_counts}
+
+
 # ------------------------------------------------------------------ main
 # which main path (its jit run, phase 11; the multi-query entries: their
 # phase-16 speculative run) each kernel's ``launches`` is read from
@@ -5033,12 +5565,14 @@ def main() -> None:
     # there ends the run early
     _, train_counts = phase_train()
     mark("1-3, 21")
+    _, multirank_counts = phase_multirank()
+    mark("1-3, 21-22")
     _, tp_counts = phase_tp()
-    mark("1-3, 20-21")
+    mark("1-3, 20-22")
     _, moe_counts = phase_moe()
-    mark("1-3, 18, 20-21")
+    mark("1-3, 18, 20-22")
     _, xattn_counts = phase_xattn()
-    mark("1-3, 18-21")
+    mark("1-3, 18-22")
     eager_counts, eager = {}, {}
     eager_counts["contiguous"], rep, eng, done = phase_serve(cfg, 4)
     eager["contiguous"] = (rep, done, phase_trace(eng, "phase 5",
@@ -5070,7 +5604,7 @@ def main() -> None:
     _, spec_counts = phase_speculative(jit_rows, jit_done, llama_rows,
                                        llama_done)
     _, tier_counts = phase_serving_tier()
-    print(f"chip_smoke: phases 1-21 in {time.perf_counter() - t0:.1f} s")
+    print(f"chip_smoke: phases 1-22 in {time.perf_counter() - t0:.1f} s")
 
     entries = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -5097,6 +5631,8 @@ def main() -> None:
         if name in TRAIN_KERNELS:      # the training step's: launches a step
             by_path.update({p: c[name] // TRAIN_STEPS
                             for p, c in train_counts.items()})
+            # a data-parallel rank's step (phase 22 (a))
+            by_path.update({p: c[name] for p, c in multirank_counts.items()})
         entries.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "launches_by_path": by_path, **row})

@@ -1,2 +1,4 @@
-"""Tensor-parallel placement: which dimension of each parameter and cache
-leaf splits over the ``model`` axis (``sharding``)."""
+"""Distribution over ranks: the placement rules (``sharding``), the rank
+pool (``ranks``: one process a rank over gloo groups), the collectives a
+rank's body calls (``collectives``), int8 compressed data-parallel
+gradients (``compression``) and the GPipe schedule (``pipeline``)."""

@@ -11,10 +11,14 @@ layer's parameters unstacked (``params["blocks"][i]``), so its block
 specs lack the reference's leading superblock dimension; every other
 entry is the reference's rule for the same leaf.
 
-``shard_params`` applies them: rank r's contiguous 1/tp slice of every
-leaf split over the axis, the rest replicated.  The activation hook
-``make_shd`` belongs with training (ROADMAP Queue A, "training and launch
-tooling").
+``shardings_for`` gives a tree's valid specs over a mesh (the reference's
+``NamedSharding`` tree) and ``shard_for_rank`` a rank's slices by them:
+along each split dimension the rank's contiguous block, by its index over
+that entry's axes; ``shard_params`` is the tensor-parallel serving
+backend's use of it.  The activation hook ``make_shd`` is a GSPMD layout
+constraint, which the port's one-process-a-rank execution has no use for
+outside the step builders and the dry run (ROADMAP Queue A, "training and
+launch tooling").
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import axes_index, rank_coords
 
 
 # ------------------------------------------------------------------ helpers
@@ -40,6 +45,50 @@ def valid_spec(shape, spec: tuple, mesh) -> tuple:
     entries = list(spec) + [None] * (len(shape) - len(spec))
     return tuple(axis if axis and dim % _axis_size(mesh, axis) == 0 else None
                  for dim, axis in zip(shape, entries))
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def shardings_for(tree, spec_tree, mesh):
+    """The tree of valid specs (``valid_spec`` of each leaf's candidate
+    over ``mesh``): the port's counterpart of the reference's
+    ``NamedSharding`` tree."""
+    return _tree_map(
+        lambda path, leaf: valid_spec(leaf.shape, _at(spec_tree, path), mesh),
+        tree)
+
+
+def _entry_axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def shard_for_rank(tree, specs, mesh, rank: int):
+    """Rank ``rank``'s slice of every leaf of ``tree`` by its spec: along
+    each dimension split over axes, the block at the rank's index over
+    them (a copy in a storage of its own); a replicated leaf is the given
+    tensor itself."""
+    coords = rank_coords(mesh, rank)
+
+    def take(path, leaf):
+        out = leaf
+        for dim, entry in enumerate(_at(specs, path)):
+            axes = _entry_axes(entry)
+            if axes:
+                n = math.prod(mesh.shape[a] for a in axes)
+                size = out.shape[dim] // n
+                out = out.narrow(dim, axes_index(mesh, coords, axes) * size,
+                                 size)
+        if out is leaf:
+            return leaf
+        # a storage of its own: a view would carry (and serialize) the whole
+        return out.clone(memory_format=torch.contiguous_format)
+    return _tree_map(take, tree)
 
 
 def split_dim(spec: tuple, axis: str = "model") -> Optional[int]:
@@ -143,6 +192,26 @@ def param_specs(params, cfg: ModelConfig, mesh, tp: str = "model",
     return _tree_map(spec_of, params)
 
 
+_EXPERTS = ("w_in", "w_gate", "w_out")
+
+
+def expert_param_specs(params, cfg: ModelConfig, mesh,
+                       fsdp_experts: bool = False):
+    """An expert-parallel rank's layout: ``param_specs`` for the MoE
+    experts (``w_in``/``w_gate``/``w_out`` over "model", and over "data"
+    along d_ff with ``fsdp_experts``), every other leaf replicated (the
+    port's ``forward(dist=...)`` runs every other layer whole on each
+    rank)."""
+    specs = param_specs(params, cfg, mesh, "model", fsdp_experts)
+
+    def spec_of(path, leaf):
+        keys = [k for k in path if isinstance(k, str)]
+        if "moe" in keys and keys[-1] in _EXPERTS:
+            return _at(specs, path)
+        return (None,) * leaf.dim()
+    return _tree_map(spec_of, params)
+
+
 class _ModelAxis:
     """A (data=1, model=tp) mesh's shape alone: what the rules read."""
 
@@ -161,15 +230,6 @@ def serving_param_specs(params, cfg: ModelConfig, tp: int):
     return specs
 
 
-def _slice(t: torch.Tensor, dim: Optional[int], tp: int, rank: int):
-    if dim is None:
-        return t
-    n = t.shape[dim] // tp
-    # a storage of its own: a view would carry (and serialize) the whole
-    return t.narrow(dim, rank * n, n).clone(
-        memory_format=torch.contiguous_format)
-
-
 def shard_params(params, cfg: ModelConfig, tp: int, rank: int):
     """Rank ``rank``'s tensors of a tp-way split: wq/wk/wv (and their
     biases) by head columns, wo by head rows, the MLP's d_ff, each a
@@ -178,14 +238,8 @@ def shard_params(params, cfg: ModelConfig, tp: int, rank: int):
     themselves."""
     if not 0 <= rank < tp:
         raise ValueError(f"rank {rank} outside a tp={tp} group")
-    specs = serving_param_specs(params, cfg, tp)
-
-    def take(path, leaf):
-        spec = specs
-        for k in path:
-            spec = spec[k]
-        return _slice(leaf, split_dim(spec), tp, rank)
-    return _tree_map(take, params)
+    return shard_for_rank(params, serving_param_specs(params, cfg, tp),
+                          _ModelAxis(tp), rank)
 
 
 # ------------------------------------------------------------------ cache

@@ -64,12 +64,8 @@ from __future__ import annotations
 
 import datetime
 import importlib
-import io
-import multiprocessing as mp
-import os
 import time
 import traceback
-import weakref
 from dataclasses import dataclass, replace
 
 import torch
@@ -78,6 +74,10 @@ import torch.distributed as dist
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device_model import PLATFORMS, allreduce_cost_s
 from repro_torch.device import resolve_device
+from repro_torch.distributed.ranks import (HOST, Workers, gloo_group,
+                                           join_store, recv_tree,
+                                           send_tree, serve_commands,
+                                           start_rank, tf32_choice, to_host)
 from repro_torch.distributed.sharding import shard_params
 from repro_torch.inference.backends.base import (AccountingMixin,
                                                  BackendInfo, CallAccount)
@@ -89,7 +89,6 @@ from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import make_paged_cache
 
 _SUPPORTED_KINDS = ("attn", "attn_local")
-_HOST = "127.0.0.1"
 
 
 def _validate_tp(cfg: ModelConfig, tp: int) -> None:
@@ -131,15 +130,6 @@ def local_config(cfg: ModelConfig, tp: int) -> ModelConfig:
     local heads would be wrong)."""
     return cfg.replace(n_heads=cfg.n_heads // tp,
                        n_kv_heads=cfg.n_kv_heads // tp, head_dim=cfg.hd)
-
-
-def _group(store, rank: int, tp: int, timeout_s: float):
-    """A gloo group of its own over ``store`` (not the default group, so
-    one process can be rank 0 of several backends), on the loopback."""
-    opts = dist.ProcessGroupGloo._Options()
-    opts._timeout = datetime.timedelta(seconds=timeout_s)
-    opts._devices = [dist.ProcessGroupGloo.create_device(hostname=_HOST)]
-    return dist.ProcessGroupGloo(store, rank, tp, opts)
 
 
 @dataclass
@@ -198,7 +188,7 @@ class _Rank(LocalBackend):
             return x
         self.sites.append((name, x.numel() * x.element_size()))
         if x.device.type == "cuda":
-            h = x.cpu()
+            h = to_host(x)
             self._exchange(h)
             x.copy_(h)
         else:
@@ -209,9 +199,7 @@ class _Rank(LocalBackend):
                          host: torch.Tensor) -> None:
         """All-reduce ``buf`` through its pinned ``host`` buffer (device to
         host, the gloo exchange, host to device): transport only."""
-        host.copy_(buf, non_blocking=True)
-        torch.cuda.current_stream(self.device).synchronize()
-        self._exchange(host)
+        self._exchange(to_host(buf, host))
         buf.copy_(host, non_blocking=True)
 
     def _exchange(self, h: torch.Tensor) -> None:
@@ -224,31 +212,6 @@ class _Rank(LocalBackend):
 
 
 # ---------------------------------------------------------------- workers
-_CHUNK = 1 << 22     # bytes a pipe message carries when a shard crosses
-
-
-def _send_tree(conn, tree) -> None:
-    """``tree`` serialized, across ``conn`` in messages of _CHUNK bytes:
-    the reader of one message asks for all its remaining bytes in every
-    read, and a shard of gigabytes sent whole did not arrive in minutes."""
-    buf = io.BytesIO()
-    torch.save(tree, buf)
-    view = buf.getbuffer()
-    conn.send(len(view))
-    for i in range(0, len(view), _CHUNK):
-        conn.send_bytes(view[i:i + _CHUNK])
-
-
-def _recv_tree(conn, device):
-    n = conn.recv()
-    buf = bytearray(n)
-    got = 0
-    while got < n:
-        got += conn.recv_bytes_into(buf, got)
-    return torch.load(io.BytesIO(buf), map_location=device,
-                      weights_only=True)
-
-
 def _exchanges(group, n: int, nbytes: int) -> float:
     """Seconds one of ``n`` back-to-back all-reduces of ``nbytes`` of host
     memory takes (no device work between them), after one untimed to line
@@ -266,22 +229,13 @@ def _worker_main(conn, rank: int, tp: int, port: int, timeout_s: float,
                  device: str, platform: str, threads: int,
                  tf32: tuple) -> None:
     """Rank ``rank``: receive its shard, join the group, then run each
-    command from rank 0 in order, replying ("ok", result) or ("err",
-    traceback); after an error it exits, so that a peer waiting in an
-    all-reduce sees it gone.  Ends on "close" or when rank 0's end of the
-    pipe closes."""
-    torch.set_num_threads(threads)
-    # rank 0's TF32 choice, so that every rank's f32 products round alike
-    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 \
-        = tf32
-    dev = resolve_device(device)
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
+    command from rank 0 in order (``ranks.serve_commands``)."""
+    dev = start_rank(device, threads, tf32)
     try:
-        shard = _recv_tree(conn, dev)
-        store = dist.TCPStore(_HOST, port, tp, False,
-                              timeout=datetime.timedelta(seconds=timeout_s))
-        me = _Rank(cfg_local, shard, group=_group(store, rank, tp, timeout_s),
+        shard = recv_tree(conn, dev)
+        store = join_store(port, tp, timeout_s)
+        me = _Rank(cfg_local, shard,
+                   group=gloo_group(store, rank, tp, timeout_s),
                    max_batch=max_batch, max_len=max_len, device=dev,
                    platform=platform)
     except BaseException:
@@ -292,116 +246,36 @@ def _worker_main(conn, rank: int, tp: int, port: int, timeout_s: float,
     # rank 0 goes on setting up, not inside the first step
     importlib.import_module("torch._dynamo")
     cache, kv, staged = None, None, {}
-    while True:
-        try:
-            op, args = conn.recv()
-        except (EOFError, OSError):
-            return
-        if op == "close":
-            conn.send(("ok", None))
-            conn.close()
-            # nothing to flush: skip the interpreter's teardown of the
-            # group and of torch, which takes most of a second
-            os._exit(0)
-        try:
-            out = None
-            if op == "call":
-                kind, arrays, static = args
-                me._call(kind, cache, arrays, static)
-                out = (dict(me.last.kernel_launches), replace(me.coll),
-                       replace(me.graph_stats))
-            elif op == "contiguous":
-                cache = me.adopt(me.init_contiguous_cache())
-            elif op == "paged":
-                kv = PagedKVCache(cfg_local, device=dev, **args[0])
-                cache = me.adopt(kv.make_pages())
-            elif op == "zero_pages":
-                kv.zero_pages(cache, args[0])
-            elif op == "copy_pages":
-                kv.copy_pages(cache, *args)
-            elif op == "gather_host":
-                staged[args[1]] = kv.gather_host(cache, args[0])
-            elif op == "scatter_host":
-                kv.scatter_host(cache, args[0], staged.pop(args[1]))
-            elif op == "reset_cache":
-                me.reset_cache(cache)
-                staged.clear()
-            elif op == "exchange":
-                _exchanges(me.group, *args)
-            else:
-                raise ValueError(f"unknown command {op!r}")
-            conn.send(("ok", out))
-        except BaseException:
-            conn.send(("err", traceback.format_exc()))
-            return
 
-
-class _Workers:
-    """Rank 0's side of the workers: their processes and pipes."""
-
-    def __init__(self, procs: list, conns: list, timeout_s: float):
-        self.procs = procs
-        self.conns = conns
-        self.timeout_s = timeout_s
-
-    def send(self, op: str, *args) -> None:
-        for c in self.conns:
-            c.send((op, args))
-
-    def gather(self) -> list:
-        """Each worker's reply to the last command; raises with a worker's
-        traceback, when a worker exited, or past the timeout."""
-        out = []
-        for r, (p, c) in enumerate(zip(self.procs, self.conns), start=1):
-            deadline = time.monotonic() + self.timeout_s
-            while not c.poll(0.5):
-                if not p.is_alive():
-                    raise RuntimeError(f"tensor-parallel rank {r} exited "
-                                       f"(code {p.exitcode})")
-                if time.monotonic() > deadline:
-                    raise TimeoutError(f"tensor-parallel rank {r} sent no "
-                                       f"reply in {self.timeout_s} s")
-            status, value = c.recv()
-            if status != "ok":
-                raise RuntimeError(f"tensor-parallel rank {r} failed:\n"
-                                   f"{value}")
-            out.append(value)
-        return out
-
-    def errors(self, wait_s: float = 2.0) -> str:
-        """The tracebacks the workers sent, waiting up to ``wait_s`` for
-        them (after rank 0 failed)."""
-        msgs = []
-        deadline = time.monotonic() + wait_s
-        for r, c in enumerate(self.conns, start=1):
-            try:
-                while c.poll(max(0.0, deadline - time.monotonic())):
-                    status, value = c.recv()
-                    if status != "ok":
-                        msgs.append(f"rank {r}:\n{value}")
-                        break
-            except (EOFError, OSError):
-                pass
-        return "\n".join(msgs)
-
-
-def _stop(procs: list, conns: list) -> None:
-    """Ask each worker to close, then end whatever still runs."""
-    for c in conns:
-        try:
-            c.send(("close", ()))
-        except (OSError, ValueError):
-            pass
-    for p in procs:
-        p.join(timeout=10)
-        if p.is_alive():
-            p.terminate()
-            p.join(timeout=10)
-        if p.is_alive():
-            p.kill()
-            p.join()
-    for c in conns:
-        c.close()
+    def handle(op, args):
+        nonlocal cache, kv
+        if op == "call":
+            kind, arrays, static = args
+            me._call(kind, cache, arrays, static)
+            return (dict(me.last.kernel_launches), replace(me.coll),
+                    replace(me.graph_stats))
+        if op == "contiguous":
+            cache = me.adopt(me.init_contiguous_cache())
+        elif op == "paged":
+            kv = PagedKVCache(cfg_local, device=dev, **args[0])
+            cache = me.adopt(kv.make_pages())
+        elif op == "zero_pages":
+            kv.zero_pages(cache, args[0])
+        elif op == "copy_pages":
+            kv.copy_pages(cache, *args)
+        elif op == "gather_host":
+            staged[args[1]] = kv.gather_host(cache, args[0])
+        elif op == "scatter_host":
+            kv.scatter_host(cache, args[0], staged.pop(args[1]))
+        elif op == "reset_cache":
+            me.reset_cache(cache)
+            staged.clear()
+        elif op == "exchange":
+            _exchanges(me.group, *args)
+        else:
+            raise ValueError(f"unknown command {op!r}")
+        return None
+    serve_commands(conn, handle)
 
 
 class ShardedBackend(StepCalls, AccountingMixin):
@@ -443,29 +317,19 @@ class ShardedBackend(StepCalls, AccountingMixin):
     def _start(self, params) -> None:
         """Spawn ranks 1..tp-1, hand each its shard, join the group."""
         td = datetime.timedelta(seconds=self.timeout_s)
-        self._store = dist.TCPStore(_HOST, 0, self.tp, True, timeout=td,
+        self._store = dist.TCPStore(HOST, 0, self.tp, True, timeout=td,
                                     wait_for_workers=False)
-        ctx = mp.get_context("spawn")
-        procs, conns = [], []
-        self._workers = _Workers(procs, conns, self.timeout_s)
-        self._finalizer = weakref.finalize(self, _stop, procs, conns)
+        tf32 = tf32_choice()
+        self._workers = Workers(
+            _worker_main,
+            [(r, self.tp, self._store.port, self.timeout_s, self.cfg_local,
+              self.B, self.T, str(self.mesh.devices[r]), self.platform,
+              torch.get_num_threads(), tf32) for r in range(1, self.tp)],
+            timeout_s=self.timeout_s, label="tensor-parallel rank", first=1)
         try:
-            for r in range(1, self.tp):
-                parent, child = ctx.Pipe()
-                p = ctx.Process(
-                    target=_worker_main, name=f"tp-rank{r}", daemon=True,
-                    args=(child, r, self.tp, self._store.port,
-                          self.timeout_s, self.cfg_local, self.B, self.T,
-                          str(self.mesh.devices[r]), self.platform,
-                          torch.get_num_threads(),
-                          (torch.backends.cuda.matmul.allow_tf32,
-                           torch.backends.cudnn.allow_tf32)))
-                p.start()
-                child.close()
-                procs.append(p)
-                conns.append(parent)
-                _send_tree(parent, shard_params(params, self.cfg, self.tp, r))
-            group = _group(self._store, 0, self.tp, self.timeout_s)
+            for r, conn in enumerate(self._workers.conns, start=1):
+                send_tree(conn, shard_params(params, self.cfg, self.tp, r))
+            group = gloo_group(self._store, 0, self.tp, self.timeout_s)
             self._workers.gather()
             self.local = _Rank(self.cfg_local,
                                shard_params(params, self.cfg, self.tp, 0),
@@ -493,7 +357,7 @@ class ShardedBackend(StepCalls, AccountingMixin):
             extra = self._workers.errors()
             self.close()
             if extra:
-                raise RuntimeError(f"{e}\n{extra}") from e
+                raise RuntimeError("\n".join([str(e), *extra])) from e
             raise
 
     def _mirror(self, op: str, *args) -> None:
@@ -590,6 +454,6 @@ class ShardedBackend(StepCalls, AccountingMixin):
     def close(self) -> None:
         """Stop the workers (idempotent); the backend serves no more."""
         self._closed = True
-        finalizer = getattr(self, "_finalizer", None)
-        if finalizer is not None:
-            finalizer()
+        workers = getattr(self, "_workers", None)
+        if workers is not None:
+            workers.close()

@@ -1,16 +1,26 @@
-"""Elastic scaling arithmetic: map a changed device pool to a new grid.
+"""Elastic scaling controller: reshard a run across device-count changes.
 
-Copy of the pure arithmetic of ``repro/launch/elastic.py``:
-``plan_reshape`` (the largest (data, model) grid that fits the surviving
-pool) and ``plan_fleet`` (its serving variant with the model axis pinned
-to the serving ``tp``), which the replica fleet's ``--remove-at`` /
-``--add-at`` resizing follows.  The reference's ``elastic_restore``
-(restore a checkpoint onto the current device pool) needs the checkpoint
-manager and comes with ROADMAP Queue A, "training and launch tooling".
+Counterpart of ``repro/launch/elastic.py``: ``plan_reshape`` (the largest
+(data, model) grid that fits the surviving pool), ``plan_fleet`` (its
+serving variant with the model axis pinned to the serving ``tp``, which
+the replica fleet's ``--remove-at`` / ``--add-at`` resizing follows) and
+``elastic_restore``.  The checkpoint stores whole leaves
+(``checkpoint.CheckpointManager``), so restoring onto a different mesh is
+restoring and cutting each rank's shard by the current mesh's specs: a
+checkpoint written at one mesh restores at any other.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (param_specs, shard_for_rank,
+                                              shardings_for)
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.tree import map_tree
 
 
 @dataclass
@@ -51,3 +61,23 @@ def plan_fleet(n_devices: int, tp: int, lost: int = 0) -> ElasticPlan:
             f"{avail} surviving devices cannot hold even one tp={tp} "
             f"replica (need >= {tp})")
     return ElasticPlan(n_devices, avail, (avail // tp, tp))
+
+
+def elastic_restore(ckpt, step: int, target_tree, cfg: ModelConfig,
+                    mesh=None, device="cuda"):
+    """Restore checkpoint ``step`` onto the current device pool.  Returns
+    (shards, mesh): ``shards[r]`` is rank r's tree, each leaf its slice by
+    ``param_specs`` over ``mesh`` on the rank's device.  With ``mesh=None``
+    the mesh is ``plan_reshape`` of the visible CUDA devices (of
+    ``device``; one rank on the CPU), as the reference's over its
+    devices."""
+    if mesh is None:
+        dev = resolve_device(device)
+        n = torch.cuda.device_count() if dev.type == "cuda" else 1
+        data, model = plan_reshape(n).mesh_shape
+        mesh = make_host_mesh(data=data, model=model, device=dev)
+    full = ckpt.restore(step, target_tree)
+    specs = shardings_for(full, param_specs(full, cfg, mesh), mesh)
+    return [map_tree(lambda t, d=d: t.to(d),
+                     shard_for_rank(full, specs, mesh, r))
+            for r, d in enumerate(mesh.devices)], mesh

@@ -37,6 +37,27 @@ class Mesh:
         return math.prod(self.shape.values())
 
 
+def rank_coords(mesh, rank: int) -> dict:
+    """Rank ``rank``'s coordinate on each axis (rank-major, the axes in
+    order, as ``Mesh.devices``)."""
+    if not 0 <= rank < math.prod(mesh.shape.values()):
+        raise ValueError(f"rank {rank} outside mesh {dict(mesh.shape)}")
+    coords, rest = {}, rank
+    for a in reversed(tuple(mesh.shape)):
+        coords[a] = rest % mesh.shape[a]
+        rest //= mesh.shape[a]
+    return {a: coords[a] for a in mesh.shape}
+
+
+def axes_index(mesh, coords: dict, axes) -> int:
+    """Row-major index of ``coords`` over ``axes`` (a rank's index in its
+    group over them)."""
+    idx = 0
+    for a in axes:
+        idx = idx * mesh.shape[a] + coords[a]
+    return idx
+
+
 def rank_devices(n: int, device="cuda") -> tuple:
     """The device of each of ``n`` ranks: round-robin over the visible
     CUDA devices (ranks beyond the count share cards), or the CPU."""

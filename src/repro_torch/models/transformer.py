@@ -86,6 +86,13 @@ The kernels' custom ops carry closed-form backward rules
 (``kernels/*/backward.py``), so the backward is torch ops and launches no
 hand-written kernel (with remat, the recomputed forward launches them
 again).  An RWKV-6 stack is refused (``check_trainable``).
+
+Multi-rank training (``distributed``): ``forward`` and ``loss_fn`` take
+``dist``, the MoE layers' mesh context inside a rank (expert parallelism),
+as the reference's; ``forward_blocks`` runs a contiguous range of layers
+on the residual stream, and ``stage_forward`` over ``pipeline_stages``
+is a pipeline stage's ``stage_fn`` (each stage keeps its first layer's
+index).
 """
 from __future__ import annotations
 
@@ -400,7 +407,7 @@ def forward(params, tokens, cfg: ModelConfig, *, cache: Optional[list] = None,
             cache_index: int = 0, lengths=None, block_tables=None,
             positions=None, encoder_tokens=None, frontend_embeds=None,
             reduce=None, with_aux: bool = False, return_hidden: bool = False,
-            remat: bool = False, remat_policy: str = "nothing"):
+            remat: bool = False, remat_policy: str = "nothing", dist=None):
     """Returns (logits f32 (B,S,V), cache), or (out, cache, aux) with
     ``with_aux``.
 
@@ -451,6 +458,14 @@ def forward(params, tokens, cfg: ModelConfig, *, cache: Optional[list] = None,
     ``remat`` recomputes each layer in the backward
     (``torch.utils.checkpoint``), saving what ``remat_policy`` names
     (``REMAT_POLICIES``).
+
+    ``dist``: a ``layers.moe.MeshContext`` inside a rank
+    (``distributed.ranks``), passed to every MoE layer, which then runs
+    expert parallel (``moe_ep_fwd``); ``tokens`` are the rank's block of
+    the batch over ``dist.dp_axes``, ``params`` hold the rank's slice of
+    the experts and everything else whole, and every other layer runs on
+    the rank as it would alone, the same on every rank of a model group.
+    None: the local MoE path.
     """
     check_supported(cfg)
     if with_aux or return_hidden or remat:
@@ -488,7 +503,7 @@ def forward(params, tokens, cfg: ModelConfig, *, cache: Optional[list] = None,
     for i, bp in enumerate(params["blocks"]):
         mixer, mlp = _layer_parts(
             bp, i, cfg, ctx, None if cache is None else cache[i],
-            encoder_out, decode, reduce, with_aux)
+            encoder_out, decode, reduce, with_aux, dist)
         with scope(f"layer{i}"):
             if remat and remat_policy == "names":
                 # save each sub-block's output, recompute inside it
@@ -523,12 +538,53 @@ def forward(params, tokens, cfg: ModelConfig, *, cache: Optional[list] = None,
     return (logits, cache, aux) if with_aux else (logits, cache)
 
 
+def pipeline_stages(params, n_stages: int) -> list:
+    """The layer stack in ``n_stages`` contiguous stages of equal depth,
+    each ``(first, blocks)``: the index of its first layer and its
+    blocks.  One is a rank's ``stage_params`` for
+    ``distributed.pipeline`` with ``stage_forward`` as the ``stage_fn``;
+    the stage carries its offset, since a layer's kind, window and MoE
+    slot follow its index in the whole stack."""
+    blocks = params["blocks"]
+    if n_stages < 1 or len(blocks) % n_stages:
+        raise ValueError(f"{len(blocks)} layers do not split into "
+                         f"{n_stages} stages of equal depth")
+    per = len(blocks) // n_stages
+    return [(s * per, blocks[s * per:(s + 1) * per])
+            for s in range(n_stages)]
+
+
+def stage_forward(stage, x, cfg: ModelConfig):
+    """A pipeline stage ``(first, blocks)`` (``pipeline_stages``) on the
+    residual stream x: ``forward_blocks`` from layer ``first``."""
+    first, blocks = stage
+    return forward_blocks(blocks, x, cfg, first=first)
+
+
+def forward_blocks(blocks, x, cfg: ModelConfig, first: int = 0):
+    """Layers ``first`` .. ``first + len(blocks) - 1`` on the residual
+    stream x (B,S,D), without a cache and without the embedding or the
+    final norm (a pipeline stage's body, ``stage_forward``).  The last
+    layer's pending MLP output is added before returning, so that a stage
+    ends on the whole residual."""
+    check_supported(cfg)
+    b, s, _ = x.shape
+    ctx = _attention_context(cfg, None, b, s, x.device, 0, None, None, None)
+    pending = None
+    for j, bp in enumerate(blocks):
+        mixer, mlp = _layer_parts(bp, first + j, cfg, ctx, None, None, False,
+                                  None, False)
+        with scope(f"layer{first + j}"):
+            x, pending, _ = _whole_layer(mixer, mlp, x, pending)
+    return x if pending is None else x + pending
+
+
 def _whole_layer(mixer, mlp, x, pending):
     return mlp(*mixer(x, pending))
 
 
 def _layer_parts(bp, i, cfg: ModelConfig, ctx, state, encoder_out, decode,
-                 reduce, with_aux):
+                 reduce, with_aux, dist=None):
     """Layer i as two functions of the residual stream: ``mixer(x,
     pending) -> (x, o)`` (norm1, fusing the previous layer's pending MLP
     output into the residual or, at a superblock's first slot, the mixer's
@@ -586,7 +642,8 @@ def _layer_parts(bp, i, cfg: ModelConfig, ctx, state, encoder_out, decode,
         a = None
         if "moe" in bp:
             with scope("moe"):
-                m, a = moe.moe_fwd(bp["moe"], h, cfg, with_aux=with_aux)
+                m, a = moe.moe_fwd(bp["moe"], h, cfg, dist=dist,
+                                   with_aux=with_aux)
         else:
             with scope("mlp"):
                 m = mlp_fwd(bp["mlp"], h, cfg, reduce=reduce)
@@ -676,20 +733,23 @@ def check_trainable(cfg: ModelConfig) -> None:
 
 def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = True,
             remat_policy: str = "nothing", aux_weight: float = 0.01,
-            loss_chunks: int = 1):
+            loss_chunks: int = 1, dist=None):
     """Next-token CE plus ``aux_weight`` times the MoE aux loss; returns
     (loss, (ce, aux)), f32 scalars.  ``batch``: {"tokens", "labels"} (B,S)
     and, for the cross stacks, "encoder_tokens" or "frontend_embeds"
     (B,T,D), tensors or numpy arrays (``data.make_batch``).
     ``loss_chunks`` > 1 takes the CE over that many sequence chunks, each
     chunk's unembed recomputed in the backward (``_chunked_ce``), so the
-    (B,S,V) logits never exist at once."""
+    (B,S,V) logits never exist at once.  With ``dist`` (inside a rank, see
+    ``forward``) the CE is the mean over the rank's own tokens and the aux
+    the MoE layers' per-shard mean, the same on every rank: the global
+    loss is the mean of the data-parallel ranks' losses."""
     check_trainable(cfg)
     dev = params["embed"].device
     labels = torch.as_tensor(batch["labels"]).to(dev).long()
     kw = dict(encoder_tokens=batch.get("encoder_tokens"),
               frontend_embeds=batch.get("frontend_embeds"), remat=remat,
-              remat_policy=remat_policy, with_aux=True)
+              remat_policy=remat_policy, with_aux=True, dist=dist)
     if loss_chunks > 1:
         hidden, _, aux = forward(params, batch["tokens"], cfg,
                                  return_hidden=True, **kw)

@@ -202,14 +202,14 @@ def test_unported_messages_name_their_roadmap_item():
     """Each refusal names its ROADMAP Queue A item by name, not by a
     number that a renumbering would leave stale.  Tensor parallelism is
     ported: the backend, a tensor-parallel replica fleet and a paged
-    engine at tp=2 build (and stop their ranks)."""
+    engine at tp=2 build (and stop their ranks); so is expert parallelism
+    (``moe_fwd(dist=...)`` runs inside a rank, tests/test_torch_moe_ep.py)."""
     import multiprocessing
     import re
 
     from repro_torch.inference.backends import make_backend
     from repro_torch.inference.engine import ServeEngine
     from repro_torch.inference.fleet import ReplicaFleet
-    from repro_torch.layers import moe
     from repro_torch.models import check_supported, loss_fn
     cfg = reduced(get_config("smollm-360m"))
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
@@ -226,15 +226,11 @@ def test_unported_messages_name_their_roadmap_item():
         assert eng.backend.info.kind == "sharded"
         assert eng.kv.mirror is not None
     assert not multiprocessing.active_children()
-    mcfg = reduced(get_config("moonshot-v1-16b-a3b"))
     rcfg = reduced(get_config("rwkv6-3b"), n_layers=1)
     rparams = init_params(rcfg, torch.Generator().manual_seed(0),
                           device="cpu")
     toks = np.zeros((1, 4), np.int32)
     calls = [
-        # expert parallelism comes with the training step builders
-        ("training and launch tooling", lambda: moe.moe_fwd(
-            {}, torch.zeros(1, 1, mcfg.d_model), mcfg, dist=object())),
         # training an RWKV-6 stack waits for a backward of its wkv6 op
         ("training and launch tooling", lambda: loss_fn(
             rparams, {"tokens": toks, "labels": toks}, rcfg)),

@@ -144,10 +144,14 @@ def test_moe_forward_matches_the_reference(name, cf):
 
 
 def test_moe_fwd_refuses_a_mesh():
+    """Expert parallelism runs inside a rank (tests/test_torch_moe_ep.py):
+    a mesh context without one is refused."""
+    from repro_torch.launch.mesh import make_host_mesh
     _, cfg, _, p = _layer("moonshot-v1-16b-a3b")
-    with pytest.raises(NotImplementedError,
-                       match="training and launch tooling"):
-        moe.moe_fwd(p, torch.zeros(1, 1, cfg.d_model), cfg, dist=object())
+    dist = moe.MeshContext(make_host_mesh(model=2, device="cpu"),
+                           ("data",), "model")
+    with pytest.raises(ValueError, match="inside a rank"):
+        moe.moe_fwd(p, torch.zeros(1, 1, cfg.d_model), cfg, dist=dist)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
