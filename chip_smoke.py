@@ -92,8 +92,8 @@ Phases (any failure exits non-zero before a result is printed):
      each kernel joined to the runtime call that launched it by its
      correlation id (a kernel of a graph replay takes the
      ``cudaGraphLaunch``; a profile whose clocks put a kernel before its
-     call is discarded and taken again, up to 8 profiles; the median of
-     the (up to three) kept, or "not measured" if none is left), fed to
+     call is discarded and taken again, up to 6 profiles; the median of
+     the (up to two) kept, or "not measured" if none is left), fed to
      ``core.metrics.report`` (TKLQT, AKD, IL, GPU idle) beside the
      modeled TKLQT of the same trace, and
      ``core.boundedness.find_inflection`` over the measured eager curve;
@@ -299,6 +299,32 @@ Phases (any failure exits non-zero before a result is printed):
      x 512 in bf16, against ``reference_forward`` on one rank: max error,
      pipelined and sequential ms, the bubble (P - 1) / ticks.
 
+ 23. the step builders and the dry run: (a) ``build_train_step`` and
+     ``build_serve_step`` bundles of whole Llama-3.2-1B (bf16) over a
+     (data 1, model 2) mesh of two ranks sharing the card (heads, d_ff and
+     the vocabulary split): ST_STEPS train steps of 2 x 256 tokens (loss
+     falling), a prefill of 256 and ST_DECODES decode steps, launches
+     reset before each and read after; on rank 0 the same bundles on a
+     one-rank mesh from the same weights: the loss within ST_LOSS_BF16,
+     the last position's logits within ST_LOGITS_BF16 of their largest;
+     ms a call split into compute and the gloo exchange; then f32 at
+     ST_F32_LAYERS layers (AdamW eps ST_F32_EPS), one step, loss, logits
+     and every parameter on each rank within ST_F32 of the one-rank
+     step's, the gradient norm within ST_GNORM of it (relative) and
+     AdamW's first moment (0.1 x the clipped gradient) of every leaf
+     within ST_MOMENT of the leaf's largest; (b) the dry run of
+     the same bundles on the same mesh (rank 0's trace) against each
+     rank: its arguments equal the rank's measured input bytes, its
+     temporaries within ST_PEAK_REL x measured + ST_PEAK_ARG x the
+     arguments of the measured peak (max_memory_allocated over the call
+     less the allocation before it); (c) the dry run of
+     DRY_CELLS on the 16 x 16 production mesh, one line a cell (the whole
+     ``--all`` runs in a chip call of its own); (d) the wkv6 backward at
+     B 8 x T 512 x 40 x 64 against autograd through the plain version,
+     its device time beside a bound, and whole-width RWKV-6 3B cut to
+     RWKV_TRAIN_LAYERS layers trained RWKV_TRAIN_STEPS steps of phase 21's
+     n-grams (the loss falling; wkv6 and rmsnorm launched every step).
+
 Phases 4, 6, 7 and 9 serve with ``--plan eager`` (``plan="eager"``): one
 dispatch a node of the traced step, whose norms are their plain versions,
 so only the attention kernels (or ``wkv6``) launch there; their traces (5,
@@ -496,6 +522,12 @@ from repro_torch.distributed.ranks import RankPool         # noqa: E402
 from repro_torch.distributed.sharding import (             # noqa: E402
     expert_param_specs, shard_for_rank)
 from repro_torch.launch.mesh import Mesh, make_host_mesh   # noqa: E402
+from repro_torch.launch import dryrun                      # noqa: E402
+from repro_torch.launch.steps import (                     # noqa: E402
+    StepOptions, build_serve_step, build_train_step, stack_blocks)
+from repro_torch.configs import ShapeSpec                  # noqa: E402
+from repro_torch.distributed.dry import dry_context       # noqa: E402
+from repro_torch.kernels.rwkv6.backward import wkv6_bwd    # noqa: E402
 from repro_torch.layers import moe as moe_layer            # noqa: E402
 from repro_torch.layers.common import embed_tokens         # noqa: E402
 from repro_torch.models import (pipeline_stages,         # noqa: E402
@@ -2262,7 +2294,8 @@ EQ1_BATCHES = (1, 2, 4)
 # launch call), and such a profile is discarded.  How often varies from
 # process to process on an H100, from a few profiles to nearly all; a
 # point with no profile left is printed as not measured
-EQ1_PROFILES, EQ1_ATTEMPTS = 3, 8
+# cut in depth for the script's time limit (PERF.md section 4)
+EQ1_PROFILES, EQ1_ATTEMPTS = 2, 6
 
 
 def planned(eng, decode: bool) -> list:
@@ -2846,7 +2879,8 @@ CHAR_BATCHES = (1, 2, 4, 8, 16, 32, 64)
 # (whole 277 s, 8 layers 187 s), and with phase 18 the script at 8 layers
 # already took 1156 s of its 1200 s limit there
 CHAR_LAYERS = 2
-CHAR_KW = dict(scenario="code-completion", n_requests=64, seed=0,
+# cut in depth for the script's time limit (PERF.md section 4)
+CHAR_KW = dict(scenario="code-completion", n_requests=32, seed=0,
                prompt_cap=64, output_cap=8, max_len=256,
                platform="Intel+H100")
 TUNE_BATCHES = (1, 4, 16)
@@ -4711,7 +4745,8 @@ def phase_tp() -> tuple:
 
 
 # ------------------------------------------------------------------ phase 21
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 20
+# cut in depth for the script's time limit (PERF.md section 4)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 12
 TRAIN_LR, TRAIN_WARMUP = 1e-3, 5
 # The trained runs draw their n-grams from the first TRAIN_DATA_VOCAB
 # token ids (the model keeps its whole 49152-token vocabulary).  Over all
@@ -5053,7 +5088,9 @@ def phase_train() -> tuple:
 # memory: the times are no parallel speed.
 MR_RANKS = 2
 MR_SHARE = "two ranks time-sharing cuda:0 over gloo: no parallel speed"
-MR_STEPS, MR_BATCH = 10, 8          # (a): 8 x 512 tokens a step, 4 a rank
+# (a): 8 x 512 tokens a step, 4 a rank; the steps cut in depth for the
+# script's time limit (PERF.md section 4)
+MR_STEPS, MR_BATCH = 6, 8
 COMPRESS_TOL = 0.05                 # the reference test's relative bound
 EP_ARCH, EP_LAYERS, EP_BATCH, EP_SEQ = "moonshot-v1-16b-a3b", 2, 2, 256
 EP_CF = 8.0                         # nothing drops (the reference test's)
@@ -5515,11 +5552,22 @@ def mr_cell_c(pool) -> dict:
     return row
 
 
-def phase_multirank() -> tuple:
+@contextlib.contextmanager
+def rank_pool(pool=None):
+    """``pool``, or a pool of MR_RANKS ranks sharing the card for the
+    block (phases 22 and 23 share one when run together)."""
+    if pool is not None:
+        yield pool
+        return
+    with RankPool(MR_RANKS, DEV, timeout_s=900) as own:
+        yield own
+
+
+def phase_multirank(pool=None) -> tuple:
     """Phase 22: the multi-rank training pieces on one pool of two ranks
     that share the card.  Returns (rows, {"dp_train": launches a step})."""
     t0 = time.perf_counter()
-    with RankPool(MR_RANKS, DEV, timeout_s=600) as pool:
+    with rank_pool(pool) as pool:
         print(f"phase 22: {MR_RANKS} ranks started at "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         rows = {}
@@ -5530,6 +5578,453 @@ def phase_multirank() -> tuple:
     print(f"phase 22: {secs:.1f} s")
     print("phase 22: " + json.dumps({"rows": rows, "seconds": secs}))
     return rows, {"dp_train": dp_counts}
+
+
+# ------------------------------------------------------------------ phase 23
+# The step builders (launch/steps.py) and the dry run (launch/dryrun.py).
+ST_ARCH, ST_BATCH, ST_SEQ = LLAMA, 2, 256
+ST_STEPS, ST_DECODES, ST_F32_LAYERS = 3, 3, 2
+ST_OPT = dict(lr=1e-3, warmup_steps=0)
+# the f32 check's AdamW eps: at the default 1e-8 the first step is nearly
+# the gradient's sign, and an element whose gradient is near 1e-8 turns
+# its f32 rounding into an update error of the step's size (lr)
+ST_F32_EPS = 1e-4
+# bf16 whole, tp 2 against tp 1: the loss within ST_LOSS_BF16 (other
+# reduction orders through 16 layers), the logits' largest difference
+# within ST_LOGITS_BF16 of their largest magnitude; f32 at 2 layers (TF32
+# off): the loss, the logits and every parameter after one step within
+# ST_F32 (absolute).  The first step's update is nearly the gradient's
+# sign, so the gradient's scale is held apart: the global norm within
+# ST_GNORM (relative), and AdamW's first moment, 0.1 x the clipped
+# gradient, of every leaf within ST_MOMENT of the leaf's largest (a
+# leaf's gradient summed once too often or too seldom over the model
+# axis is off by 0.5 to 1 of it; the H100 read 0 and 3.9e-6-4.6e-6)
+ST_LOSS_BF16, ST_LOGITS_BF16, ST_F32 = 2e-2, 5e-2, 1e-4
+ST_GNORM, ST_MOMENT = 1e-6, 1e-4
+# the dry run's peak of temporaries against the rank's measured one
+# (max_memory_allocated over the call less what was allocated before):
+# within ST_PEAK_REL of the measured plus ST_PEAK_ARG of the call's
+# arguments (the caching allocator's rounding, which a trace does not see)
+ST_PEAK_REL, ST_PEAK_ARG = 0.05, 2e-4
+# the production-mesh cells run here (the whole --all: a chip call of its
+# own); the dense, the FSDP-expert MoE, RWKV-6's training and a 500 k cell
+DRY_CELLS = (("internlm2-20b", "decode_32k"), ("kimi-k2-1t-a32b", "decode_32k"),
+             ("rwkv6-3b", "train_4k"), ("jamba-1.5-large-398b", "long_500k"))
+RWKV_TRAIN_LAYERS, RWKV_TRAIN_STEPS = 4, 6
+WKV_BWD = (8, 512, 40, 64)          # B, T, H, hd of the backward's check
+
+
+def st_config(layers: int | None, dtype: str):
+    cfg = get_config(ST_ARCH).replace(param_dtype=dtype, compute_dtype=dtype)
+    return cfg.replace(n_layers=layers) if layers else cfg
+
+
+def st_bundles(cfg, mesh) -> tuple:
+    """The train, prefill and decode bundles of phase 23 over ``mesh``:
+    a prefill of ST_SEQ tokens into its ST_SEQ-position cache, decode
+    steps over a cache of ST_SEQ + ST_DECODES positions (the prefill's
+    copied into its first ST_SEQ)."""
+    eps = {"eps": ST_F32_EPS} if cfg.param_dtype == "float32" else {}
+    train = build_train_step(cfg, ShapeSpec("st_train", ST_SEQ, ST_BATCH,
+                                            "train"), mesh,
+                             opt_cfg=OptConfig(**ST_OPT, **eps),
+                             options=StepOptions(microbatches=1))
+    pre = build_serve_step(cfg, ShapeSpec("st_prefill", ST_SEQ, ST_BATCH,
+                                          "prefill"), mesh, mode="prefill")
+    dec = build_serve_step(cfg, ShapeSpec("st_decode", ST_SEQ + ST_DECODES,
+                                          ST_BATCH, "decode"), mesh,
+                           mode="decode")
+    return train, pre, dec
+
+
+def st_global(cfg, train, dev) -> tuple:
+    """The whole inputs: weights drawn on the card from seed 23, their
+    AdamW state, a batch and the serving tokens."""
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(23),
+                         device=dev)
+    opt = opt_init(train.plan.opt_cfg, stack_blocks(params, cfg))
+    g = torch.Generator().manual_seed(23)
+    toks = torch.randint(0, TRAIN_DATA_VOCAB, (ST_BATCH,
+                                               ST_SEQ + ST_DECODES + 1),
+                         generator=g, dtype=torch.int32).to(dev)
+    batch = {"tokens": toks[:, :ST_SEQ], "labels": toks[:, 1:ST_SEQ + 1]}
+    return params, opt, batch, toks
+
+
+def logical_bytes(tree) -> int:
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(logical_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(logical_bytes(v) for v in tree)
+    return 0
+
+
+def st_sync(dev) -> float:
+    torch.cuda.synchronize(dev)
+    return time.perf_counter()
+
+
+def st_call(ctx, fn, args) -> tuple:
+    """(result, ms, exchange ms, peak temporaries) of one call."""
+    dev = ctx.device
+    st_sync(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    w0, t0 = ctx.wire.seconds, st_sync(dev)
+    out = fn(ctx, *args)
+    t1 = st_sync(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    return out, (t1 - t0) * 1e3, (ctx.wire.seconds - w0) * 1e3, peak
+
+
+def st_caches(cfg, pre, dec, rank: int) -> tuple:
+    """The rank's slices of the prefill's and the decode steps' caches."""
+    out = []
+    for b in (pre, dec):
+        whole = make_cache(cfg, ST_BATCH, b.shape.seq_len,
+                           device=b.mesh.devices[rank])
+        out.append(b.rank_slice(2, whole, rank))
+    return tuple(out)
+
+
+def st_serve(ctx, pre, dec, params_shard, caches, toks) -> tuple:
+    """A prefill and ST_DECODES decode steps on one rank: the last
+    position's logits (the rank's vocabulary block) of each, and the
+    calls' (ms, exchange ms, peak)."""
+    pcache, dcache = caches
+    tok = pre.rank_slice(1, toks[:, :ST_SEQ], ctx.rank)
+    (logits, pcache), *meas = st_call(ctx, pre.fn, (params_shard, tok,
+                                                    pcache, 0))
+    last, calls = [logits[:, -1].float()], [meas]
+    for layer, filled in zip(dcache, pcache):
+        for name in ("k", "v"):
+            layer[name][:, :ST_SEQ].copy_(filled[name])
+    for i in range(ST_DECODES):
+        tok = dec.rank_slice(1, toks[:, ST_SEQ + i:ST_SEQ + i + 1],
+                             ctx.rank)
+        (logits, dcache), *meas = st_call(ctx, dec.fn, (
+            params_shard, tok, dcache, ST_SEQ + i))
+        last.append(logits[:, -1].float())
+        calls.append(meas)
+    return torch.stack(last), calls
+
+
+def st_rank(ctx, layers, dtype: str, steps: int, compare: bool) -> dict:
+    """Phase 23 on one rank: the train bundle ``steps`` times, then a
+    prefill and decode steps, over the pool's mesh; with ``compare`` the
+    same bundles on a one-rank mesh in this process too, from the same
+    weights, and this rank's slices compared."""
+    dev = ctx.device
+    cfg = st_config(layers, dtype)
+    train, pre, dec = st_bundles(cfg, ctx.mesh)
+    params, opt, batch, toks = st_global(cfg, train, dev)
+    tin = train.rank_inputs((params, opt, batch), ctx.rank)
+    del opt
+    caches = st_caches(cfg, pre, dec, ctx.rank)
+    # the cache index: a 0-d int32, as the bundles' input specs hold it
+    out = {"arg_bytes": {
+        "train": logical_bytes(tin),
+        "prefill": logical_bytes((tin[0], caches[0])) + 4 +
+        logical_bytes(pre.rank_slice(1, toks[:, :ST_SEQ], ctx.rank)),
+        "decode": logical_bytes((tin[0], caches[1])) + 4 +
+        logical_bytes(dec.rank_slice(1, toks[:, :1], ctx.rank))}}
+    ref = None
+    if compare:
+        one = make_host_mesh(data=1, model=1, device=dev)
+        rctx, _ = dry_context(one, 0, device=dev)
+        r_train, r_pre, r_dec = st_bundles(cfg, one)
+        r_opt = opt_init(r_train.plan.opt_cfg, stack_blocks(params, cfg))
+        r_params = tree_map(lambda t: t.clone(), params)
+        ref = {"loss": [], "gnorm": []}
+        for _ in range(steps):
+            _, _, m = r_train.fn(rctx, r_params, r_opt, batch)
+            ref["loss"].append(float(m["loss"]))
+            ref["gnorm"].append(float(m["grad_norm"]))
+        ref["logits"], _ = st_serve(rctx, r_pre, r_dec, params,
+                                    st_caches(cfg, r_pre, r_dec, 0), toks)
+        ref["params"] = shard_for_rank(r_params, train.plan.specs[0],
+                                       ctx.mesh, ctx.rank)
+        ref["moment"] = train.rank_slice(1, r_opt, ctx.rank)["m"]
+        del r_opt, r_params
+    del params
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    losses, gnorms, calls = [], [], []
+    serve_params = tree_map(lambda t: t.clone(), tin[0])
+    for _ in range(steps):
+        (_, _, m), *meas = st_call(ctx, train.fn, tin)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        calls.append(meas)
+    out["train_launches"] = kernels.launch_counts()
+    out["losses"], out["train_calls"] = losses, calls
+    kernels.reset_launch_counts()
+    last, out["serve_calls"] = st_serve(ctx, pre, dec, serve_params, caches,
+                                        toks)
+    out["serve_launches"] = kernels.launch_counts()
+    if ref is not None:
+        n = last.shape[-1]
+        want = ref["logits"][..., ctx.rank * n:(ctx.rank + 1) * n]
+        out["logits_err"] = float((last - want).abs().max())
+        out["logits_scale"] = float(want.abs().max())
+        out["loss_err"] = max(abs(a - b) for a, b in
+                              zip(losses, ref["loss"]))
+        out["param_err"] = max(float((a.float() - b.float()).abs().max())
+                               for a, b in zip(tree_leaves(tin[0]),
+                                               tree_leaves(ref["params"])))
+        out["gnorm_err"] = max(abs(a - b) / b
+                               for a, b in zip(gnorms, ref["gnorm"]))
+        out["moment_err"] = max(leaf_rel_err(a, b) for a, b in zip(
+            tree_leaves(tin[1]["m"]), tree_leaves(ref["moment"])))
+        out["gnorms"], out["ref_gnorms"] = gnorms, ref["gnorm"]
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return out
+
+
+def leaf_rel_err(got, want) -> float:
+    """max |got - want| over the leaf's largest |want| (0 where both are
+    0 everywhere)."""
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    return err / scale if scale > 0 else (0.0 if err == 0 else math.inf)
+
+
+def st_dry(cfg, mesh) -> dict:
+    """The dry run of phase 23's bundles on the same mesh: rank 0's trace,
+    as ``launch.dryrun`` traces a cell (over (data 1, model 2) the two
+    ranks hold slices of one shape)."""
+    return {b.name: dryrun.trace_rank(b, 0)["memory"]
+            for b in st_bundles(cfg, mesh)}
+
+
+def st_check(rows: list, dry: dict, label: str) -> None:
+    """Arguments equal to the dry run's; the measured peak of each call
+    within the stated tolerance of the dry run's temporaries."""
+    for r, row in enumerate(rows):
+        for kind in ("train", "prefill", "decode"):
+            d = dry[kind]
+            if row["arg_bytes"][kind] != d["argument_bytes"]:
+                fail(f"phase 23 {label} rank {r} {kind}: arguments "
+                     f"{row['arg_bytes'][kind]} B measured, "
+                     f"{d['argument_bytes']} B in the dry run")
+            if kind == "train":
+                peak = max(c[2] for c in row["train_calls"])
+            elif kind == "prefill":
+                peak = row["serve_calls"][0][2]
+            else:
+                peak = max(c[2] for c in row["serve_calls"][1:])
+            slack = ST_PEAK_REL * peak + ST_PEAK_ARG * d["argument_bytes"]
+            ok = abs(peak - d["temp_bytes"]) <= slack
+            print(f"phase 23: {label} rank {r} {kind}: arguments "
+                  f"{row['arg_bytes'][kind] / 1e6:.3f} MB measured = "
+                  f"{d['argument_bytes'] / 1e6:.3f} MB dry; temporaries "
+                  f"{peak / 1e6:.3f} MB measured (max_memory_allocated "
+                  f"less the arguments' allocation) vs "
+                  f"{d['temp_bytes'] / 1e6:.3f} MB dry, within "
+                  f"{slack / 1e6:.3f} MB [{'held' if ok else 'FAILED'}]")
+            if not ok:
+                fail(f"phase 23 {label} rank {r} {kind}: measured "
+                     f"temporaries {peak} B, dry {d['temp_bytes']} B: "
+                     f"outside {ST_PEAK_REL} x measured + {ST_PEAK_ARG} x "
+                     f"the arguments ({slack:.0f} B)")
+
+
+def st_ranks(pool, mesh, t0: float) -> tuple:
+    """(a) and (b): the bundles on two ranks, bf16 whole then f32 at
+    ST_F32_LAYERS; each beside a one-rank mesh; then the dry run."""
+    def stamp(what: str) -> None:
+        print(f"phase 23: {what} at {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    rows = {}
+    out = pool.run(st_rank, mesh, [(None, "bfloat16", ST_STEPS, r == 0)
+                                   for r in range(mesh.size)])
+    r0 = out[0]
+    if r0["loss_err"] > ST_LOSS_BF16 or \
+            r0["logits_err"] > ST_LOGITS_BF16 * r0["logits_scale"]:
+        fail(f"phase 23 bf16: tp 2 vs tp 1 loss {r0['loss_err']}, logits "
+             f"{r0['logits_err']} of {r0['logits_scale']}")
+    for r, o in enumerate(out):
+        if not o["losses"][-1] < o["losses"][0]:
+            fail(f"phase 23 rank {r}: the loss did not fall {o['losses']}")
+        for k in ("rmsnorm_matmul", "residual_rmsnorm", "flash_attention"):
+            if o["train_launches"][k] <= 0:
+                fail(f"phase 23 rank {r}: {k} not launched by the train "
+                     "step")
+        for k in ("rmsnorm_matmul", "residual_rmsnorm", "flash_attention",
+                  "decode_attention"):
+            if o["serve_launches"][k] <= 0:
+                fail(f"phase 23 rank {r}: {k} not launched by the serve "
+                     "steps")
+        ms = [c[0] for c in o["train_calls"]]
+        ex = [c[1] for c in o["train_calls"]]
+        print(f"phase 23: {ST_ARCH} bf16 whole, mesh (data 1, model 2), "
+              f"rank {r}: losses {[round(x, 4) for x in o['losses']]}; "
+              f"train step ms {[round(x, 1) for x in ms]}, of which gloo "
+              f"exchange {[round(x, 1) for x in ex]} (compute "
+              f"{[round(a - b, 1) for a, b in zip(ms, ex)]}); prefill / "
+              f"decode ms {[round(c[0], 1) for c in o['serve_calls']]}, "
+              f"exchange {[round(c[1], 1) for c in o['serve_calls']]}; "
+              f"peak {o['peak_gb']:.2f} GB ({MR_SHARE})")
+    print(f"phase 23: bf16 tp 2 vs tp 1 on rank 0: loss differs by "
+          f"{r0['loss_err']:.2e} (<= {ST_LOSS_BF16}), last-position logits "
+          f"by {r0['logits_err']:.3e} of {r0['logits_scale']:.3f} (<= "
+          f"{ST_LOGITS_BF16} of it), parameters after {ST_STEPS} steps by "
+          f"{r0['param_err']:.3e}, gradient norms {r0['gnorms']} against "
+          f"{r0['ref_gnorms']} (largest relative difference "
+          f"{r0['gnorm_err']:.2e}), AdamW's first moment "
+          f"{r0['moment_err']:.2e} of a leaf's largest")
+    stamp("bf16 ranks done")
+    rows["bf16"] = {"losses": [o["losses"] for o in out],
+                    "train_ms": [[c[0] for c in o["train_calls"]]
+                                 for o in out],
+                    "exchange_ms": [[c[1] for c in o["train_calls"]]
+                                    for o in out],
+                    "serve_ms": [[c[0] for c in o["serve_calls"]]
+                                 for o in out],
+                    "loss_err": r0["loss_err"],
+                    "logits_err": r0["logits_err"],
+                    "launches": {"train": out[0]["train_launches"],
+                                 "serve": out[0]["serve_launches"]}}
+    dry = st_dry(st_config(None, "bfloat16"), mesh)
+    st_check(out, dry, "bf16 whole")
+    rows["bf16"]["dry"] = dry
+    rows["bf16"].update(gnorm_err=r0["gnorm_err"],
+                        moment_err=r0["moment_err"])
+    stamp("dry run of the bundles done")
+    f32 = pool.run(st_rank, mesh, [(ST_F32_LAYERS, "float32", 1, True)
+                                   for _ in range(mesh.size)])
+    for r, o in enumerate(f32):
+        errs = (o["loss_err"], o["logits_err"], o["param_err"])
+        print(f"phase 23: f32 {ST_F32_LAYERS} layers rank {r}: tp 2 vs tp 1 "
+              f"loss {errs[0]:.2e}, logits {errs[1]:.2e}, parameters after "
+              f"one step {errs[2]:.2e} (<= {ST_F32}); gradient norm "
+              f"{o['gnorms'][0]!r} against {o['ref_gnorms'][0]!r}, "
+              f"{o['gnorm_err']:.2e} of it (<= {ST_GNORM}); AdamW's first "
+              f"moment {o['moment_err']:.2e} of a leaf's largest (<= "
+              f"{ST_MOMENT})")
+        if max(errs) > ST_F32 or o["gnorm_err"] > ST_GNORM or \
+                o["moment_err"] > ST_MOMENT:
+            fail(f"phase 23 f32 rank {r}: {errs}, gradient norm "
+                 f"{o['gnorm_err']}, first moment {o['moment_err']}")
+    rows["f32"] = [{k: o[k] for k in ("loss_err", "logits_err", "param_err",
+                                      "gnorm_err", "moment_err")}
+                   for o in f32]
+    stamp("f32 ranks done")
+    counts = {"steps_train": out[0]["train_launches"],
+              "steps_serve": out[0]["serve_launches"]}
+    return rows, counts
+
+
+def st_production_cells(tmp: str) -> list:
+    """(c): the named production-mesh cells of the dry run."""
+    recs = []
+    for arch, shape in DRY_CELLS:
+        rec = dryrun.run_cell(arch, shape, multi_pod=False, out_dir=tmp)
+        recs.append({k: rec[k] for k in ("arch", "shape", "mesh", "memory",
+                                          "fits", "t_lower_s")}
+                    | {"roofline": {k: rec["roofline"][k] for k in (
+                        "t_compute", "t_memory", "t_collective", "dominant",
+                        "roofline_frac")}})
+    return recs
+
+
+def wkv_bwd_check() -> dict:
+    """(d): the wkv6 backward at B 8 x T 512 x 40 x 64 against autograd
+    through the plain chunked version, and its device time beside a
+    bound."""
+    b, t, h, hd = WKV_BWD
+    g = torch.Generator(device=DEV).manual_seed(5)
+    r, k, v = (torch.randn(b, t, h, hd, generator=g, device=DEV) * 0.5
+               for _ in range(3))
+    logw = -torch.exp(torch.randn(b, t, h, hd, generator=g, device=DEV))
+    u = torch.randn(h, hd, generator=g, device=DEV) * 0.5
+    s0 = torch.randn(b, h, hd, hd, generator=g, device=DEV) * 0.1
+    do = torch.randn(b, t, h, hd, generator=g, device=DEV)
+    ds = torch.randn(b, h, hd, hd, generator=g, device=DEV)
+    ins = [a.clone().requires_grad_() for a in (r, k, v, logw, u, s0)]
+    o, s = wkv6_ref(*ins)
+    want = torch.autograd.grad([o, s], ins, [do, ds], retain_graph=True)
+    got = wkv6_bwd(r, k, v, logw, u, s0, do, ds)
+    errs = [float((a - w).abs().max() / w.abs().max().clamp(min=1.0))
+            for a, w in zip(got, want)]
+    ms, _ = time_ms(lambda: wkv6_bwd(r, k, v, logw, u, s0, do, ds), 5)
+    plain_ms, _ = time_ms(lambda: torch.autograd.grad(
+        [o, s], ins, [do, ds], retain_graph=True), 5)
+    nbytes = 4.0 * (9 * b * t * h * hd + 3 * b * h * hd * hd + 2 * h * hd)
+    c = 16                              # the backward's chunk
+    flops = b * t * h * (20.0 * c * hd + 8.0 * hd * hd)
+    bound, by = bound_ms(nbytes, flops, torch.float32)
+    if max(errs) > 1e-4:
+        fail(f"phase 23 wkv6 backward: errors {errs} above 1e-4")
+    print(f"phase 23: wkv6 backward B{b} T{t} H{h} hd{hd} f32: largest "
+          f"relative error against autograd through the plain version "
+          f"{max(errs):.2e} (dr, dk, dv, dlogw, du, ds0: "
+          f"{[f'{e:.1e}' for e in errs]}); device {ms * 1e3:.1f} us, "
+          f"autograd through the plain version {plain_ms * 1e3:.1f} us, "
+          f"bound {bound * 1e3:.1f} us by {by}")
+    return {"errs": errs, "us": ms * 1e3, "plain_us": plain_ms * 1e3,
+            "bound_us": bound * 1e3, "bound_by": by}
+
+
+def rwkv_train() -> tuple:
+    """(d): whole-width RWKV-6 3B cut to RWKV_TRAIN_LAYERS layers, bf16,
+    RWKV_TRAIN_STEPS steps of loss_fn + AdamW on phase 21's n-gram
+    batches: the loss must fall.  Returns (row, launch counts a step)."""
+    cfg = get_config(RWKV_ARCH).replace(n_layers=RWKV_TRAIN_LAYERS)
+    params = model_params(cfg, 31)
+    oc = OptConfig(lr=TRAIN_LR, warmup_steps=2,
+                   total_steps=RWKV_TRAIN_STEPS)
+    state = opt_init(oc, params)
+    data = DataConfig(batch=4, seq_len=TRAIN_SEQ,
+                      vocab_size=TRAIN_DATA_VOCAB)
+    losses, ms = [], []
+    kernels.reset_launch_counts()
+    for i in range(RWKV_TRAIN_STEPS):
+        batch = to_device(make_batch(data, i, cfg), DEV)
+        t0 = st_sync(DEV)
+        ps = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        loss, _ = loss_fn(ps, batch, cfg, remat=False)
+        grads = torch.autograd.grad(loss, tree_leaves(ps))
+        it = iter(grads)
+        opt_update(oc, tree_map(lambda _: next(it), params), state, params)
+        ms.append((st_sync(DEV) - t0) * 1e3)
+        losses.append(float(loss.detach()))
+    counts = {k: n // RWKV_TRAIN_STEPS
+              for k, n in kernels.launch_counts().items()}
+    if not losses[-1] < losses[0]:
+        fail(f"phase 23 rwkv training: the loss did not fall {losses}")
+    if counts["wkv6"] != RWKV_TRAIN_LAYERS or counts["rmsnorm"] <= 0:
+        fail(f"phase 23 rwkv training: launches a step {counts}")
+    print(f"phase 23: {RWKV_ARCH} bf16 whole width, {RWKV_TRAIN_LAYERS} of "
+          f"32 layers, 4 x {TRAIN_SEQ} tokens a step: losses "
+          f"{[round(x, 3) for x in losses]}; ms a step "
+          f"{[round(x, 1) for x in ms]}; launches a step wkv6 "
+          f"{counts['wkv6']}, rmsnorm {counts['rmsnorm']}")
+    del params, state
+    torch.cuda.empty_cache()
+    return {"losses": losses, "ms": ms}, counts
+
+
+def phase_steps(pool=None) -> tuple:
+    """Phase 23: the step builders on two ranks sharing the card, the dry
+    run beside them and over named production-mesh cells, and RWKV-6
+    training.  Returns (rows, {path: launch counts})."""
+    t0 = time.perf_counter()
+    mesh = make_host_mesh(data=1, model=2, device=DEV)
+    with rank_pool(pool) as pool:
+        rows, counts = st_ranks(pool, mesh, t0)
+    print(f"phase 23: (a)-(b) {time.perf_counter() - t0:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        rows["cells"] = st_production_cells(tmp)
+    print(f"phase 23: (c) {time.perf_counter() - t0:.1f} s", flush=True)
+    rows["wkv6_backward"] = wkv_bwd_check()
+    rows["rwkv_train"], counts["rwkv_train"] = rwkv_train()
+    secs = time.perf_counter() - t0
+    print(f"phase 23: {secs:.1f} s")
+    print("phase 23: " + json.dumps({"rows": rows, "seconds": secs}))
+    return rows, counts
 
 
 # ------------------------------------------------------------------ main
@@ -5565,8 +6060,11 @@ def main() -> None:
     # there ends the run early
     _, train_counts = phase_train()
     mark("1-3, 21")
-    _, multirank_counts = phase_multirank()
-    mark("1-3, 21-22")
+    with rank_pool() as pool:
+        _, multirank_counts = phase_multirank(pool)
+        mark("1-3, 21-22")
+        _, steps_counts = phase_steps(pool)
+    mark("1-3, 21-23")
     _, tp_counts = phase_tp()
     mark("1-3, 20-22")
     _, moe_counts = phase_moe()
@@ -5604,7 +6102,7 @@ def main() -> None:
     _, spec_counts = phase_speculative(jit_rows, jit_done, llama_rows,
                                        llama_done)
     _, tier_counts = phase_serving_tier()
-    print(f"chip_smoke: phases 1-22 in {time.perf_counter() - t0:.1f} s")
+    print(f"chip_smoke: phases 1-23 in {time.perf_counter() - t0:.1f} s")
 
     entries = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -5633,6 +6131,9 @@ def main() -> None:
                             for p, c in train_counts.items()})
             # a data-parallel rank's step (phase 22 (a))
             by_path.update({p: c[name] for p, c in multirank_counts.items()})
+        # phase 23: a rank's train steps and serve calls (tp 2), RWKV-6
+        # training's launches a step
+        by_path.update({p: c[name] for p, c in steps_counts.items()})
         entries.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "launches_by_path": by_path, **row})

@@ -103,6 +103,23 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclass(frozen=True)
+class ShapeSpec:
+    """One benchmark cell: an input-shape configuration."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+
 _REGISTRY: dict[str, ModelConfig] = {}
 
 
@@ -121,6 +138,13 @@ def get_config(name: str) -> ModelConfig:
 def list_configs() -> list[str]:
     import repro_torch.configs  # noqa: F401
     return sorted(_REGISTRY)
+
+
+def applicable_shapes(cfg: ModelConfig) -> list[str]:
+    """Which benchmark shapes apply to an arch (long_500k only if
+    sub-quadratic)."""
+    return [s.name for s in SHAPES.values()
+            if s.name != "long_500k" or cfg.subquadratic]
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

@@ -42,14 +42,14 @@ from torch.fx.node import map_arg
 from torch.utils import _pytree as pytree
 
 from repro_torch.core.costs import op_costs
-from repro_torch.kernels import WRAPPERS
+from repro_torch.kernels import OPS, WRAPPERS
 from repro_torch.kernels.fused.residual_rmsnorm.ref import residual_rmsnorm_ref
 from repro_torch.kernels.fused.rmsnorm_matmul.ref import rmsnorm_matmul_ref
 
 _TRACE_TOKENS = itertools.count()
 
 # custom op -> wrapper name, for the hand-written kernels
-HAND_WRITTEN = {fn.op: name for name, fn in WRAPPERS.items()}
+HAND_WRITTEN = {op: name for op, (name, _) in OPS.items()}
 
 
 def _norm_plain(x, weight, residual, eps):
@@ -159,9 +159,9 @@ class Trace:
 def _costs(node: Node, name: str) -> tuple[float, float]:
     args = map_arg(node.args, _meta)
     kwargs = map_arg(node.kwargs, _meta)
-    hand = HAND_WRITTEN.get(node.target)
+    hand = OPS.get(node.target)
     if hand is not None:
-        return WRAPPERS[hand].costs(*args, **kwargs)
+        return hand[1](*args, **kwargs)
     return op_costs(name, args, kwargs, node.meta.get("val"))
 
 

@@ -15,10 +15,13 @@ entry is the reference's rule for the same leaf.
 ``NamedSharding`` tree) and ``shard_for_rank`` a rank's slices by them:
 along each split dimension the rank's contiguous block, by its index over
 that entry's axes; ``shard_params`` is the tensor-parallel serving
-backend's use of it.  The activation hook ``make_shd`` is a GSPMD layout
-constraint, which the port's one-process-a-rank execution has no use for
-outside the step builders and the dry run (ROADMAP Queue A, "training and
-launch tooling").
+backend's use of it.
+
+``make_shd`` is the reference's activation hook read per name.  The port
+has no GSPMD: the step builders (``launch.steps``) run one body a rank,
+and the hook says, for each named activation, the spec of what the rank
+holds; the step body exchanges what the spec asks for with the port's
+collectives.
 """
 from __future__ import annotations
 
@@ -244,6 +247,9 @@ def shard_params(params, cfg: ModelConfig, tp: int, rank: int):
 
 # ------------------------------------------------------------------ cache
 KV_REPLICATE_BUDGET = 4e9   # bytes/device a replicated-over-tp cache may use
+# the leaves the reference names "k" and "v": its self cache's and its
+# cross cache's ("cross" -> "k"/"v"), the port's cross_k / cross_v
+_KV = ("k", "v", "cross_k", "cross_v")
 
 
 def cache_specs(cache, cfg: ModelConfig, mesh, dp=("data",),
@@ -252,16 +258,18 @@ def cache_specs(cache, cfg: ModelConfig, mesh, dp=("data",),
     divisible.  When heads don't divide: REPLICATE over tp if the
     per-device cache fits the budget, otherwise shard the sequence dim
     over tp (the reference's rule; the sharded backend only serves
-    divisible head counts)."""
+    divisible head counts).  A cross layer's ``cross_k``/``cross_v``
+    follow the same rule and count in the budget, as the reference's
+    ``cross`` cache does."""
     dpt = tuple(dp)
     n_dp = math.prod(mesh.shape[a] for a in dpt)
     kv_total = sum(t.numel() * t.element_size() for layer in cache
-                   for name, t in layer.items() if name in ("k", "v"))
+                   for name, t in layer.items() if name in _KV)
     kv_fits = (kv_total / max(n_dp, 1)) <= KV_REPLICATE_BUDGET
 
     def spec_for(path, leaf):
         name, shape = path[-1], leaf.shape
-        if name in ("k", "v"):                 # (B, T, HKV, hd)
+        if name in _KV:                        # (B, T, HKV, hd)
             if cfg.n_kv_heads % mesh.shape[tp] == 0:
                 s = (dpt, None, tp, None)
             elif kv_fits:
@@ -295,3 +303,49 @@ def paged_cache_specs(pages, cfg: ModelConfig, mesh, tp: str = "model"):
             return valid_spec(leaf.shape, (None, None, tp), mesh)
         return (None,) * leaf.dim()
     return _tree_map(spec_for, pages)
+
+
+# ------------------------------------------------------------------ activations
+def make_shd(mesh, dp=("data",), tp: str = "model", seq_shard: bool = False):
+    """The reference's activation hook: ``shd(name, shape)`` is the spec
+    (valid over ``mesh``) of what a rank holds of the activation ``name``
+    of ``shape``.
+
+    * ``act`` / ``resid``: the residual stream, the batch over ``dp``; with
+      ``seq_shard`` a 3-d stream is also split along S over ``tp`` (the
+      step body all-gathers S where a layer needs it whole and keeps the
+      rank's block between layers);
+    * ``logits``: the rank's block of the vocabulary (``(dp, None, tp)``);
+    * ``q_decode``: a decode step's queries, the batch over dp, every head;
+    * ``q_heads`` / ``kv_heads``: head-parallel attention (heads over
+      ``tp``, dropped when they do not divide);
+    * ``wkv``: the recurrence's batch over-shard, over every axis of
+      ``dp`` + ``tp`` whose running product divides the batch.
+    """
+    dpt = tuple(dp)
+
+    def shd(name: str, shape) -> tuple:
+        nd = len(shape)
+        if name in ("act", "resid"):
+            if seq_shard and nd == 3:
+                spec = (dpt, tp) + (None,) * (nd - 2)
+            else:
+                spec = (dpt,) + (None,) * (nd - 1)
+        elif name == "logits":
+            spec = (dpt, None, tp)
+        elif name == "q_decode":
+            spec = (dpt,) + (None,) * (nd - 1)
+        elif name in ("q_heads", "kv_heads"):
+            spec = (dpt, None, tp, None)
+        elif name == "wkv":
+            axes, prod = [], 1
+            for a in dpt + (tp,):
+                if shape[0] % (prod * mesh.shape[a]) == 0:
+                    axes.append(a)
+                    prod *= mesh.shape[a]
+            spec = (tuple(axes),) + (None,) * (nd - 1)
+        else:
+            spec = (None,) * nd
+        return valid_spec(shape, spec, mesh)
+
+    return shd

@@ -35,6 +35,12 @@ WRAPPERS = {
 }
 
 
+# every hand-written kernel's custom op -> (wrapper name, its costs): the
+# wrappers' ops and wkv6's functional entry (a forward without cache)
+OPS = {fn.op: (name, fn.costs) for name, fn in WRAPPERS.items()}
+OPS[wkv6.fn_op] = ("wkv6", wkv6.fn_costs)
+
+
 def launch_counts() -> dict:
     """Kernel launches per wrapper since the last reset."""
     return {name: fn.launches for name, fn in WRAPPERS.items()}

@@ -14,6 +14,7 @@ so a launch the device refused never passes silently.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -174,9 +175,36 @@ def nbytes(*tensors) -> int:
                if t is not None)
 
 
+_DRY = [None]
+
+
+@contextlib.contextmanager
+def dry_trace(like: str = "cuda"):
+    """Inside: a wrapper given a tensor on the meta device runs its
+    custom op's fake implementation (shapes only, nothing computed), for
+    the dry run (``launch.dryrun``), with the outputs' layouts of the
+    device type ``like`` (``placed_type``).  Outside, a meta tensor is
+    refused like any other device's."""
+    _DRY[0] = like
+    try:
+        yield
+    finally:
+        _DRY[0] = None
+
+
+def placed_type(t: torch.Tensor) -> str:
+    """The device type whose layouts a fake implementation gives: ``t``'s,
+    or inside ``dry_trace`` the one it models for a meta tensor."""
+    if t.device.type == "meta" and _DRY[0] is not None:
+        return _DRY[0]
+    return t.device.type
+
+
 def require_placed(name: str, t: torch.Tensor) -> None:
     """Raise unless ``t`` lies on the CPU (the plain version) or a CUDA
-    device (the kernel): a wrapper has no third route."""
-    if t.device.type not in ("cpu", "cuda"):
+    device (the kernel), or on the meta device inside ``dry_trace``: a
+    wrapper has no other route."""
+    if t.device.type not in ("cpu", "cuda") and not (
+            _DRY[0] is not None and t.device.type == "meta"):
         raise ValueError(f"{name}: runs the plain version on the CPU or the "
                          f"CUDA kernel, got a tensor on {t.device}")

@@ -81,7 +81,7 @@ def _flash_fake(q, k, v, kv_len, scale, causal, window, softcap):
     """The output's layout: token-major on the card, as the kernel writes
     it; the plain version's (B,HQ,S,hd) on the CPU."""
     b, hq, s, hd = q.shape
-    if q.device.type == "cpu":
+    if build.placed_type(q) == "cpu":
         return q.new_empty((b, hq, s, hd))
     return q.new_empty((b, s, hq, hd)).transpose(1, 2)
 

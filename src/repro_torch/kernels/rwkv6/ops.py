@@ -1,16 +1,21 @@
 """Wrapper of the WKV6 CUDA kernel (``csrc/wkv6.cu``).
 
-The wrapper calls the custom op ``repro_torch::wkv6``, which writes the
-final state into ``s_out`` in place: its CPU implementation is the plain
+With ``s_out`` (a cache's state, updated in place) the wrapper calls the
+custom op ``repro_torch::wkv6``, which writes the final state into
+``s_out``; without it, the functional op ``repro_torch::wkv6_fn``, which
+returns (o, sT) and carries the closed-form backward (``backward.py``)
+as its autograd rule, so a stack without cache (training) differentiates
+through the kernel's forward.  Each op's CPU implementation is the plain
 version (``ref.py``), its CUDA implementation launches the kernel or
-raises, and its fake implementation gives a tracer the output's shape.
-``wkv6.launches`` counts kernel launches.
+raises, and its fake implementation gives a tracer the outputs' shapes.
+``wkv6.launches`` counts kernel launches of both.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.rwkv6.backward import wkv6_bwd
 from repro_torch.kernels.rwkv6.ref import wkv6_ref
 
 _ARGS = [build.P] * 8 + [build.I] * 4 + [build.L] * 3 + [build.P]
@@ -24,11 +29,13 @@ def wkv6(r, k, v, logw, u, s0, *, s_out=None):
     r, k, v and logw may be any views with one set of strides and unit
     stride on hd (the layer passes its projections as they are).  With
     ``s_out`` the final state is written there and returned; it may be
-    ``s0`` itself, so the cache's state is updated in place.
+    ``s0`` itself, so the cache's state is updated in place.  Without it
+    the call is differentiable in every input.
     """
     build.require_placed("wkv6", r)
     if s_out is None:
-        s_out = torch.empty_like(s0)
+        o, s_t = _fn._opoverload(r, k, v, logw, u, s0)
+        return o, s_t
     return _op._opoverload(r, k, v, logw, u, s0, s_out), s_out
 
 
@@ -40,8 +47,7 @@ def _op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return wkv6_ref(r, k, v, logw, u, s0, s_out=s_out)[0].contiguous()
 
 
-@_op.register_kernel("cuda")
-def _launch(r, k, v, logw, u, s0, s_out):
+def _launch_kernel(r, k, v, logw, u, s0, s_out):
     seq = (r, k, v, logw)
     states = (s0, s_out)
     build.require_cuda("wkv6", *seq, u, *states)
@@ -74,9 +80,45 @@ def _launch(r, k, v, logw, u, s0, s_out):
     return o
 
 
+@_op.register_kernel("cuda")
+def _launch(r, k, v, logw, u, s0, s_out):
+    return _launch_kernel(r, k, v, logw, u, s0, s_out)
+
+
 @_op.register_fake
 def _fake(r, k, v, logw, u, s0, s_out):
     return r.new_empty(r.shape)
+
+
+@torch.library.custom_op("repro_torch::wkv6_fn", mutates_args=(),
+                         device_types="cpu")
+def _fn(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        logw: torch.Tensor, u: torch.Tensor,
+        s0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    o, s_t = wkv6_ref(r, k, v, logw, u, s0)
+    return o.contiguous(), s_t.contiguous()
+
+
+@_fn.register_kernel("cuda")
+def _fn_launch(r, k, v, logw, u, s0):
+    s_t = torch.empty_like(s0)
+    return _launch_kernel(r, k, v, logw, u, s0.contiguous(), s_t), s_t
+
+
+@_fn.register_fake
+def _fn_fake(r, k, v, logw, u, s0):
+    return r.new_empty(r.shape), s0.new_empty(s0.shape)
+
+
+def _setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, do, ds_out):
+    return wkv6_bwd(*ctx.saved_tensors, do, ds_out)
+
+
+_fn.register_autograd(_backward, setup_context=_setup)
 
 
 def _costs(r, k, v, logw, u, s0, s_out) -> tuple:
@@ -88,6 +130,14 @@ def _costs(r, k, v, logw, u, s0, s_out) -> tuple:
         build.nbytes(r, k, v, logw, u, s0, s_out, r))
 
 
+def _fn_costs(r, k, v, logw, u, s0) -> tuple:
+    return _costs(r, k, v, logw, u, s0, s0)
+
+
 wkv6.launches = 0
 wkv6.op = _op._opoverload
 wkv6.costs = _costs
+# the functional entry of the same kernel (training, a forward without
+# cache): a tracer and the cost model read it as another wkv6 launch
+wkv6.fn_op = _fn._opoverload
+wkv6.fn_costs = _fn_costs

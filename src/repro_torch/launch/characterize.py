@@ -54,6 +54,7 @@ from repro_torch.core.device_model import PLATFORMS
 from repro_torch.core.export import save_merged_trace
 from repro_torch.device import resolve_device
 from repro_torch.inference.backends import PLANS
+from repro_torch.launch.steps import params_sds
 from repro_torch.models import init_params
 from repro_torch.telemetry.characterize import (characterize,
                                                 memory_pressure_sweep,
@@ -255,13 +256,13 @@ def main(argv=None):
     if args.reduced:
         cfg = reduced(cfg)
     dev = resolve_device(args.device)
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                         device=dev)
     if args.tp_sweep:
-        # trace-only: the decode stream is traced with fake tensors, so no
-        # kernel runs; every (platform, tp) cell is priced, not served
+        # trace-only sweep: abstract weights (params_sds, on the meta
+        # device), traced with fake tensors, so no kernel runs and a
+        # full-size arch is priced without materializing its parameters;
+        # every (platform, tp) cell is priced, not served
         sweep = tp_sweep(
-            cfg, params,
+            cfg, params_sds(cfg),
             batches=[int(b) for b in args.batches.split(",") if b],
             tps=[int(t) for t in args.tps.split(",") if t],
             platforms=[p for p in args.sweep_platforms.split(",") if p],
@@ -273,6 +274,8 @@ def main(argv=None):
             json.dump(sweep, f, indent=2)
         print(json.dumps({"summary": sweep, "artifacts": {"sweep": path}}))
         return sweep
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
     if args.spec_sweep:
         batches = [int(b) for b in args.batches.split(",") if b]
         mb = [int(b) for b in args.model_batches.split(",") if b]

@@ -1,8 +1,8 @@
 """Mesh construction for the serving backends.
 
-Counterpart of ``repro/launch/mesh.py`` (``make_host_mesh``,
-``make_fleet_mesh``, ``dp_axes_of``, ``tp_axis_of``), with the same
-``must be >= 1`` errors.  In the port a mesh is the rank grid and each
+Counterpart of ``repro/launch/mesh.py`` (``make_production_mesh``,
+``make_host_mesh``, ``make_fleet_mesh``, ``dp_axes_of``, ``tp_axis_of``),
+with the same ``must be >= 1`` errors.  In the port a mesh is the rank grid and each
 rank's device; the process group over it is made by the backend that
 starts the ranks (``inference.backends.sharded``).  Ranks go round-robin
 over the CUDA devices present: with fewer GPUs than ranks, ranks share a
@@ -67,6 +67,15 @@ def rank_devices(n: int, device="cuda") -> tuple:
     count = torch.cuda.device_count()
     return tuple(torch.device("cuda", (dev.index + r) % count)
                  for r in range(n))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """16x16 single pod (256 ranks) or 2x16x16 two-pod (512 ranks), every
+    rank on the meta device (the dry run's mesh)."""
+    shape = ({"pod": 2, "data": 16, "model": 16} if multi_pod
+             else {"data": 16, "model": 16})
+    n = math.prod(shape.values())
+    return Mesh(shape, (torch.device("meta"),) * n)
 
 
 def make_host_mesh(data: int = 1, model: int = 1, pod: int = 0,

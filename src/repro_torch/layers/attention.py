@@ -81,6 +81,21 @@ a prefill, so it carries no scratch row.
 The cache is updated in place (the reference returns a new pytree); the
 per-forward index tensors are built once by ``attention_context`` or
 ``paged_attention_context`` and shared by every layer.
+
+Inside a rank of the step builders (``launch.steps``) a layer may run
+head-parallel: ``cfg`` holds the rank's query heads and the kv heads it
+holds, ``reduce`` all-reduces the ``wo`` product, and ``kv_sel`` (a
+slice of the held kv heads) picks the kv heads the rank's query heads
+read when the kv heads are held whole (they do not split over the model
+axis).  ``seq_split`` is a cache split along T over the model axis (the
+reference's ``cache_specs`` fallback): the rank holds positions ``[lo,
+lo + n)`` of every kv head.  A decode step writes the new token where
+its position falls and attends with every query head over its own block
+in torch ops (a partial softmax: the row max, the sum and the weighted
+values), and the partial results are combined over the ranks by their
+maxima (``seq_split.pmax``, ``seq_split.psum``); a prefill writes its
+block and attends over the prompt's own K/V (and the earlier positions,
+gathered, when it starts past 0).
 """
 from __future__ import annotations
 
@@ -388,9 +403,74 @@ def _project(h, params, name: str, heads: int, hd: int, y=None):
     return y.reshape(h.shape[0], h.shape[1], heads, hd)
 
 
+def _heads(t, sel: Optional[slice]):
+    """(B,T,H,hd) -> (B,H,T,hd), only the heads in ``sel`` (None: all,
+    with no slice op)."""
+    t = t.transpose(1, 2)
+    return t if sel is None else t[:, sel]
+
+
+def _split_seq_decode(q, k, v, cfg: ModelConfig, ctx: AttnContext,
+                      cache: dict, seq, scale: float, window: int):
+    """A decode step over a cache split along T (``seq``): (B,1,HQl*hd)
+    for the rank's query heads."""
+    b, _, _, hd = q.shape
+    ck, cv = cache["k"], cache["v"]
+    n, hkv = ck.shape[1], ck.shape[2]
+    lens = ctx.kv_lens.long() - 1                       # the token's position
+    local = lens - seq.lo
+    ok = (local >= 0) & (local < n)
+    rows = torch.where(ok, torch.arange(b, device=q.device), b)
+    pos = torch.where(ok, local, 0)
+    with_scratch(ck)[rows, pos] = k[:, 0].to(ck.dtype)
+    with_scratch(cv)[rows, pos] = v[:, 0].to(cv.dtype)
+    qa = seq.all_heads(q)                               # (B,1,HQ,hd)
+    hq = qa.shape[2]
+    qf = qa[:, 0].float().view(b, hkv, hq // hkv, hd)
+    sc = torch.einsum("bkgd,bnkd->bkgn", qf, ck.float()) * scale
+    if cfg.attn_softcap:
+        sc = cfg.attn_softcap * torch.tanh(sc / cfg.attn_softcap)
+    gpos = seq.lo + torch.arange(n, device=q.device)
+    valid = gpos[None] <= lens[:, None]
+    if window:
+        valid = valid & (gpos[None] > lens[:, None] - window)
+    valid = valid[:, None, None, :]
+    sc = torch.where(valid, sc, NEG_INF)
+    m = sc.amax(dim=-1)
+    p = torch.exp(sc - m[..., None]) * valid
+    o = torch.einsum("bkgn,bnkd->bkgd", p, cv.float())
+    big = seq.pmax(m)
+    w = torch.exp(m - big)
+    num = seq.psum(o * w[..., None])
+    den = seq.psum(p.sum(dim=-1) * w)
+    o = (num / den[..., None]).reshape(b, 1, hq, hd).to(q.dtype)
+    o = seq.own_heads(o)
+    return o.reshape(b, 1, -1)
+
+
+def _split_seq_prefill_kv(k, v, ctx: AttnContext, cache: dict, seq):
+    """A prefill over a cache split along T: writes the rank's block of
+    the new positions and returns the K/V of positions [0, start + S)."""
+    s = k.shape[1]
+    start, n = ctx.start, cache["k"].shape[1]
+    kv = []
+    for name, new in (("k", k), ("v", v)):
+        leaf = cache[name]
+        if start > 0:
+            new = torch.cat([seq.gather_positions(leaf)[:, :start]
+                             .to(new.dtype), new], dim=1)
+        lo, hi = max(seq.lo, start), min(seq.lo + n, start + s)
+        if hi > lo:
+            leaf[:, lo - seq.lo:hi - seq.lo] = \
+                new[:, lo:hi].to(leaf.dtype)
+        kv.append(new)
+    return kv
+
+
 def attention_fwd(params, h, q, cfg: ModelConfig, ctx: AttnContext,
                   cache: Optional[dict] = None, window: int = 0,
-                  causal: Optional[bool] = None, reduce=None):
+                  causal: Optional[bool] = None, reduce=None,
+                  kv_sel: Optional[slice] = None, seq_split=None):
     """Self-attention of one layer; returns its output (B,S,D).
 
     ``h``: the normed input (B,S,D); ``q``: its query projection
@@ -406,7 +486,9 @@ def attention_fwd(params, h, q, cfg: ModelConfig, ctx: AttnContext,
     column-sharded by head and wo row-sharded (Megatron layout), the
     post-``wo`` output is one rank's partial sum and ``reduce("attn_out",
     y)`` all-reduces it (None: identity).  ``cfg`` then carries the rank's
-    LOCAL head counts.
+    LOCAL head counts.  ``kv_sel``: the held kv heads this rank's queries
+    read (None: all); ``seq_split``: a cache split along T over the model
+    axis (see the module's docstring).
     """
     causal = is_causal(cfg) if causal is None else causal
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -423,13 +505,20 @@ def attention_fwd(params, h, q, cfg: ModelConfig, ctx: AttnContext,
     if ctx.paged:
         return finish(_paged_attention(q, k, v, cfg, ctx, cache, scale,
                                        window))
+    if seq_split is not None and cache is not None:
+        if ctx.decode and s == 1:
+            return finish(_split_seq_decode(q, k, v, cfg, ctx, cache,
+                                            seq_split, scale, window))
+        if not ctx.decode:
+            k, v = _split_seq_prefill_kv(k, v, ctx, cache, seq_split)
+            cache = None
     if ctx.decode and s > 1:
         ck, cv = cache["k"], cache["v"]
         rows, pos = ctx.pos
         with_scratch(ck)[rows, pos] = k.reshape(b * s, hkv, hd).to(ck.dtype)
         with_scratch(cv)[rows, pos] = v.reshape(b * s, hkv, hd).to(cv.dtype)
-        o = kernels.decode_attention_mq(q, ck.transpose(1, 2),
-                                        cv.transpose(1, 2), ctx.kv_lens,
+        o = kernels.decode_attention_mq(q, _heads(ck, kv_sel),
+                                        _heads(cv, kv_sel), ctx.kv_lens,
                                         scale=scale, window=window,
                                         softcap=cfg.attn_softcap)
         o = o.reshape(b, s, hq * hd)
@@ -438,8 +527,8 @@ def attention_fwd(params, h, q, cfg: ModelConfig, ctx: AttnContext,
         rows, pos = ctx.pos
         with_scratch(ck)[rows, pos] = k[:, 0].to(ck.dtype)
         with_scratch(cv)[rows, pos] = v[:, 0].to(cv.dtype)
-        o = kernels.decode_attention(q[:, 0], ck.transpose(1, 2),
-                                     cv.transpose(1, 2), ctx.kv_lens,
+        o = kernels.decode_attention(q[:, 0], _heads(ck, kv_sel),
+                                     _heads(cv, kv_sel), ctx.kv_lens,
                                      scale=scale, window=window,
                                      softcap=cfg.attn_softcap)
         o = o.reshape(b, 1, hq * hd)
@@ -452,8 +541,8 @@ def attention_fwd(params, h, q, cfg: ModelConfig, ctx: AttnContext,
             cache["k"][:, ctx.start:end] = k.to(cache["k"].dtype)
             cache["v"][:, ctx.start:end] = v.to(cache["v"].dtype)
             k, v = cache["k"][:, :end], cache["v"][:, :end]
-        o = kernels.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                    v.transpose(1, 2), scale=scale,
+        o = kernels.flash_attention(q.transpose(1, 2), _heads(k, kv_sel),
+                                    _heads(v, kv_sel), scale=scale,
                                     causal=causal,
                                     window=window, softcap=cfg.attn_softcap)
         o = o.transpose(1, 2).reshape(b, s, hq * hd)
@@ -469,7 +558,8 @@ def init_cross_cache(params, cfg: ModelConfig, cross_kv) -> dict:
 
 def cross_attention_fwd(params, h, q, cfg: ModelConfig, *,
                         cache: Optional[dict] = None, cross_kv=None,
-                        decode: bool = False):
+                        decode: bool = False, reduce=None,
+                        kv_sel: Optional[slice] = None, seq_split=None):
     """Cross-attention of one layer; returns its output (B,S,D).
 
     ``h``: the normed input (B,S,D); ``q``: ``h @ wq`` when a fused
@@ -478,7 +568,10 @@ def cross_attention_fwd(params, h, q, cfg: ModelConfig, *,
     ``cache`` (this layer's cross {"k","v"} (B,T,HKV,hd)), which a given
     ``cross_kv`` overwrites in place.  ``decode``: a decode step (one query
     a row through ``decode_attention``); otherwise ``flash_attention``
-    non-causal over all T positions."""
+    non-causal over all T positions.  ``reduce`` and ``kv_sel``: as
+    ``attention_fwd``'s, head-parallel inside a rank; ``seq_split``: the
+    cross cache split along T over the model axis (a rank writes its
+    block, and reads every rank's, gathered)."""
     hq, hd = cfg.n_heads, cfg.hd
     scale = cfg.attn_scale or hd ** -0.5
     b, s = h.shape[0], h.shape[1]
@@ -486,7 +579,11 @@ def cross_attention_fwd(params, h, q, cfg: ModelConfig, *,
     if cross_kv is not None:
         kv = init_cross_cache(params, cfg, cross_kv.to(h.dtype))
         k, v = kv["k"], kv["v"]
-        if cache is not None:
+        if cache is not None and seq_split is not None:
+            n = cache["k"].shape[1]
+            cache["k"].copy_(k[:, seq_split.lo:seq_split.lo + n])
+            cache["v"].copy_(v[:, seq_split.lo:seq_split.lo + n])
+        elif cache is not None:
             if cache["k"].shape != k.shape:
                 raise ValueError(
                     f"cross cache {tuple(cache['k'].shape)} cannot hold K/V "
@@ -496,19 +593,22 @@ def cross_attention_fwd(params, h, q, cfg: ModelConfig, *,
     elif cache is None:
         raise ValueError("cross-attn decode needs a cross cache (or "
                          "cross inputs: encoder_tokens= / frontend_embeds=)")
+    elif seq_split is not None:
+        k = seq_split.gather_positions(cache["k"])
+        v = seq_split.gather_positions(cache["v"])
     else:
         k, v = cache["k"], cache["v"]
     if k.shape[1] == 0:
         raise ValueError("cross attention over 0 source positions: build "
                          "the cache with src_len >= 1")
+    kt, vt = _heads(k, kv_sel), _heads(v, kv_sel)
     if decode and s == 1:
-        o = kernels.decode_attention(q[:, 0], k.transpose(1, 2),
-                                     v.transpose(1, 2), scale=scale,
+        o = kernels.decode_attention(q[:, 0], kt, vt, scale=scale,
                                      softcap=cfg.attn_softcap)
         o = o.reshape(b, 1, hq * hd)
     else:
-        o = kernels.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                    v.transpose(1, 2), scale=scale,
+        o = kernels.flash_attention(q.transpose(1, 2), kt, vt, scale=scale,
                                     causal=False, softcap=cfg.attn_softcap)
         o = o.transpose(1, 2).reshape(b, s, hq * hd)
-    return o @ params["wo"]
+    y = o @ params["wo"]
+    return reduce("xattn_out", y) if reduce is not None else y

@@ -15,7 +15,11 @@ from repro_torch.configs.base import ModelConfig
 def dense_init(gen: torch.Generator, shape, dtype, device,
                scale: float = 0.02) -> torch.Tensor:
     """``scale`` * standard normal drawn in f32 from ``gen`` on the
-    generator's own device, then cast and placed on ``device``."""
+    generator's own device, then cast and placed on ``device``.  On the
+    meta device nothing is drawn: the tensor has the shape and dtype
+    only."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     w = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device) * scale
     return w.to(device=device, dtype=dtype)

@@ -16,6 +16,13 @@ the parameter dtype, the per-head norm in f32 then cast to x's dtype before
 With a cache the layer updates it in place: the shifts are copied into
 ``state["shift"]`` and the WKV kernel writes the new state over
 ``state["s"]``.
+
+Inside a rank of the step builders the time mix may run head-parallel
+(``cfg`` the rank's heads, ``params`` its slices, ``reduce`` all-reducing
+the ``wo`` product) and the channel mix d_ff-parallel (``reduce`` after
+its ``wv`` product); ``wkv`` (``split``, ``join``) is the reference's
+batch over-shard of the recurrence: the rank runs its rows of a
+multi-token segment and the rows are gathered again.
 """
 from __future__ import annotations
 
@@ -100,9 +107,15 @@ def _rkvwg(params, x, cfg: ModelConfig, prev):
     return r, k, v, logw.reshape(b, s, h, hd), g
 
 
-def rwkv_time_fwd(params, x, cfg: ModelConfig, state=None):
+def _same(t):
+    return t
+
+
+def rwkv_time_fwd(params, x, cfg: ModelConfig, state=None, reduce=None,
+                  wkv=None):
     """Time mix over a segment x (B,S,D).  ``state``: one layer's cache
-    (``make_state``), updated in place; None starts from zeros."""
+    (``make_state``), updated in place; None starts from zeros.
+    ``reduce`` / ``wkv``: a rank's hooks (see the module's docstring)."""
     b, s, d = x.shape
     h, hd = cfg.n_heads, cfg.hd
     if state is None:
@@ -113,15 +126,26 @@ def rwkv_time_fwd(params, x, cfg: ModelConfig, state=None):
         prev, s0 = state["shift"], state["s"]
         s_out = s0
     r, k, v, logw, g = _rkvwg(params, x, cfg, prev)
-    o, _ = kernels.wkv6(r, k, v, logw, params["u"], s0, s_out=s_out)
+    if wkv is not None:
+        split = wkv.split if s > 1 else _same
+        join = wkv.join if s > 1 else _same
+        s_in = s0 if state is None else wkv.state_in(s0)
+        o, s_t = kernels.wkv6(*(split(t) for t in (r, k, v, logw)),
+                              params["u"], split(s_in))
+        o = join(o)
+        if s_out is not None:
+            s_out.copy_(wkv.state_out(join(s_t)))
+    else:
+        o, _ = kernels.wkv6(r, k, v, logw, params["u"], s0, s_out=s_out)
     o = _head_ln(o, params["ln_scale"], params["ln_bias"])
     o = o.reshape(b, s, h * hd).to(x.dtype) * F.silu(g)
     if state is not None:
         state["shift"].copy_(x[:, -1])
-    return o @ params["wo"]
+    out = o @ params["wo"]
+    return reduce("rwkv_out", out) if reduce is not None else out
 
 
-def rwkv_channel_fwd(params, x, cfg: ModelConfig, state=None):
+def rwkv_channel_fwd(params, x, cfg: ModelConfig, state=None, reduce=None):
     """Channel mix (squared-ReLU FFN with token shift) over x (B,S,D);
     ``state["shift_c"]`` updated in place."""
     prev = (torch.zeros_like(x[:, 0]) if state is None
@@ -130,4 +154,4 @@ def rwkv_channel_fwd(params, x, cfg: ModelConfig, state=None):
     out = torch.square(F.relu(xk @ params["wk"])) @ params["wv"]
     if state is not None:
         state["shift_c"].copy_(x[:, -1])
-    return out
+    return reduce("rwkv_channel_out", out) if reduce is not None else out

@@ -85,7 +85,9 @@ same kernels, with the MoE aux loss summed over the layers
 The kernels' custom ops carry closed-form backward rules
 (``kernels/*/backward.py``), so the backward is torch ops and launches no
 hand-written kernel (with remat, the recomputed forward launches them
-again).  An RWKV-6 stack is refused (``check_trainable``).
+again).  An RWKV-6 stack trains through ``wkv6``'s functional entry,
+whose closed-form backward (``kernels/rwkv6/backward.py``) follows the
+chunked recurrence.
 
 Multi-rank training (``distributed``): ``forward`` and ``loss_fn`` take
 ``dist``, the MoE layers' mesh context inside a rank (expert parallelism),
@@ -93,6 +95,21 @@ as the reference's; ``forward_blocks`` runs a contiguous range of layers
 on the residual stream, and ``stage_forward`` over ``pipeline_stages``
 is a pipeline stage's ``stage_fn`` (each stage keeps its first layer's
 index).
+
+Tensor parallelism inside a rank (``tp``, ``launch.steps.RankTP``): the
+step builders run every layer head-, d_ff- or d_inner-parallel over the
+mesh's model axis.  ``cfg`` then carries the rank's head counts, ``params``
+the rank's working tree (its slices, and whole what it gathered), and the
+forward asks ``tp`` at each region: ``tp.partial(kind)`` (the region's
+output is this rank's partial sum: its input enters through
+``tp.enter``, whose gradient is summed over the model axis, and its
+output leaves through ``tp.reduce``), ``tp.embed`` (the vocabulary-split
+lookup), ``tp.logits`` / ``tp.ce_sum`` (the rank's vocabulary block and
+the vocabulary-parallel CE), ``tp.seq_gather`` / ``tp.seq_scatter``
+(with ``seq_shard``: the residual stream between superblocks is the
+rank's block of S), ``tp.kv_sel`` and ``tp.seq_split`` (the attention's
+kv-head read and a sequence-split cache), ``tp.wkv`` (RWKV's batch
+over-shard).  None: every layer whole, as on one device.
 """
 from __future__ import annotations
 
@@ -407,7 +424,8 @@ def forward(params, tokens, cfg: ModelConfig, *, cache: Optional[list] = None,
             cache_index: int = 0, lengths=None, block_tables=None,
             positions=None, encoder_tokens=None, frontend_embeds=None,
             reduce=None, with_aux: bool = False, return_hidden: bool = False,
-            remat: bool = False, remat_policy: str = "nothing", dist=None):
+            remat: bool = False, remat_policy: str = "nothing", dist=None,
+            tp=None):
     """Returns (logits f32 (B,S,V), cache), or (out, cache, aux) with
     ``with_aux``.
 
@@ -466,6 +484,8 @@ def forward(params, tokens, cfg: ModelConfig, *, cache: Optional[list] = None,
     the experts and everything else whole, and every other layer runs on
     the rank as it would alone, the same on every rank of a model group.
     None: the local MoE path.
+    ``tp``: the rank's tensor-parallel plan (see the module's docstring);
+    the logits are then the rank's vocabulary block.
     """
     check_supported(cfg)
     if with_aux or return_hidden or remat:
@@ -485,25 +505,43 @@ def forward(params, tokens, cfg: ModelConfig, *, cache: Optional[list] = None,
         raise ValueError(f"{cfg.name}: a recurrent stack has no paged "
                          "cache (block_tables=)")
     if tuple(cfg.block_pattern) == ("rwkv6",):
-        return _forward_rwkv(params, tokens, cfg, cache), cache
+        out = _forward_rwkv(params, tokens, cfg, cache, tp=tp,
+                            return_hidden=return_hidden,
+                            remat_policy=remat_policy if remat else None)
+        if with_aux:                            # no MoE: the aux loss is 0
+            return out, cache, torch.zeros((), dtype=torch.float32,
+                                           device=out.device)
+        return out, cache
     ctx = _attention_context(cfg, cache, b, s, dev, cache_index, lengths,
                              block_tables, positions)
     decode = ctx is not None and ctx.decode
     encoder_out = None
     if cfg.n_encoder_layers and encoder_tokens is not None:
+        # inside a rank the encoder runs whole, on the global head counts
         encoder_out = encode(params, torch.as_tensor(encoder_tokens).to(dev),
-                             cfg, remat_policy=remat_policy if remat else None)
+                             cfg if tp is None else tp.plan.cfg,
+                             remat_policy=remat_policy if remat else None)
     elif frontend_embeds is not None:
         encoder_out = torch.as_tensor(frontend_embeds).to(dev, cfg.cdtype)
     with scope("embed"):
-        x = embed_tokens(embed, tokens, cfg).to(cfg.cdtype)
+        x = (embed_tokens(embed, tokens, cfg) if tp is None
+             else tp.embed(embed, tokens, cfg)).to(cfg.cdtype)
     aux = torch.zeros((), dtype=torch.float32, device=dev) if with_aux \
         else None
+    seq = tp is not None and tp.seq_shard
+    if seq:
+        x = tp.seq_scatter(x)
     pending = None      # the previous layer's MLP output, not yet added
+    period = len(cfg.block_pattern)
     for i, bp in enumerate(params["blocks"]):
         mixer, mlp = _layer_parts(
             bp, i, cfg, ctx, None if cache is None else cache[i],
-            encoder_out, decode, reduce, with_aux, dist)
+            encoder_out, decode, reduce, with_aux, dist, tp)
+        if seq and pending is None:
+            # the superblock's stream arrives as the rank's block of S
+            mixer = _seq_entry(mixer, tp)
+        if seq and i % period == period - 1:
+            mlp = _seq_exit(mlp, tp)
         with scope(f"layer{i}"):
             if remat and remat_policy == "names":
                 # save each sub-block's output, recompute inside it
@@ -516,6 +554,8 @@ def forward(params, tokens, cfg: ModelConfig, *, cache: Optional[list] = None,
                     layer, remat_policy if remat else None)(x, pending)
         if a is not None:
             aux = aux + a
+    if seq:
+        x = tp.seq_gather(x)
     eps = cfg.norm_eps
     if return_hidden:
         with scope("final_norm"):
@@ -525,17 +565,46 @@ def forward(params, tokens, cfg: ModelConfig, *, cache: Optional[list] = None,
     if not cfg.tie_embeddings:
         # an untied head fuses with the final norm (d x V), as in the
         # reference's plan; a tied one is read transposed, so no window
+        enter = _entry(tp, "head")
         with scope("final_norm"), scope("unembed"):
             logits, _ = kernels.rmsnorm_matmul(
-                x, params["final_norm"]["scale"], params["lm_head"], eps=eps)
+                enter(x), enter(params["final_norm"]["scale"]),
+                params["lm_head"], eps=eps)
         logits = softcap(logits.float(), cfg.final_softcap)
     else:
         with scope("final_norm"):
             x, _ = kernels.residual_rmsnorm(x, params["final_norm"]["scale"],
                                             eps=eps)
         with scope("unembed"):
-            logits = unembed(x, embed, None, cfg)
+            logits = (unembed(x, embed, None, cfg) if tp is None
+                      else tp.logits(x, params, cfg))
     return (logits, cache, aux) if with_aux else (logits, cache)
+
+
+def _identity(t):
+    return t
+
+
+def _entry(tp, kind: str):
+    """The entry of a region of kind ``kind``: ``tp.enter`` when the
+    region's output is the rank's partial sum, else the identity."""
+    return tp.enter if tp is not None and tp.partial(kind) else _identity
+
+
+def _seq_entry(mixer, tp):
+    """``mixer`` taking the residual stream as the rank's block of S: it
+    is gathered whole first."""
+    def run(x, pending):
+        return mixer(tp.seq_gather(x), pending)
+    return run
+
+
+def _seq_exit(mlp, tp):
+    """``mlp`` at a superblock's end, leaving the rank's block of S."""
+    def run(x, o):
+        x, pending, a = mlp(x, o)
+        return tp.seq_scatter(x), pending, a
+    return run
 
 
 def pipeline_stages(params, n_stages: int) -> list:
@@ -584,7 +653,7 @@ def _whole_layer(mixer, mlp, x, pending):
 
 
 def _layer_parts(bp, i, cfg: ModelConfig, ctx, state, encoder_out, decode,
-                 reduce, with_aux, dist=None):
+                 reduce, with_aux, dist=None, tp=None):
     """Layer i as two functions of the residual stream: ``mixer(x,
     pending) -> (x, o)`` (norm1, fusing the previous layer's pending MLP
     output into the residual or, at a superblock's first slot, the mixer's
@@ -597,32 +666,39 @@ def _layer_parts(bp, i, cfg: ModelConfig, ctx, state, encoder_out, decode,
     eps = cfg.norm_eps
     period = len(cfg.block_pattern)
     w_in = bp["mixer"]["in_proj"] if kind == "mamba" else bp["mixer"]["wq"]
+    enter = _entry(tp, kind)
+    red = tp.reduce if enter is not _identity else reduce
+    akw = {} if tp is None else {"kv_sel": tp.kv_sel}
+    xkw = {} if tp is None else {"seq_split": tp.cross_split}
+    xenter = _entry(tp, "xattn")
+    cross_kv = encoder_out if encoder_out is None else xenter(encoder_out)
 
     def mixer(x, pending):
         # a superblock's first norm1 fuses with the mixer's input
         # product; a later slot's fuses the residual add before it
         with scope("norm1"):
             if pending is None:
-                y, h = kernels.rmsnorm_matmul(x, bp["norm1"]["scale"],
-                                              w_in, eps=eps)
+                y, h = kernels.rmsnorm_matmul(
+                    enter(x), enter(bp["norm1"]["scale"]), w_in, eps=eps)
             else:
                 h, x = kernels.residual_rmsnorm(
                     x, bp["norm1"]["scale"], residual=pending, eps=eps)
-                y = None
+                h, y = enter(h), None
         with scope(MIXER_SCOPE[kind]):
             if kind == "mamba":
                 o, _ = mamba.mamba_fwd(bp["mixer"], h, cfg, state=state,
-                                       xz=y)
+                                       xz=y, reduce=red)
             elif kind == "xattn":
                 o = attn.cross_attention_fwd(
                     bp["mixer"], h, y, cfg, cache=_cross_cache(state),
-                    cross_kv=encoder_out, decode=decode)
+                    cross_kv=cross_kv, decode=decode, reduce=red, **akw,
+                    **xkw)
                 o = o * torch.tanh(bp["xgate"]).to(o.dtype)
             else:
-                o = attn.attention_fwd(bp["mixer"], h, y, cfg, ctx,
-                                       cache=state,
-                                       window=layer_window(cfg, i),
-                                       reduce=reduce)
+                o = attn.attention_fwd(
+                    bp["mixer"], h, y, cfg, ctx, cache=state,
+                    window=layer_window(cfg, i), reduce=red,
+                    seq_split=None if tp is None else tp.seq_split, **akw)
         if "xattn" in bp:
             # enc-dec: cross-attention after the self-attention, its
             # norm fusing the residual add before it
@@ -631,14 +707,21 @@ def _layer_parts(bp, i, cfg: ModelConfig, ctx, state, encoder_out, decode,
                     h, x = kernels.residual_rmsnorm(
                         x, bp["norm_x"]["scale"], residual=o, eps=eps)
                 o = attn.cross_attention_fwd(
-                    bp["xattn"], h, None, cfg, cache=_cross_cache(state),
-                    cross_kv=encoder_out, decode=decode)
+                    bp["xattn"], xenter(h), None, cfg,
+                    cache=_cross_cache(state), cross_kv=cross_kv,
+                    decode=decode,
+                    reduce=tp.reduce if xenter is not _identity else reduce,
+                    **akw, **xkw)
         return x, o
+
+    mlp_enter = _entry(tp, "moe" if "moe" in bp else "mlp")
+    mlp_red = tp.reduce if mlp_enter is not _identity else reduce
 
     def mlp(x, o):
         with scope("norm2"):
             h, x = kernels.residual_rmsnorm(x, bp["norm2"]["scale"],
                                             residual=o, eps=eps)
+        h = mlp_enter(h)
         a = None
         if "moe" in bp:
             with scope("moe"):
@@ -646,7 +729,7 @@ def _layer_parts(bp, i, cfg: ModelConfig, ctx, state, encoder_out, decode,
                                    with_aux=with_aux)
         else:
             with scope("mlp"):
-                m = mlp_fwd(bp["mlp"], h, cfg, reduce=reduce)
+                m = mlp_fwd(bp["mlp"], h, cfg, reduce=mlp_red)
         if i % period == period - 1:
             with scope("resid"):
                 return x + m, None, a
@@ -655,32 +738,49 @@ def _layer_parts(bp, i, cfg: ModelConfig, ctx, state, encoder_out, decode,
     return mixer, mlp
 
 
-def _forward_rwkv(params, tokens, cfg: ModelConfig, cache):
-    """RWKV-6 logits (B,S,V) f32.  Every row runs the recurrence from its
-    cache state; there are no positions, so ``cache_index`` and
-    ``lengths`` have nothing to select (free slots step too, as in the
-    reference).  The norms fuse each residual add into the next norm."""
+def _forward_rwkv(params, tokens, cfg: ModelConfig, cache, tp=None,
+                  return_hidden: bool = False, remat_policy=None):
+    """RWKV-6 logits (B,S,V) f32 (the final-normed hidden states with
+    ``return_hidden``).  Every row runs the
+    recurrence from its cache state; there are no positions, so
+    ``cache_index`` and ``lengths`` have nothing to select (free slots
+    step too, as in the reference).  The norms fuse each residual add into
+    the next norm.  ``remat_policy``: each layer under ``remat_wrap``."""
     eps = cfg.norm_eps
     with scope("embed"):
-        x = embed_tokens(params["embed"], tokens, cfg).to(cfg.cdtype)
+        x = (embed_tokens(params["embed"], tokens, cfg) if tp is None
+             else tp.embed(params["embed"], tokens, cfg)).to(cfg.cdtype)
+    enter_t, enter_c = _entry(tp, "rwkv6"), _entry(tp, "mlp")
+    red_t = tp.reduce if enter_t is not _identity else None
+    red_c = tp.reduce if enter_c is not _identity else None
+    wkv = None if tp is None else tp.wkv
     res = None
     for i, bp in enumerate(params["blocks"]):
         state = None if cache is None else cache[i]
-        with scope(f"layer{i}"):
+
+        def layer(x, res, bp=bp, state=state):
             with scope("norm1"):
                 h, x = kernels.rmsnorm(x, bp["norm1"]["scale"], residual=res,
                                        eps=eps)
             with scope("rwkv"):
-                o = rwkv.rwkv_time_fwd(bp["mixer"], h, cfg, state)
+                o = rwkv.rwkv_time_fwd(bp["mixer"], enter_t(h), cfg, state,
+                                       reduce=red_t, wkv=wkv)
             with scope("norm2"):
                 h, x = kernels.rmsnorm(x, bp["norm2"]["scale"], residual=o,
                                        eps=eps)
             with scope("rwkv_channel"):
-                res = rwkv.rwkv_channel_fwd(bp["mlp"], h, cfg, state)
+                return x, rwkv.rwkv_channel_fwd(bp["mlp"], enter_c(h), cfg,
+                                                state, reduce=red_c)
+        with scope(f"layer{i}"):
+            x, res = remat_wrap(layer, remat_policy)(x, res)
     with scope("final_norm"):
         x, _ = kernels.rmsnorm(x, params["final_norm"]["scale"],
                                residual=res, eps=eps)
+    if return_hidden:
+        return x
     with scope("unembed"):
+        if tp is not None:
+            return tp.logits(x, params, cfg)
         return unembed(x, params["embed"], params.get("lm_head"), cfg)
 
 
@@ -722,18 +822,15 @@ def remat_wrap(fn, policy: Optional[str]):
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Raise for a stack the port cannot train: RWKV-6, whose ``wkv6`` op
-    has no backward yet."""
-    if "rwkv6" in cfg.block_pattern:
-        raise NotImplementedError(
-            f"{cfg.name}: training an RWKV-6 stack (a backward of the wkv6 "
-            "op) not ported yet, see ROADMAP Queue A, \"training and launch "
-            "tooling\"")
+    """Raise for a stack the port cannot train: one it does not run at
+    all (``check_supported``).  Every kernel on a training path has a
+    backward rule, ``wkv6``'s through its functional entry."""
+    check_supported(cfg)
 
 
 def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = True,
             remat_policy: str = "nothing", aux_weight: float = 0.01,
-            loss_chunks: int = 1, dist=None):
+            loss_chunks: int = 1, dist=None, tp=None):
     """Next-token CE plus ``aux_weight`` times the MoE aux loss; returns
     (loss, (ce, aux)), f32 scalars.  ``batch``: {"tokens", "labels"} (B,S)
     and, for the cross stacks, "encoder_tokens" or "frontend_embeds"
@@ -743,20 +840,23 @@ def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = True,
     (B,S,V) logits never exist at once.  With ``dist`` (inside a rank, see
     ``forward``) the CE is the mean over the rank's own tokens and the aux
     the MoE layers' per-shard mean, the same on every rank: the global
-    loss is the mean of the data-parallel ranks' losses."""
+    loss is the mean of the data-parallel ranks' losses.  With ``tp`` (a
+    rank's tensor-parallel plan) the logits are the rank's vocabulary
+    block and the CE is vocabulary-parallel (``tp.ce_sum``)."""
     check_trainable(cfg)
     dev = params["embed"].device
     labels = torch.as_tensor(batch["labels"]).to(dev).long()
     kw = dict(encoder_tokens=batch.get("encoder_tokens"),
               frontend_embeds=batch.get("frontend_embeds"), remat=remat,
-              remat_policy=remat_policy, with_aux=True, dist=dist)
+              remat_policy=remat_policy, with_aux=True, dist=dist, tp=tp)
     if loss_chunks > 1:
         hidden, _, aux = forward(params, batch["tokens"], cfg,
                                  return_hidden=True, **kw)
-        ce = _chunked_ce(hidden, labels, params, cfg, loss_chunks)
+        ce = _chunked_ce(hidden, labels, params, cfg, loss_chunks, tp)
     else:
         logits, _, aux = forward(params, batch["tokens"], cfg, **kw)
-        ce = _ce_sum(logits, labels) / labels.numel()
+        ce = (_ce_sum if tp is None else tp.ce_sum)(logits, labels) \
+            / labels.numel()
     return ce + aux_weight * aux, (ce, aux)
 
 
@@ -766,7 +866,8 @@ def _ce_sum(logits, labels) -> torch.Tensor:
     return (torch.logsumexp(logits, dim=-1) - gold).sum()
 
 
-def _chunked_ce(hidden, labels, params, cfg: ModelConfig, n_chunks: int):
+def _chunked_ce(hidden, labels, params, cfg: ModelConfig, n_chunks: int,
+                tp=None):
     """Mean CE over ``n_chunks`` sequence chunks of the final hidden states
     (B,S,D); each chunk's logits are made by the unembed inside a
     checkpoint and made again in the backward."""
@@ -777,6 +878,8 @@ def _chunked_ce(hidden, labels, params, cfg: ModelConfig, n_chunks: int):
     sc = s // n_chunks
 
     def chunk(xc, lc):
+        if tp is not None:
+            return tp.ce_sum(tp.logits(xc, params, cfg), lc)
         logits = unembed(xc, params["embed"], params.get("lm_head"), cfg)
         return _ce_sum(logits, lc)
 

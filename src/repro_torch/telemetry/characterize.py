@@ -35,6 +35,7 @@ from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.core.boundedness import BoundednessResult, classify_sweep
 from repro_torch.core.device_model import (PLATFORMS, allreduce_cost_s,
@@ -51,6 +52,7 @@ from repro_torch.runtime.planner import simulate_plan
 from repro_torch.kvcache.paged import PagedKVCache
 from repro_torch.telemetry.metrics import LatencySummary, summarize
 from repro_torch.telemetry.spans import SpanRecorder
+from repro_torch.tree import map_tree
 from repro_torch.workload.generator import Workload, sample_requests
 
 MAX_DEVICE_ANCHORS = 64     # cap modeled-lane replication in exported traces
@@ -582,13 +584,27 @@ class SpecSweepPoint:
 
 def _decode_trace(cfg, params, batch: int, max_len: int, device):
     """The port's decode step at ``batch`` rows, traced (fake tensors: no
-    kernel runs)."""
+    kernel runs).  ``params`` may be abstract (on the meta device,
+    ``launch.steps.params_sds``): the trace then takes fake tensors of
+    their shapes on ``device``, and nothing of the model is allocated."""
     body = make_step_bodies(cfg).decode
-    # one zero cross row, as every served cache holds
-    cache = make_cache(cfg, batch, max_len, src_len=1, device=device)
+
+    def args():
+        # one zero cross row, as every served cache holds
+        return (make_cache(cfg, batch, max_len, src_len=1, device=device),
+                torch.zeros((batch, 1), dtype=torch.int32, device=device),
+                torch.zeros((batch,), dtype=torch.int32, device=device))
+
+    if params["embed"].device.type == "meta":
+        with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+            params = map_tree(lambda t: torch.empty(
+                t.shape, dtype=t.dtype, device=device), params)
+            cache, tokens, lengths = args()
+        del mode
+    else:
+        cache, tokens, lengths = args()
     return trace_fn(lambda p, c, t, n: body(p, c, t, n)[0], params, cache,
-                    torch.zeros((batch, 1), dtype=torch.int32, device=device),
-                    torch.zeros((batch,), dtype=torch.int32, device=device))
+                    tokens, lengths)
 
 
 def spec_sweep(cfg, params, *, draft_cfg=None, draft_params=None,

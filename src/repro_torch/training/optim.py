@@ -60,8 +60,10 @@ def global_norm(tree) -> torch.Tensor:
     return torch.stack(norms).square().sum().sqrt()
 
 
-def _clip_scale(grads, max_norm: float):
-    g = global_norm(grads)
+def _clip_scale(grads, max_norm: float, norm=None):
+    """(min(1, max_norm / norm), norm), the norm the grads' own global
+    norm unless given (a rank's shards: the norm over every rank's)."""
+    g = global_norm(grads) if norm is None else norm
     return torch.clamp(max_norm / (g + 1e-9), max=1.0), g
 
 
@@ -77,10 +79,10 @@ def _scaled(xs: list, scale: torch.Tensor) -> list:
     return out
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, norm=None):
     """(grads scaled by min(1, max_norm / norm), norm): each gradient keeps
     its dtype (an f32 copy of bf16 gradients would double them)."""
-    scale, g = _clip_scale(grads, max_norm)
+    scale, g = _clip_scale(grads, max_norm, norm)
     values = iter(_scaled(leaves(grads), scale))
     return map_tree(lambda _: next(values), grads), g
 
@@ -107,12 +109,13 @@ def adamw_init(params) -> dict:
 
 
 @torch.no_grad()
-def adamw_update(cfg: OptConfig, grads, state, params):
+def adamw_update(cfg: OptConfig, grads, state, params, norm=None):
     """One AdamW step, in place; returns (params, state, {"lr",
-    "grad_norm"})."""
+    "grad_norm"}).  ``norm``: the global gradient norm when ``grads`` are
+    a rank's slices of the whole (None: theirs)."""
     step = _step(state)
     lr = schedule(cfg, step)
-    scale, gnorm = _clip_scale(grads, cfg.clip_norm)
+    scale, gnorm = _clip_scale(grads, cfg.clip_norm, norm)
     gs, ps = _scaled(leaves(grads), scale), leaves(params)
     ms, vs = leaves(state["m"]), leaves(state["v"])
     b1, b2 = cfg.b1, cfg.b2
@@ -153,13 +156,22 @@ def adafactor_init(params) -> dict:
             "v": map_tree(per_leaf, params)}
 
 
+def _local_mean(t, dim, key, pdim):
+    return t.mean() if dim is None else t.mean(dim=dim)
+
+
 @torch.no_grad()
-def adafactor_update(cfg: OptConfig, grads, state, params):
+def adafactor_update(cfg: OptConfig, grads, state, params, norm=None,
+                     mean=_local_mean):
     """One Adafactor step (factored second moment, update clipping to RMS
-    1), in place; returns (params, state, {"lr", "grad_norm"})."""
+    1), in place; returns (params, state, {"lr", "grad_norm"}).  ``norm``
+    as ``adamw_update``'s; ``mean(t, dim, key, pdim)``: the mean of leaf
+    ``key``'s statistic ``t`` over its ``dim`` (None: all), which is the
+    parameter's dimension ``pdim``; a rank's hook takes it over every
+    rank's slice."""
     step = _step(state)
     lr = schedule(cfg, step)
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, norm)
     decay = float(1.0 - np.float32(step) ** np.float32(-0.8))
     slots = dict(named_leaves(state["v"]))
     for (key, p), g in zip(named_leaves(params), leaves(grads)):
@@ -168,16 +180,18 @@ def adafactor_update(cfg: OptConfig, grads, state, params):
             vr, vc = slots[f"{key}/vr"], slots[f"{key}/vc"]
             # the reference's decay is an f32 array: its products with the
             # bf16 means are taken in f32
-            vr.copy_(decay * vr + (1 - decay) * g2.mean(dim=-1).float())
-            vc.copy_(decay * vc + (1 - decay) * g2.mean(dim=-2).float())
-            rfac = (vr / vr.mean(dim=-1, keepdim=True))[..., None]
+            vr.copy_(decay * vr
+                     + (1 - decay) * mean(g2, -1, key, -1).float())
+            vc.copy_(decay * vc
+                     + (1 - decay) * mean(g2, -2, key, -2).float())
+            rfac = (vr / mean(vr, -1, key, -2)[..., None])[..., None]
             u = g * torch.rsqrt(rfac * vc[..., None, :] + 1e-30)
         else:
             v = slots[f"{key}/v"]
             v.copy_(decay * v + (1 - decay) * g2.float())
             u = g * torch.rsqrt(v + 1e-30)
         # update clipping (RMS <= 1)
-        rms = torch.sqrt((u * u).mean() + 1e-30)
+        rms = torch.sqrt(mean(u * u, None, key, None) + 1e-30)
         u = u / torch.clamp(rms, min=1.0)
         p32 = p.float()
         u = u + cfg.weight_decay * p32
@@ -192,7 +206,7 @@ def opt_init(cfg: OptConfig, params) -> dict:
         else adamw_init(params)
 
 
-def opt_update(cfg: OptConfig, grads, state, params):
+def opt_update(cfg: OptConfig, grads, state, params, norm=None):
     if cfg.kind == "adafactor":
-        return adafactor_update(cfg, grads, state, params)
-    return adamw_update(cfg, grads, state, params)
+        return adafactor_update(cfg, grads, state, params, norm)
+    return adamw_update(cfg, grads, state, params, norm)

@@ -5,7 +5,11 @@ Weights come from the reference's init through ``repro_torch.bridge``;
 inputs are seeded numpy.  A 300-token prefill crosses the reference's
 ``TIME_CHUNK`` (256: the reference pads the second chunk with dt = 0, the
 port steps over the tokens it has), then four decode steps run from the
-state it left; outputs and both state leaves agree within 2e-5.
+state it left; outputs and both state leaves agree within 2e-5.  The
+two-level scan of a segment longer than ``TIME_CHUNK`` equals the
+per-step scan, values and gradients, in f64 within 1e-10, at lengths
+that do and do not fill their last block, with decays strong enough to
+empty the state within a block.
 """
 import jax
 import jax.numpy as jnp
@@ -115,3 +119,27 @@ def test_given_projection_and_fresh_state(setup):
     jout, jst = jx_mamba.mamba_fwd(jp, jnp.asarray(x.numpy()), jcfg)
     _close(out, jout)
     _close(st["h"], jst["h"])
+
+
+@pytest.mark.parametrize("s", [257, 300, 1031])
+def test_block_scan_equals_the_step_scan(s):
+    g = torch.Generator().manual_seed(s)
+    b, di, ds = 2, 6, 4
+    f64 = torch.float64
+    xc = torch.randn(b, s, di, generator=g, dtype=f64)
+    # dt from 1e-3 to ~20: exp(dt A) from ~1 down to underflow
+    dt = torch.exp(torch.randn(b, s, di, generator=g, dtype=f64) * 2.5)
+    bm, cm = (torch.randn(b, s, ds, generator=g, dtype=f64)
+              for _ in range(2))
+    a = -torch.arange(1, ds + 1, dtype=f64).expand(di, ds)
+    h0 = torch.randn(b, di, ds, generator=g, dtype=f64)
+    ins = [t.clone().requires_grad_() for t in (h0, xc, dt, bm, cm)]
+    outs = []
+    for scan in (mamba._scan_chunk, mamba._scan_blocks):
+        h, ys = scan(ins[0], tuple(ins[1:]), a)
+        grads = torch.autograd.grad((h * h).sum() + (ys * ys).sum(), ins)
+        outs.append((h, ys) + grads)
+    for want, got in zip(*outs):
+        assert got.shape == want.shape
+        err = float((got - want).detach().abs().max())
+        assert err <= 1e-10 * max(1.0, float(want.detach().abs().max())), err
