@@ -325,6 +325,27 @@ Phases (any failure exits non-zero before a result is printed):
      RWKV_TRAIN_LAYERS layers trained RWKV_TRAIN_STEPS steps of phase 21's
      n-grams (the loss falling; wkv6 and rmsnorm launched every step).
 
+ 24. the examples and RWKV-6 beside attention: (a) the four examples of
+     ``repro_torch.examples`` in this process (``main(device="cuda")``),
+     each one's returned numbers checked: quickstart's fusion within
+     EXAMPLE_FUSE_TOL of eager with fewer launches; the serving example's
+     tokens out and decode steps equal to its CPU run's (38); the platform
+     example's GH200 penalty at batch 1 and speedup at batch 256 both
+     above 1; the training example resumed at step 20, finished at 40,
+     its losses within EXAMPLE_RESUME_RTOL of an uninterrupted run's;
+     (b) rwkv6-3b's widths with MIXED_PATTERN (one RWKV-6 and one
+     attention slot a superblock): in f32 at MIXED_F32_LAYERS layers a
+     prefill and 3 decode steps, every kernel call against its plain
+     version on the model's activations and the logits within
+     LOGIT_TOL_F32 of the plain versions'; in bf16 at full depth (32
+     layers) under jit over the serve CLI's requests, launches a decode
+     step ``norm_launches`` + ``attention_launches`` + ``wkv6`` at each
+     RWKV-6 slot, no plain version called on the card, first tokens
+     against the plain bf16 forward, the step traced (device busy),
+     parameter bytes and peak memory; (c) MIXED_TRAIN_STEPS AdamW steps at
+     MIXED_TRAIN_LAYERS layers on phase 21's n-grams (4 x 512), the loss
+     falling (``wkv6``'s and flash attention's backward in one step).
+
 Phases 4, 6, 7 and 9 serve with ``--plan eager`` (``plan="eager"``): one
 dispatch a node of the traced step, whose norms are their plain versions,
 so only the attention kernels (or ``wkv6``) launch there; their traces (5,
@@ -350,7 +371,7 @@ x 163840, 8192 x 65536), and ``residual_rmsnorm`` at D 7168 and 8192.
 
 The ``kernels`` line's ``launches`` are the main paths' jit runs (phase
 11); the multi-query entries', phase 16's speculative runs; phase 17's
-and 18's runs are in each entry's ``launches_by_path``.
+to 24's runs are in each entry's ``launches_by_path``.
 
 Phase 2 holds the kernels at phase 19's shapes too (``xattn_cases``):
 ``flash_attention`` non-causal at a prefill over Llama-3.2-Vision's 1601
@@ -362,8 +383,8 @@ served cross prefill (``[x_t1]``: B 1, S 16 over T 1, S > T), beside SDPA;
 untied heads (``[unembed_vision]`` 4096 x 128256, ``[unembed_seamless]``
 1024 x 256206).
 
-Order: 1-3, then 21, 22, 20, 18 and 19 (the newest phases, so that a fault
-there ends the run early), then 4-17.  Phase 2 also holds the six kernels of
+Order: 1-3, then 21, 22, 23, 24, 20, 18 and 19 (the newest phases, so that
+a fault there ends the run early), then 4-17.  Phase 2 also holds the six kernels of
 phase 20's path at one tp=2 rank's shapes (``tp_cases``, ``[llama_tp2]``:
 16/4 heads of 64, ``rmsnorm_matmul`` at 2048 x 1024).  Phase 2 times the kernels in
 bf16 (f32 only for the f32-only ``wkv6``; the f32 cases check the error),
@@ -535,6 +556,9 @@ from repro_torch.models import (pipeline_stages,         # noqa: E402
 from repro_torch.tree import leaves as tree_leaves         # noqa: E402
 from repro_torch.tree import map_tree as tree_map          # noqa: E402
 from repro_torch.tree import named_leaves                  # noqa: E402
+from repro_torch.examples import (                         # noqa: E402
+    platform_characterization, quickstart, serve_continuous_batching,
+    train_fault_tolerant)
 
 DEV = torch.device("cuda", 0)
 PLAINS = {"decode_attention": decode_attention_ref,
@@ -1505,7 +1529,8 @@ def want_launches(cfg, attention: str = "", plan: str = "jit") -> tuple:
     ``plan``.  ``jit`` launches the norms where the model calls them;
     ``fused`` too, its rules lowering RWKV-6's legacy-norm windows to
     ``residual_rmsnorm``; the other plans run the norms as their plain
-    versions.  RWKV-6: ``wkv6`` L and 2L+1 norms in both."""
+    versions.  RWKV-6: ``wkv6`` L and 2L+1 norms in both; a stack with
+    RWKV-6 beside other kinds adds ``wkv6`` at each RWKV-6 slot."""
     L = cfg.n_layers
     zero = {name: 0 for name in kernels.WRAPPERS}
     norms = plan in ("jit", "fused")
@@ -1515,6 +1540,7 @@ def want_launches(cfg, attention: str = "", plan: str = "jit") -> tuple:
         return per, dict(per)
     fused = norm_launches(cfg) if norms else {}
     n_attn = attention_launches(cfg)
+    zero["wkv6"] = rwkv_layers(cfg)        # RWKV-6 beside other kinds
     return ({**zero, **fused, attention: n_attn},
             {**zero, **fused, "flash_attention": n_attn})
 
@@ -1976,34 +2002,30 @@ RWKV_LOGIT_LAYERS = 4      # depth of the free-running f32 logits check
 
 
 @contextlib.contextmanager
-def checked_rwkv_kernels():
-    """Run every ``wkv6`` and ``rmsnorm`` call through its kernel and its
-    plain version on the same inputs (the plain one first, before the
-    kernel writes the state in place); fail unless they agree within TOL;
-    return the kernel's result.  Yields {name: [calls, max error]}."""
-    saved = {name: getattr(kernels, name) for name in ("wkv6", "rmsnorm")}
-    seen = {name: [0, 0.0] for name in saved}
+def checked_kernels(names, what: str):
+    """Run every call of the wrappers ``names`` through its kernel and its
+    plain version on the same inputs (the plain one first, before
+    ``wkv6`` writes its state in place); fail unless they agree within
+    TOL; return the kernel's result.  Yields {name: [calls, max error]}."""
+    saved = {name: getattr(kernels, name) for name in names}
+    seen = {name: [0, 0.0] for name in names}
 
-    def note(name, out, ref):
-        err, bound = max_err(out, ref), rel_bound(ref, torch.float32)
-        if not err <= bound:
-            fail(f"phase 8: {name} call {seen[name][0]} on the model's "
-                 f"activations: max |kernel - plain| {err:.3g} > "
-                 f"{bound:.3g}")
-        seen[name] = [seen[name][0] + 1, max(seen[name][1], err)]
+    def checked(name):
+        def call(*a, **kw):
+            ref = PLAINS[name](*a, **{k: v for k, v in kw.items()
+                                      if k != "s_out"})
+            out = saved[name](*a, **kw)
+            err, bound = max_err(out, ref), rel_bound(ref, torch.float32)
+            if not err <= bound:
+                fail(f"{what}: {name} call {seen[name][0]} on the model's "
+                     f"activations: max |kernel - plain| {err:.3g} > "
+                     f"{bound:.3g}")
+            seen[name] = [seen[name][0] + 1, max(seen[name][1], err)]
+            return out
+        return call
 
-    def rmsnorm(x, weight, residual=None, *, eps):
-        out = saved["rmsnorm"](x, weight, residual, eps=eps)
-        note("rmsnorm", out, rmsnorm_ref(x, weight, residual, eps))
-        return out
-
-    def wkv6(r, k, v, logw, u, s0, *, s_out=None):
-        ref = wkv6_ref(r, k, v, logw, u, s0)
-        out = saved["wkv6"](r, k, v, logw, u, s0, s_out=s_out)
-        note("wkv6", out, ref)
-        return out
-
-    kernels.rmsnorm, kernels.wkv6 = rmsnorm, wkv6
+    for name in names:
+        setattr(kernels, name, checked(name))
     try:
         yield seen
     finally:
@@ -2046,7 +2068,7 @@ def phase_logits_rwkv(cfg) -> None:
                                            (MAX_BATCH, 1)))
              for _ in range(3)]
     n0 = kernels.launch_counts()
-    with checked_rwkv_kernels() as seen:
+    with checked_kernels(("wkv6", "rmsnorm"), "phase 8") as seen:
         full = rwkv_run(params, cfg32, prompt, steps,
                         contextlib.nullcontext())
     n1 = kernels.launch_counts()
@@ -5968,20 +5990,18 @@ def wkv_bwd_check() -> dict:
             "bound_us": bound * 1e3, "bound_by": by}
 
 
-def rwkv_train() -> tuple:
-    """(d): whole-width RWKV-6 3B cut to RWKV_TRAIN_LAYERS layers, bf16,
-    RWKV_TRAIN_STEPS steps of loss_fn + AdamW on phase 21's n-gram
-    batches: the loss must fall.  Returns (row, launch counts a step)."""
-    cfg = get_config(RWKV_ARCH).replace(n_layers=RWKV_TRAIN_LAYERS)
-    params = model_params(cfg, 31)
-    oc = OptConfig(lr=TRAIN_LR, warmup_steps=2,
-                   total_steps=RWKV_TRAIN_STEPS)
+def adamw_steps(cfg, seed: int, steps: int) -> tuple:
+    """``steps`` steps of loss_fn + AdamW (bf16 weights drawn from
+    ``seed``, lr TRAIN_LR, warm-up 2) on phase 21's n-gram batches of 4 x
+    TRAIN_SEQ.  Returns (losses, ms a step, launch counts a step)."""
+    params = model_params(cfg, seed)
+    oc = OptConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=steps)
     state = opt_init(oc, params)
     data = DataConfig(batch=4, seq_len=TRAIN_SEQ,
                       vocab_size=TRAIN_DATA_VOCAB)
     losses, ms = [], []
     kernels.reset_launch_counts()
-    for i in range(RWKV_TRAIN_STEPS):
+    for i in range(steps):
         batch = to_device(make_batch(data, i, cfg), DEV)
         t0 = st_sync(DEV)
         ps = tree_map(lambda p: p.detach().requires_grad_(True), params)
@@ -5991,8 +6011,18 @@ def rwkv_train() -> tuple:
         opt_update(oc, tree_map(lambda _: next(it), params), state, params)
         ms.append((st_sync(DEV) - t0) * 1e3)
         losses.append(float(loss.detach()))
-    counts = {k: n // RWKV_TRAIN_STEPS
-              for k, n in kernels.launch_counts().items()}
+    counts = {k: n // steps for k, n in kernels.launch_counts().items()}
+    del params, state
+    torch.cuda.empty_cache()
+    return losses, ms, counts
+
+
+def rwkv_train() -> tuple:
+    """(d): whole-width RWKV-6 3B cut to RWKV_TRAIN_LAYERS layers, bf16,
+    RWKV_TRAIN_STEPS steps of loss_fn + AdamW on phase 21's n-gram
+    batches: the loss must fall.  Returns (row, launch counts a step)."""
+    cfg = get_config(RWKV_ARCH).replace(n_layers=RWKV_TRAIN_LAYERS)
+    losses, ms, counts = adamw_steps(cfg, 31, RWKV_TRAIN_STEPS)
     if not losses[-1] < losses[0]:
         fail(f"phase 23 rwkv training: the loss did not fall {losses}")
     if counts["wkv6"] != RWKV_TRAIN_LAYERS or counts["rmsnorm"] <= 0:
@@ -6002,8 +6032,6 @@ def rwkv_train() -> tuple:
           f"{[round(x, 3) for x in losses]}; ms a step "
           f"{[round(x, 1) for x in ms]}; launches a step wkv6 "
           f"{counts['wkv6']}, rmsnorm {counts['rmsnorm']}")
-    del params, state
-    torch.cuda.empty_cache()
     return {"losses": losses, "ms": ms}, counts
 
 
@@ -6024,6 +6052,242 @@ def phase_steps(pool=None) -> tuple:
     secs = time.perf_counter() - t0
     print(f"phase 23: {secs:.1f} s")
     print("phase 23: " + json.dumps({"rows": rows, "seconds": secs}))
+    return rows, counts
+
+
+# ------------------------------------------------------------------ phase 24
+# RWKV-6 beside attention: rwkv6-3b's widths with one RWKV-6 and one
+# attention slot a superblock (no published model has the pattern; the
+# reference's _apply_slot takes any kind in any slot)
+MIXED_PATTERN = ("rwkv6", "attn")
+MIXED_F32_LAYERS = 4
+MIXED_TRAIN_LAYERS, MIXED_TRAIN_STEPS = 4, 5
+MIXED_KERNELS = ("residual_rmsnorm", "rmsnorm_matmul", "decode_attention",
+                 "flash_attention", "wkv6")
+# the served example: 12 requests of the reference script, 38 decode steps
+EXAMPLE_DECODE_STEPS = 38
+# the f32 examples on the card: fusion's outputs against eager's, and the
+# resumed losses against an uninterrupted run's (relative)
+EXAMPLE_FUSE_TOL = TOL["torch.float32"]
+EXAMPLE_RESUME_RTOL = 1e-5
+
+
+def mixed_config(**kw):
+    return get_config(RWKV_ARCH).replace(block_pattern=MIXED_PATTERN, **kw)
+
+
+def rwkv_layers(cfg) -> int:
+    return sum(k == "rwkv6" for k in cfg.block_pattern) * cfg.n_superblocks
+
+
+@contextlib.contextmanager
+def no_plain_on_card(what: str):
+    """Fail if any plain version (``PLAINS``) is called with a tensor on
+    the card while the block runs: a CUDA tensor launches its kernel."""
+    codes = {fn.__code__: name for name, fn in PLAINS.items()}
+    hits = []
+
+    def hook(frame, event, arg):
+        if event == "call" and frame.f_code in codes and any(
+                isinstance(v, torch.Tensor) and v.is_cuda
+                for v in frame.f_locals.values()):
+            hits.append(codes[frame.f_code])
+    old = sys.getprofile()
+    sys.setprofile(hook)
+    try:
+        yield
+    finally:
+        sys.setprofile(old)
+    if hits:
+        fail(f"{what}: the plain versions {sorted(set(hits))} ran on the "
+             "card")
+
+
+def examples_on_card(counts: dict) -> dict:
+    """(a) The four examples, ``main(device="cuda")`` in this process, each
+    one's returned numbers checked; launches reset before each."""
+    rows = {}
+    t0 = time.perf_counter()
+    print("phase 24: (a) python -m repro_torch.examples.quickstart",
+          flush=True)
+    kernels.reset_launch_counts()
+    q = quickstart.main(device="cuda")
+    counts["examples:quickstart"] = kernels.launch_counts()
+    fuse = q["fuse"]
+    if not (fuse["max_abs_err"] <= EXAMPLE_FUSE_TOL
+            and fuse["k_fused"] < fuse["k_eager"]):
+        fail(f"phase 24 quickstart: fusion {fuse}")
+    rows["quickstart"] = {"kernels": q["kernels"], **fuse}
+    print("phase 24: (a) python -m repro_torch.examples."
+          "serve_continuous_batching", flush=True)
+    kernels.reset_launch_counts()
+    sv = serve_continuous_batching.main(device="cuda")
+    counts["examples:serve"] = kernels.launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu = serve_continuous_batching.main(device="cpu")
+    if (sv["tokens_out"], sv["decode_steps"]) != \
+            (cpu["tokens_out"], cpu["decode_steps"]) or \
+            sv["decode_steps"] != EXAMPLE_DECODE_STEPS:
+        fail(f"phase 24 serve example: {sv['tokens_out']} tokens in "
+             f"{sv['decode_steps']} decode steps on the card, "
+             f"{cpu['tokens_out']} in {cpu['decode_steps']} on the CPU")
+    same = sum(sv["generated"][r] == g for r, g in cpu["generated"].items())
+    print(f"  the card's tokens out and decode steps equal the CPU run's; "
+          f"greedy tokens equal the CPU run's in {same}/"
+          f"{len(cpu['generated'])} requests (f32, other arithmetic)")
+    rows["serve"] = {k: sv[k] for k in ("tokens_out", "decode_steps",
+                                        "tok_per_s", "mean_slot_occupancy")}
+    print("phase 24: (a) python -m repro_torch.examples."
+          "platform_characterization", flush=True)
+    kernels.reset_launch_counts()
+    pc = platform_characterization.main(device="cuda")
+    counts["examples:platform"] = kernels.launch_counts()
+    if not (pc["gh200_penalty_b1"] > 1 and pc["gh200_speedup_b256"] > 1):
+        fail(f"phase 24 platform example: GH200 penalty at batch 1 "
+             f"{pc['gh200_penalty_b1']:.3f}, speedup at 256 "
+             f"{pc['gh200_speedup_b256']:.3f}")
+    rows["platform"] = {k: pc[k] for k in (
+        "kernels", "crossover_batch", "gh200_penalty_b1",
+        "gh200_speedup_b256", "fusion_ideal_speedup_l32")}
+    print("phase 24: (a) python -m repro_torch.examples."
+          "train_fault_tolerant", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels.reset_launch_counts()
+        tr = train_fault_tolerant.main(device="cuda",
+                                       ckpt_dir=f"{tmp}/example")
+        counts["examples:train"] = kernels.launch_counts()
+        cfg, data = train_fault_tolerant.config()
+        whole = Trainer(cfg, data, TrainConfig(
+            steps=40, ckpt_every=40, ckpt_dir=f"{tmp}/whole"),
+            device=DEV).run()
+    want = [h["loss"] for h in whole["history"][20:]]
+    diff = max(abs(a - b) / abs(b) for a, b in zip(tr["losses"], want))
+    if (tr["resumed_at"], tr["final_step"]) != (20, 40) or \
+            len(tr["losses"]) != 20 or not diff <= EXAMPLE_RESUME_RTOL:
+        fail(f"phase 24 train example: resumed at {tr['resumed_at']}, "
+             f"final step {tr['final_step']}, losses {tr['losses']} against "
+             f"the uninterrupted run's {want}")
+    print(f"  resumed losses against an uninterrupted run's: largest "
+          f"relative difference {diff:.3g} (<= {EXAMPLE_RESUME_RTOL})")
+    rows["train"] = {"resumed_at": tr["resumed_at"],
+                     "final_step": tr["final_step"],
+                     "loss_first": tr["losses"][0],
+                     "loss_last": tr["losses"][-1], "resume_rel_diff": diff}
+    rows["seconds"] = time.perf_counter() - t0
+    print(f"phase 24: (a) {rows['seconds']:.1f} s", flush=True)
+    return rows
+
+
+def mixed_f32_check(counts: dict) -> dict:
+    """(b) f32 at MIXED_F32_LAYERS layers: a PROMPT-token prefill of
+    MAX_BATCH rows and 3 decode steps, every kernel call against its
+    plain version on the model's activations, then the free-running
+    logits against the plain versions' within LOGIT_TOL_F32."""
+    cfg = mixed_config(n_layers=MIXED_F32_LAYERS, param_dtype="float32",
+                       compute_dtype="float32")
+    params = model_params(cfg, 241)
+    rng = np.random.default_rng(24)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (MAX_BATCH, PROMPT)))
+    steps = [torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (MAX_BATCH, 1)))
+             for _ in range(3)]
+    with checked_kernels(MIXED_KERNELS, "phase 24 mixed f32") as seen:
+        rwkv_run(params, cfg, prompt, steps, contextlib.nullcontext())
+    kernels.reset_launch_counts()
+    got = rwkv_run(params, cfg, prompt, steps, contextlib.nullcontext())
+    torch.cuda.synchronize()
+    counts["mixed:f32"] = kernels.launch_counts()
+    ref = rwkv_run(params, cfg, prompt, steps, plain_kernels())
+    errs = [compare_logits(a, b, LOGIT_TOL_F32, f"phase 24 mixed f32 call "
+                           f"{i}") for i, (a, b) in enumerate(zip(got, ref))]
+    step, pre = want_launches(cfg, "decode_attention")
+    want = {k: pre[k] + 3 * step[k] for k in step}
+    if counts["mixed:f32"] != want:
+        fail(f"phase 24 mixed f32: launches {counts['mixed:f32']} != {want}")
+    print(f"phase 24: (b) {RWKV_ARCH} widths, pattern {MIXED_PATTERN}, f32, "
+          f"{cfg.n_layers} layers, prefill ({MAX_BATCH} x {PROMPT}) + 3 "
+          f"decode steps: every kernel call against its plain version: "
+          + ", ".join(f"{n} {c} calls, max err {e:.3g}"
+                      for n, (c, e) in seen.items())
+          + f" (<= {TOL['torch.float32']} x max(1, |plain|)); free-running "
+          f"logits against the plain versions' {max(errs):.3g} (<= "
+          f"{LOGIT_TOL_F32}), argmax agrees")
+    del params, got, ref
+    torch.cuda.empty_cache()
+    return {"calls": {n: c for n, (c, _) in seen.items()},
+            "kernel_errs": {n: e for n, (_, e) in seen.items()},
+            "logit_err": max(errs)}
+
+
+def mixed_serve(counts: dict) -> dict:
+    """(b) bf16 at full depth under jit over the serve CLI's requests on
+    the contiguous cache: launches per decode step norm_launches +
+    attention_launches + wkv6 at every RWKV-6 slot, no plain version on
+    the card, first tokens against the plain bf16 forward; the decode
+    step traced (device busy), parameter bytes and peak memory."""
+    cfg = mixed_config()
+    torch.cuda.reset_peak_memory_stats()
+    params = model_params(cfg, 242)
+    nbytes = tree_bytes(params)
+    with no_plain_on_card("phase 24 mixed jit"):
+        eng, done, rep, counts["mixed:jit"] = serve_engine(cfg, params,
+                                                           "jit", 24)
+    check_launches("mixed", "jit", eng, rep)
+    if rep["dispatches_per_decode_step"] != 1.0:
+        fail(f"phase 24 mixed jit: {rep['dispatches_per_decode_step']} "
+             "dispatches per decode step")
+    agree = check_first_tokens(eng, done, cfg)
+    trace = phase_trace(eng, "phase 24 mixed jit trace")
+    peak = torch.cuda.max_memory_allocated()
+    row = dict(layers=cfg.n_layers, param_bytes=nbytes, peak_bytes=peak,
+               first_tokens=agree,
+               launches_per_step=rep["kernel_launches_per_decode_step"],
+               **cell_row(rep, trace))
+    print_row(24, "mixed", "jit", row)
+    print(f"phase 24: mixed jit: {cfg.n_layers} layers ({rwkv_layers(cfg)} "
+          f"RWKV-6), parameters {nbytes / 1e9:.2f} GB, peak memory "
+          f"{peak / 1e9:.2f} GB; launches a decode step "
+          f"{ {k: v for k, v in row['launches_per_step'].items() if v} }; "
+          f"first tokens agree with the plain bf16 forward {agree}/{N_REQ}; "
+          "no plain version ran on the card")
+    del eng, params
+    torch.cuda.empty_cache()
+    return row
+
+
+def mixed_train(counts: dict) -> dict:
+    """(c) bf16 at MIXED_TRAIN_LAYERS layers, MIXED_TRAIN_STEPS steps of
+    loss_fn + AdamW on phase 21's n-gram batches (4 x TRAIN_SEQ): the loss
+    must fall; wkv6's backward and the flash backward in one step."""
+    cfg = mixed_config(n_layers=MIXED_TRAIN_LAYERS)
+    losses, ms, step = adamw_steps(cfg, 243, MIXED_TRAIN_STEPS)
+    counts["mixed:train"] = step
+    _, want = want_launches(cfg, "decode_attention")
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        fail(f"phase 24 mixed training: losses {losses}")
+    if step != want:
+        fail(f"phase 24 mixed training: launches a step {step} != {want}")
+    print(f"phase 24: (c) mixed bf16, {cfg.n_layers} layers, 4 x {TRAIN_SEQ} "
+          f"tokens a step: losses {[round(x, 3) for x in losses]}; ms a step "
+          f"{[round(x, 1) for x in ms]}; launches a step "
+          f"{ {k: v for k, v in step.items() if v} }")
+    return {"losses": losses, "ms": ms}
+
+
+def phase_mixed() -> tuple:
+    """Phase 24: the four examples on the card, then RWKV-6 beside
+    attention (f32 kernels against plain, bf16 served whole under jit,
+    training).  Returns (rows, {path: launch counts})."""
+    t0 = time.perf_counter()
+    counts: dict = {}
+    rows = {"examples": examples_on_card(counts),
+            "f32": mixed_f32_check(counts),
+            "jit": mixed_serve(counts),
+            "train": mixed_train(counts)}
+    secs = time.perf_counter() - t0
+    print(f"phase 24: {secs:.1f} s")
+    print("phase 24: " + json.dumps({"rows": rows, "seconds": secs}))
     return rows, counts
 
 
@@ -6065,12 +6329,14 @@ def main() -> None:
         mark("1-3, 21-22")
         _, steps_counts = phase_steps(pool)
     mark("1-3, 21-23")
+    _, mixed_counts = phase_mixed()
+    mark("1-3, 21-24")
     _, tp_counts = phase_tp()
-    mark("1-3, 20-22")
+    mark("1-3, 20-24")
     _, moe_counts = phase_moe()
-    mark("1-3, 18, 20-22")
+    mark("1-3, 18, 20-24")
     _, xattn_counts = phase_xattn()
-    mark("1-3, 18-22")
+    mark("1-3, 18-24")
     eager_counts, eager = {}, {}
     eager_counts["contiguous"], rep, eng, done = phase_serve(cfg, 4)
     eager["contiguous"] = (rep, done, phase_trace(eng, "phase 5",
@@ -6102,7 +6368,7 @@ def main() -> None:
     _, spec_counts = phase_speculative(jit_rows, jit_done, llama_rows,
                                        llama_done)
     _, tier_counts = phase_serving_tier()
-    print(f"chip_smoke: phases 1-23 in {time.perf_counter() - t0:.1f} s")
+    print(f"chip_smoke: phases 1-24 in {time.perf_counter() - t0:.1f} s")
 
     entries = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -6134,6 +6400,9 @@ def main() -> None:
         # phase 23: a rank's train steps and serve calls (tp 2), RWKV-6
         # training's launches a step
         by_path.update({p: c[name] for p, c in steps_counts.items()})
+        # phase 24: the examples' runs, the mixed stack's f32 check, its
+        # jit serve and its training (launches a step)
+        by_path.update({p: c[name] for p, c in mixed_counts.items()})
         entries.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "launches_by_path": by_path, **row})

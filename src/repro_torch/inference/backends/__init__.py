@@ -5,7 +5,7 @@ from repro_torch.inference.backends.base import (  # noqa: F401
     BackendInfo, CallAccount, ExecutionBackend,
 )
 from repro_torch.inference.backends.local import (  # noqa: F401
-    NOT_PORTED, PLANS, LocalBackend,
+    PLANS, LocalBackend,
 )
 from repro_torch.inference.backends.speculative import (  # noqa: F401
     SpeculativeBackend,

@@ -87,7 +87,6 @@ from repro_torch.runtime import (LaunchPlan, PlanExecutor, Planner,
 from repro_torch.runtime.plan import segment_label
 from repro_torch.telemetry.attribution import attribute_events
 
-NOT_PORTED = "not ported yet, see ROADMAP Queue A"
 # process-wide traces of the planned bodies, by signature (the trace of a
 # signature is the same for every engine; its plan is the engine's own)
 _TRACES: OrderedDict = OrderedDict()

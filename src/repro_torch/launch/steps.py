@@ -364,6 +364,11 @@ def make_plan(kind: str, cfg: ModelConfig, shape: ShapeSpec, mesh,
     partial["mlp"] = split_at("mlp", ("w_out", "wv"))
     partial["mamba"] = split_at("mixer", ("out_proj",), "mamba" in kinds)
     partial["rwkv6"] = split_at("mixer", ("wr",), "rwkv6" in kinds)
+    if "rwkv6" in kinds and kinds & {"attn", "attn_local", "xattn"} and \
+            partial["rwkv6"] != partial["attn"]:
+        # one local head count serves both kinds: split neither
+        for k in ("attn", "attn_local", "xattn", "rwkv6"):
+            partial[k] = False
     partial["moe"] = False
     vocab_split = multi and _split(p_specs["embed"]) is not None
     partial["head"] = vocab_split

@@ -8,7 +8,9 @@ encoder-only BERT and XLM-R (no causal mask), Gemma-2 (``("attn_local",
 "attn")``, soft-capped scores), the MoE decoders Moonlight-16B-A3B and
 Kimi K2 (``layers/moe.py``), the Jamba hybrid (Mamba layers, ``layers/
 mamba.py``, around one attention slot, MoE in the odd slots), RWKV-6
-(``("rwkv6",)``, ``layers/rwkv.py``) and the cross-attention stacks:
+(``("rwkv6",)``, ``layers/rwkv.py``; an RWKV-6 slot also runs beside any
+other kind, as the reference's ``_apply_slot`` takes it) and the
+cross-attention stacks:
 Llama-3.2-Vision (an ``xattn`` layer, gated by ``tanh(xgate)``, every
 fifth layer, over image-patch states) and the SeamlessM4T encoder-decoder
 (``n_encoder_layers`` non-causal encoder layers, ``params["enc_blocks"]``
@@ -55,11 +57,16 @@ forward at L layers, A of them attention and M Mamba:
     untied stack (the unembed's product), ``residual_rmsnorm(x,
     final_norm)`` once on a tied one.
 
-An RWKV-6 stack has no norm->single-matmul window; its norm windows sit on
-the residual stream and go through the legacy two-output ``rmsnorm``, 2L+1
-per forward: norm1 of layer 0 (no residual), norm2 with the time mix's
-output as residual, norm1 of layer i > 0 with the previous channel mix's
-output, and the final norm; plus ``wkv6`` L times.
+An RWKV-6 layer has no norm->single-matmul window (its token shift comes
+before its first product).  The pure RWKV-6 stack runs its own loop, whose
+norm windows sit on the residual stream and go through the legacy
+two-output ``rmsnorm``, 2L+1 per forward: norm1 of layer 0 (no residual),
+norm2 with the time mix's output as residual, norm1 of layer i > 0 with the
+previous channel mix's output, and the final norm; plus ``wkv6`` L times.
+In a stack that mixes it with other kinds an RWKV-6 slot runs in the
+general loop: ``wkv6`` once, its norm1 a ``residual_rmsnorm`` (without a
+residual at a superblock's first slot), its norm2 a ``residual_rmsnorm``
+before the channel mix (``models.norm_launches``).
 
 The large plain products (wk, wv, wo, the MLP, the experts, Mamba's
 projections, a tied unembed) stay ``torch.matmul``/``bmm``, as the reference
@@ -171,16 +178,11 @@ def encoder_config(cfg: ModelConfig) -> ModelConfig:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the model feature this port does not run: RWKV-6 layers
-    mixed with other kinds, which no config has."""
-    kinds = set(cfg.block_pattern)
-    unknown = kinds - set(MIXER_SCOPE)
+    """Raise for a block kind the reference does not know; any known kind
+    runs in any slot, as the reference's ``_apply_slot`` takes it."""
+    unknown = set(cfg.block_pattern) - set(MIXER_SCOPE)
     if unknown:
         raise ValueError(f"{cfg.name}: unknown block kinds {sorted(unknown)}")
-    if "rwkv6" in kinds and len(kinds) > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: ['rwkv6 beside other kinds'] not ported yet, see "
-            "ROADMAP Queue A, \"model features\"")
 
 
 def check_speculative(cfg: ModelConfig) -> None:
@@ -322,18 +324,25 @@ def layer_window(cfg: ModelConfig, i: int) -> int:
 
 
 def norm_launches(cfg: ModelConfig, encoder: bool = False) -> dict:
-    """The fused norm kernels one forward of a non-RWKV stack launches:
-    ``rmsnorm_matmul`` once a superblock (its first slot's norm1 with the
-    mixer's input product), ``residual_rmsnorm`` at every norm2 and at the
-    norm1 of every later slot (the previous layer's output added in); the
-    final norm is a ``rmsnorm_matmul`` with an untied head, else a
-    ``residual_rmsnorm``.  An encoder-decoder's decoder layer adds its
-    ``norm_x`` (a ``residual_rmsnorm``); with ``encoder`` (a forward with
+    """The norm kernels one forward launches.  The pure RWKV-6 stack:
+    the legacy ``rmsnorm`` 2L + 1 times.  Any other: ``rmsnorm_matmul``
+    once a superblock (its first slot's norm1 with the mixer's input
+    product) unless that slot is RWKV-6, whose token shift comes first, so
+    its norm1 is a ``residual_rmsnorm`` without a residual (the reference's
+    plan lowers that bare ``rmsnorm`` window to the same kernel);
+    ``residual_rmsnorm`` at every norm2 and at the norm1 of every later
+    slot (the previous layer's output added in); the final norm is a
+    ``rmsnorm_matmul`` with an untied head, else a ``residual_rmsnorm``.
+    An encoder-decoder's decoder layer adds its ``norm_x`` (a
+    ``residual_rmsnorm``); with ``encoder`` (a forward with
     ``encoder_tokens``) each encoder layer adds one of each, and its final
     ``enc_norm`` one ``residual_rmsnorm``."""
-    n_sb, tied = cfg.n_superblocks, int(cfg.tie_embeddings)
-    n = {"rmsnorm_matmul": n_sb + 1 - tied,
-         "residual_rmsnorm": 2 * cfg.n_layers - n_sb + tied}
+    L, tied = cfg.n_layers, int(cfg.tie_embeddings)
+    if tuple(cfg.block_pattern) == ("rwkv6",):
+        return {"rmsnorm": 2 * L + 1}
+    fused = 0 if cfg.block_pattern[0] == "rwkv6" else cfg.n_superblocks
+    n = {"rmsnorm_matmul": fused + 1 - tied,
+         "residual_rmsnorm": 2 * L - fused + tied}
     if cfg.n_encoder_layers:
         n["residual_rmsnorm"] += cfg.n_layers
         if encoder:
@@ -467,8 +476,8 @@ def forward(params, tokens, cfg: ModelConfig, *, cache: Optional[list] = None,
     head counts and ``params`` its shard (``inference.backends.sharded``,
     which serves pure-attention decoders only).  None: identity.
 
-    The training options (``loss_fn``; a forward without cache, refused on
-    an RWKV-6 stack): ``with_aux`` also returns the MoE load-balancing aux
+    The training options (``loss_fn``; a forward without cache):
+    ``with_aux`` also returns the MoE load-balancing aux
     loss summed over the MoE layers (an f32 scalar, 0 without MoE), as the
     reference's forward does; ``return_hidden`` returns the final-normed
     hidden states (B,S,D) instead of the logits (an untied head's final
@@ -659,16 +668,21 @@ def _layer_parts(bp, i, cfg: ModelConfig, ctx, state, encoder_out, decode,
     output into the residual or, at a superblock's first slot, the mixer's
     input product; the mixer; an encoder-decoder layer's cross-attention)
     and ``mlp(x, o) -> (x, pending, aux)`` (norm2 fusing the mixer's
-    output, the MLP or MoE, and at a superblock's last slot the residual
-    add; ``pending`` is the MLP output left for the next layer's norm1,
-    ``aux`` the MoE aux loss or None)."""
+    output, the MLP, MoE or RWKV-6 channel mix, and at a superblock's last
+    slot the residual add; ``pending`` is the MLP output left for the next
+    layer's norm1, ``aux`` the MoE aux loss or None).  An RWKV-6 slot's
+    token shift comes before its first product, so at a superblock's first
+    slot its norm1 is a ``residual_rmsnorm`` without a residual, as the
+    reference's plan lowers its bare ``rmsnorm`` window."""
     kind = layer_kind(cfg, i)
     eps = cfg.norm_eps
     period = len(cfg.block_pattern)
-    w_in = bp["mixer"]["in_proj"] if kind == "mamba" else bp["mixer"]["wq"]
+    w_in = (None if kind == "rwkv6" else
+            bp["mixer"]["in_proj"] if kind == "mamba" else bp["mixer"]["wq"])
     enter = _entry(tp, kind)
     red = tp.reduce if enter is not _identity else reduce
     akw = {} if tp is None else {"kv_sel": tp.kv_sel}
+    wkv = None if tp is None else tp.wkv
     xkw = {} if tp is None else {"seq_split": tp.cross_split}
     xenter = _entry(tp, "xattn")
     cross_kv = encoder_out if encoder_out is None else xenter(encoder_out)
@@ -677,7 +691,7 @@ def _layer_parts(bp, i, cfg: ModelConfig, ctx, state, encoder_out, decode,
         # a superblock's first norm1 fuses with the mixer's input
         # product; a later slot's fuses the residual add before it
         with scope("norm1"):
-            if pending is None:
+            if pending is None and w_in is not None:
                 y, h = kernels.rmsnorm_matmul(
                     enter(x), enter(bp["norm1"]["scale"]), w_in, eps=eps)
             else:
@@ -688,6 +702,9 @@ def _layer_parts(bp, i, cfg: ModelConfig, ctx, state, encoder_out, decode,
             if kind == "mamba":
                 o, _ = mamba.mamba_fwd(bp["mixer"], h, cfg, state=state,
                                        xz=y, reduce=red)
+            elif kind == "rwkv6":
+                o = rwkv.rwkv_time_fwd(bp["mixer"], h, cfg, state,
+                                       reduce=red, wkv=wkv)
             elif kind == "xattn":
                 o = attn.cross_attention_fwd(
                     bp["mixer"], h, y, cfg, cache=_cross_cache(state),
@@ -727,6 +744,10 @@ def _layer_parts(bp, i, cfg: ModelConfig, ctx, state, encoder_out, decode,
             with scope("moe"):
                 m, a = moe.moe_fwd(bp["moe"], h, cfg, dist=dist,
                                    with_aux=with_aux)
+        elif kind == "rwkv6":
+            with scope("rwkv_channel"):
+                m = rwkv.rwkv_channel_fwd(bp["mlp"], h, cfg, state,
+                                          reduce=mlp_red)
         else:
             with scope("mlp"):
                 m = mlp_fwd(bp["mlp"], h, cfg, reduce=mlp_red)
